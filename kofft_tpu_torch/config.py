@@ -1,0 +1,106 @@
+"""Configuration: env vars read once at import, plus runtime setters.
+
+The counterpart of ``kofft_tpu.config`` with the ``KOFFT_TPU_TORCH_``
+prefix. Setters take ``None`` (and 0 for the integer knobs) to revert to
+the env/default value, as the JAX package's setters do.
+
+Tunables
+--------
+KOFFT_TPU_TORCH_BACKEND        auto | cuda | torch | cufft | naive, standing
+                               for the JAX package's auto | pallas | xla |
+                               jnpfft | naive
+KOFFT_TPU_TORCH_DFT_CUTOFF     max n computed by one direct DFT matmul in
+                               the plain factor tree (default 128)
+KOFFT_TPU_TORCH_PRECISION      highest | high | default. The hand-written
+                               kernels compute every tier in float32 FFMA
+                               (the `highest` arithmetic), which clears
+                               every tier's floor.
+KOFFT_TPU_TORCH_MAX_FACTOR     largest smooth prime factor before Bluestein
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+from typing import Optional
+
+_PREFIX = "KOFFT_TPU_TORCH_"
+
+
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(_PREFIX + name)
+    if v is None or v == "":
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        raise ValueError(f"{_PREFIX}{name} must be an integer, got {v!r}")
+
+
+def _env_str(name: str, default: str, choices: tuple[str, ...]) -> str:
+    v = os.environ.get(_PREFIX + name, default).lower()
+    if v not in choices:
+        raise ValueError(f"{_PREFIX}{name} must be one of {choices}, "
+                         f"got {v!r}")
+    return v
+
+
+_BACKENDS = ("auto", "cuda", "torch", "cufft", "naive")
+_PRECISIONS = ("highest", "high", "default")
+
+
+@dataclass
+class _Config:
+    backend: str = field(
+        default_factory=lambda: _env_str("BACKEND", "auto", _BACKENDS))
+    dft_cutoff: int = field(
+        default_factory=lambda: _env_int("DFT_CUTOFF", 128))
+    precision: str = field(
+        default_factory=lambda: _env_str("PRECISION", "highest",
+                                         _PRECISIONS))
+    max_factor: int = field(
+        default_factory=lambda: _env_int("MAX_FACTOR", 13))
+
+
+_config = _Config()
+_env_defaults = _Config()  # frozen copy of env-derived values for revert
+
+
+def get_config() -> _Config:
+    return _config
+
+
+def set_backend(name: Optional[str]) -> None:
+    """Override the backend; ``None`` reverts to the env/auto default."""
+    if name is None:
+        _config.backend = _env_defaults.backend
+        return
+    name = name.lower()
+    if name not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, got {name!r}")
+    _config.backend = name
+
+
+def set_dft_cutoff(n: Optional[int]) -> None:
+    if n is None or n == 0:
+        _config.dft_cutoff = _env_defaults.dft_cutoff
+        return
+    if n < 2:
+        raise ValueError("dft_cutoff must be >= 2")
+    _config.dft_cutoff = int(n)
+
+
+def set_precision(p: Optional[str]) -> None:
+    if p is None:
+        _config.precision = _env_defaults.precision
+        return
+    p = p.lower()
+    if p not in _PRECISIONS:
+        raise ValueError(f"precision must be one of {_PRECISIONS}, got {p!r}")
+    _config.precision = p
+
+
+def trace_key() -> tuple:
+    """Config values that alter the computed plan (precision, factor tree
+    shape) — the key of any cached plan that depends on them."""
+    return (_config.precision, _config.dft_cutoff, _config.max_factor)

@@ -1,0 +1,71 @@
+"""Split (re, im) complex helpers for the plain PyTorch engines.
+
+Complex data is carried as two real float planes, as in
+``kofft_tpu.ops._complex``; complex dtypes appear only at the public API
+boundary (``split``/``merge``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_CONST: dict = {}
+
+
+def dtype_name(t: torch.Tensor) -> str:
+    """'float32' for torch.float32 — the key the host tables use."""
+    return str(t.dtype).replace("torch.", "")
+
+
+def host_float_dtype(dtype):
+    """The working float dtype for a host input of ``dtype``: float64 (or
+    the components of complex128) stays float64, since both the CPU and
+    the H100 run it natively; everything else computes in float32."""
+    return np.float64 if np.dtype(dtype) == np.float64 else np.float32
+
+
+def const(arr: np.ndarray, device) -> torch.Tensor:
+    """Device copy of a cached host table, made once per (table, device).
+    The host array is kept alive beside its copy, so its id stays
+    unique."""
+    key = (id(arr), str(torch.device(device)))
+    hit = _CONST.get(key)
+    if hit is None:
+        hit = (arr, torch.as_tensor(np.ascontiguousarray(arr),
+                                    device=device))
+        _CONST[key] = hit
+    return hit[1]
+
+
+def split(x: torch.Tensor):
+    """complex tensor -> (re, im) float planes. Real input gets zero imag."""
+    if x.is_complex():
+        return x.real.contiguous(), x.imag.contiguous()
+    return x, torch.zeros_like(x)
+
+
+def merge(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """(re, im) planes -> complex tensor (complex64 for float32 and
+    bfloat16 planes, complex128 for float64)."""
+    if re.dtype not in (torch.float32, torch.float64):
+        re, im = re.float(), im.float()
+    return torch.complex(re, im)
+
+
+def cmul(ar, ai, br, bi):
+    """Elementwise complex multiply on planes."""
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def cmatmul_last(ar, ai, br, bi):
+    """``y[..., k] = sum_j a[..., j] * b[j, k]`` as four real matmuls
+    (``b`` as host numpy tables or tensors)."""
+    dev = ar.device
+    if isinstance(br, np.ndarray):
+        br, bi = const(br, dev), const(bi, dev)
+    rr = torch.matmul(ar, br)
+    ii = torch.matmul(ai, bi)
+    ri = torch.matmul(ar, bi)
+    ir = torch.matmul(ai, br)
+    return rr - ii, ri + ir

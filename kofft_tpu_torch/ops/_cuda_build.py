@@ -1,0 +1,104 @@
+"""Build the CUDA kernels in ``csrc/`` with nvcc at first use and load them
+with ctypes.
+
+``csrc/fft_stages.cu`` (with the header it includes) is compiled for
+``sm_90a`` into a shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds). The library goes to
+``build/kofft_tpu_torch/`` at the root of the checkout, named by a hash
+of every source and flag, so a changed source builds anew and an
+unchanged one loads at once. There is no fallback: a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "fft_stages.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kofft_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of the exported functions
+SIGNATURES = {
+    "kofft_stage1": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
+                     _P, _P, _P, _P, _I, _I, _I, _P],
+    "kofft_stage2": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
+                     _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+# the last build: nvcc/ptxas output and wall seconds (0.0: found built)
+build_info = {"log": "", "seconds": None}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels of "
+                       "kofft_tpu_torch are built from source at first use")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build() -> Path:
+    out = BUILD_DIR / f"{SOURCE.stem}-{_digest()}.so"
+    if out.exists():
+        build_info.update(log="(found built)", seconds=0.0)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_info.update(log=proc.stdout + proc.stderr,
+                      seconds=time.perf_counter() - t0)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {SOURCE.name} (exit "
+                           f"{proc.returncode}):\n{build_info['log']}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                cdll = ctypes.CDLL(str(_build()))
+                for fn, argtypes in SIGNATURES.items():
+                    f = getattr(cdll, fn)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
+                _lib = cdll
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")

@@ -1,0 +1,216 @@
+// The two stages of the Bailey four-step FFT, X = F_n2 . ((F_n1 . A) o W),
+// for a batch of (n1, n2) float32 planes, with a plain C interface bound
+// by ctypes (kofft_tpu_torch/ops/_cuda_build.py).
+//
+// stage1 replaces s1_kernel (kofft_tpu/ops/pallas_kernels.py:547) and
+// phase 1 of the phased kernel (_build_phased kern, :847-913): one block
+// per (batch row, tile of T columns) loads the (n1, T) column tile of the
+// (b, n1, n2) input into shared memory, runs T line FFTs of length n1,
+// multiplies by W[k1, j2] = col[k1, j2 / t] * base[k1, j2 mod t] from
+// _twiddle_factors' tables (t = 128), and writes C, (b, n1, n2).
+//
+// stage2 replaces s2_kernel (:569) and phases 2-3 of the phased kernel
+// (:915-1013): one block per (batch row, tile of T rows of C) runs T line
+// FFTs of length n2 along the rows and writes Y[b, k2, k1] into
+// (b, n2, n1), whose row-major flattening is the natural-order spectrum
+// (the phased flat form's output, with no extra pass).
+//
+// The TPU kept C in VMEM (phased) or HBM (two-call pair); here C always
+// goes through device memory between the two launches. At 2^20 it is 8 MB
+// and stays in the 50 MB L2. Blocks are independent; nothing is carried
+// between them.
+//
+// Inverse: conj = 1 negates the imaginary part on load in stage 1 and on
+// store in stage 2 (the conjugation identity of pallas_fft.py:75-80), so
+// the inverse costs no extra pass.
+//
+// Where trouble is likely, and what the design does about it:
+// - Shared memory: a block holds two (m, T) float2 buffers (ping-pong),
+//   16*m*T bytes. The host picks T (16 down to 1) so that this stays
+//   <= 64 KB where it can (up to three blocks per SM): T = 4 at m = 1024,
+//   T = 1 from m = 4096 (128 KB for one line of 8192). Everything above
+//   48 KB needs cudaFuncAttributeMaxDynamicSharedMemorySize, raised once
+//   per device before the first launch that needs it; every error is
+//   returned to the caller.
+// - Coalescing: stage 1 reads and stage 2 writes T consecutive floats per
+//   row (64-byte segments at T = 16, 4-byte at T = 1 for n = 2^26).
+//   Tiling the transposes through shared memory is later work.
+// - Leaf cost: see line_fft.cuh; dense leaves make the pair FFMA-bound at
+//   2^26.
+#include <cuda_runtime.h>
+
+#include "line_fft.cuh"
+
+using kofft::LinePlan;
+
+namespace {
+
+// 512 threads: 256 measured slower at every shape (H100, 700 W); more
+// registers per thread (3 blocks of 512 per SM) spilled and lost too
+constexpr int kThreads = 512;
+
+__global__ void __launch_bounds__(kThreads)
+stage1_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
+              float* __restrict__ cr, float* __restrict__ ci, int n1, int n2,
+              int T, LinePlan plan, const float2* __restrict__ tab,
+              const float* __restrict__ ebr, const float* __restrict__ ebi,
+              const float* __restrict__ ecr, const float* __restrict__ eci,
+              int tw_t, float sgn) {
+  extern __shared__ float2 smem[];
+  const int total = n1 * T;
+  float2* buf0 = smem;
+  float2* buf1 = smem + total;
+  const int tiles = n2 / T;
+  const long long row = blockIdx.x / tiles;
+  const int j2_0 = (blockIdx.x - static_cast<int>(row) * tiles) * T;
+  const long long base = row * n1 * static_cast<long long>(n2);
+  const float* a_r = ar + base;
+  const float* a_i = ai + base;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int j1 = idx / T;
+    const int c = idx - j1 * T;
+    const long long g = static_cast<long long>(j1) * n2 + j2_0 + c;
+    buf0[idx] = make_float2(a_r[g], sgn * a_i[g]);
+  }
+  const float2* y = kofft::line_fft(buf0, buf1, total, plan, tab);
+  const int ncol = n2 / tw_t;
+  float* c_r = cr + base;
+  float* c_i = ci + base;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int k1 = idx / T;
+    const int c = idx - k1 * T;
+    const int j2 = j2_0 + c;
+    const int col = j2 / tw_t;
+    const int u = j2 - col * tw_t;
+    const float wcr = ecr[k1 * ncol + col];
+    const float wci = eci[k1 * ncol + col];
+    const float wbr = ebr[k1 * tw_t + u];
+    const float wbi = ebi[k1 * tw_t + u];
+    const float2 w = make_float2(wcr * wbr - wci * wbi, wcr * wbi + wci * wbr);
+    const float2 v = kofft::cmulf(y[idx], w);
+    const long long g = static_cast<long long>(k1) * n2 + j2;
+    c_r[g] = v.x;
+    c_i[g] = v.y;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+stage2_kernel(const float* __restrict__ cr, const float* __restrict__ ci,
+              float* __restrict__ yr, float* __restrict__ yi, int n1, int n2,
+              int T, LinePlan plan, const float2* __restrict__ tab,
+              float sgn) {
+  extern __shared__ float2 smem[];
+  const int total = n2 * T;
+  float2* buf0 = smem;
+  float2* buf1 = smem + total;
+  const int tiles = n1 / T;
+  const long long row = blockIdx.x / tiles;
+  const int k1_0 = (blockIdx.x - static_cast<int>(row) * tiles) * T;
+  const long long base = row * n1 * static_cast<long long>(n2);
+  const float* c_r = cr + base + static_cast<long long>(k1_0) * n2;
+  const float* c_i = ci + base + static_cast<long long>(k1_0) * n2;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int c = idx / n2;
+    const int j2 = idx - c * n2;
+    const long long g = static_cast<long long>(c) * n2 + j2;
+    buf0[j2 * T + c] = make_float2(c_r[g], c_i[g]);
+  }
+  const float2* y = kofft::line_fft(buf0, buf1, total, plan, tab);
+  float* o_r = yr + base;
+  float* o_i = yi + base;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int k2 = idx / T;
+    const int c = idx - k2 * T;
+    const long long g = static_cast<long long>(k2) * n1 + k1_0 + c;
+    o_r[g] = y[idx].x;
+    o_i[g] = sgn * y[idx].y;
+  }
+}
+
+constexpr int kMaxDevices = 64;
+int g_smem1[kMaxDevices];  // dynamic shared memory already allowed, per device
+int g_smem2[kMaxDevices];
+
+// Selects the device (only if it is not current) and raises the kernel's
+// dynamic shared-memory limit once per device: the attribute persists, and
+// setting it on every launch cost host time on the hot path.
+int prepare(const void* fn, int* allowed, int device, int smem) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return e;
+  if (cur != device) {
+    e = cudaSetDevice(device);
+    if (e != cudaSuccess) return e;
+  }
+  if (allowed[device] < smem) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return e;
+    allowed[device] = smem;
+  }
+  return cudaSuccess;
+}
+
+// steps: host int32 array, 6 entries per step
+// (mm, kb, bb, inner, f_off, tw_off); kb must divide mm, and a kb > 1 step
+// needs an even f_off (16-byte aligned table rows)
+int fill_plan(LinePlan* p, const int* steps, int nsteps) {
+  if (nsteps < 1 || nsteps > kofft::kMaxSteps) return cudaErrorInvalidValue;
+  p->nsteps = nsteps;
+  for (int s = 0; s < nsteps; ++s) {
+    const int* q = steps + 6 * s;
+    p->mm[s] = q[0];
+    p->kb[s] = q[1];
+    p->bb[s] = q[2];
+    p->inner[s] = q[3];
+    p->f_off[s] = q[4];
+    p->tw_off[s] = q[5];
+    const bool kb_ok = q[1] == 1 || ((q[1] == 4 || q[1] == 8) &&
+                                     q[0] % q[1] == 0 && q[4] % 2 == 0);
+    if (!kb_ok) return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" int kofft_stage1(const float* ar, const float* ai, float* cr,
+                            float* ci, int b, int n1, int n2, int T,
+                            const int* steps, int nsteps, const void* tab,
+                            const float* ebr, const float* ebi,
+                            const float* ecr, const float* eci, int tw_t,
+                            int conj, int device, void* stream) {
+  LinePlan p;
+  int r = fill_plan(&p, steps, nsteps);
+  if (r != cudaSuccess) return r;
+  if (T < 1 || n2 % T != 0 || n2 % tw_t != 0) return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(2 * sizeof(float2) * n1 * T);
+  r = prepare(reinterpret_cast<const void*>(stage1_kernel), g_smem1, device,
+              smem);
+  if (r != cudaSuccess) return r;
+  const unsigned grid = static_cast<unsigned>(b) * (n2 / T);
+  stage1_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      ar, ai, cr, ci, n1, n2, T, p, static_cast<const float2*>(tab), ebr, ebi,
+      ecr, eci, tw_t, conj ? -1.f : 1.f);
+  return cudaGetLastError();
+}
+
+extern "C" int kofft_stage2(const float* cr, const float* ci, float* yr,
+                            float* yi, int b, int n1, int n2, int T,
+                            const int* steps, int nsteps, const void* tab,
+                            int conj, int device, void* stream) {
+  LinePlan p;
+  int r = fill_plan(&p, steps, nsteps);
+  if (r != cudaSuccess) return r;
+  if (T < 1 || n1 % T != 0) return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(2 * sizeof(float2) * n2 * T);
+  r = prepare(reinterpret_cast<const void*>(stage2_kernel), g_smem2, device,
+              smem);
+  if (r != cudaSuccess) return r;
+  const unsigned grid = static_cast<unsigned>(b) * (n1 / T);
+  stage2_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      cr, ci, yr, yi, n1, n2, T, p, static_cast<const float2*>(tab),
+      conj ? -1.f : 1.f);
+  return cudaGetLastError();
+}

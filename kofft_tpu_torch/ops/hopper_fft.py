@@ -1,0 +1,84 @@
+"""The kernel FFT as differentiable PyTorch ops: the counterpart of
+``kofft_tpu.ops.pallas_fft``'s linear primitives.
+
+The DFT is linear with a symmetric matrix, so the backward of the planes
+map is the same transform in the other direction (the unnormalized
+inverse of the cotangent, pallas_fft.py:105-110) and the forward-mode
+derivative is the same transform of the tangents (:95-99). Both run the
+same kernels, so no backward kernel exists or is needed.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.autograd.forward_ad as fwAD
+
+from .hopper_kernels import _pow2_split, fused_multilevel_fft
+
+
+def kernel_supported(n: int, dtype: str) -> bool:
+    """Which (n, dtype) the stage kernels serve: smooth n = odd * 2^k
+    (odd <= 23) in [2^14, 2^26] on float32 planes."""
+    return dtype == "float32" and _pow2_split(n) is not None
+
+
+def _zeros_if_none(t, like):
+    return torch.zeros_like(like) if t is None else t.contiguous()
+
+
+class _KernelFFT(torch.autograd.Function):
+    @staticmethod
+    def forward(xr, xi, n, inverse):
+        return fused_multilevel_fft(xr, xi, n, inverse)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n, ctx.inverse = inputs[2], inputs[3]
+        ctx.like = inputs[0].detach()
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        gr = _zeros_if_none(gr, ctx.like)
+        gi = _zeros_if_none(gi, ctx.like)
+        yr, yi = _KernelFFT.apply(gr, gi, ctx.n, not ctx.inverse)
+        return yr, yi, None, None
+
+    @staticmethod
+    def jvp(ctx, tr, ti, _n, _inverse):
+        tr = _zeros_if_none(tr, ctx.like)
+        ti = _zeros_if_none(ti, ctx.like)
+        return fused_multilevel_fft(tr, ti, ctx.n, ctx.inverse)
+
+
+def _tracked(xr, xi) -> bool:
+    """Whether reverse or forward-mode autograd has to see the op. Untracked
+    calls skip ``autograd.Function.apply``, whose argument binding costs
+    tens of microseconds of host time on the host-bound 2^20 path."""
+    if torch.is_grad_enabled() and (xr.requires_grad or xi.requires_grad):
+        return True
+    return (fwAD.unpack_dual(xr).tangent is not None
+            or fwAD.unpack_dual(xi).tangent is not None)
+
+
+def kernel_fft_planes(xr, xi, n: int, inverse: bool, donate: bool = False):
+    """Unnormalized DFT (inverse: n * ifft) of (..., n) float32 planes
+    through the stage kernels, differentiable in both modes. With
+    ``donate`` (and no gradient to track) the result is written into the
+    input planes' storage."""
+    xr = xr.contiguous()
+    xi = xi.contiguous()
+    if not _tracked(xr, xi):
+        return fused_multilevel_fft(xr, xi, n, inverse, donate=donate)
+    return _KernelFFT.apply(xr, xi, n, bool(inverse))
+
+
+def kernel_tiled_planes(ar, ai, inverse: bool = False,
+                        donate: bool = False):
+    """:func:`kernel_fft_planes` on tiled (b, m, m) planes, n = m*m: the
+    (b, n) batch routes as the JAX tiled grid does (``phased_tiled``, or
+    ``ml`` where it folds the batch), and the (b, n2, n1) result is the
+    natural-order spectrum in row-major order."""
+    b, m = ar.shape[0], ar.shape[-1]
+    yr, yi = kernel_fft_planes(ar.reshape(b, m * m), ai.reshape(b, m * m),
+                               m * m, inverse, donate)
+    return yr.reshape(b, m, m), yi.reshape(b, m, m)

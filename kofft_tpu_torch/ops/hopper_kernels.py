@@ -1,0 +1,499 @@
+"""Hand-written Hopper kernels of the 1-D complex FFT, their host plan,
+their plain PyTorch versions, and the routing that mirrors
+``kofft_tpu.ops.pallas_kernels.fused_multilevel_fft``.
+
+The JAX package runs the Bailey four-step X = F_n2 . ((F_n1 . A) o W)
+through three Pallas forms: the phased one-call kernel in its flat
+(single transform) and tiled-grid (batched) forms, and the two-call pair
+``_build_ml``. They compute the same thing and differ only in where the
+TPU kept the inter-stage matrix C and in layouts Mosaic forced on them.
+On Hopper they are two CUDA kernels (``csrc/fft_stages.cu``), ``stage1``
+(column FFTs of length n1, then the twiddle) and ``stage2`` (row FFTs of
+length n2, written transposed), both built on one block-wide line FFT
+(``csrc/line_fft.cuh``). The routing still picks a class per shape, as
+the JAX function does, and counts it in ``classes`` so a run shows which
+TPU-kernel class it went through; ``launches`` counts the CUDA launches.
+
+Each wrapper launches its kernel for a CUDA tensor and runs the plain
+PyTorch version for a CPU tensor; any other device raises. The plain
+versions (``fft_axis0_plain``, ``stage1_plain``, ``stage2_plain``) are the
+JAX routine's recursion with the Gauss three-product of ``_cdot`` at the
+`highest` tier, in float32 matmuls.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..config import get_config
+from ..errors import InvalidValueError, require
+from ..plan import tables
+from ._complex import const
+
+_TILE = 128
+_MAX_N = 1 << 26
+_MIN_FACTOR = _TILE
+_MAX_ODD = 23
+_ML_LEAF = 128            # dense DFT leaves up to 128 points
+_ML_TILE = 128            # twiddle factor tile t of _twiddle_factors
+_PHASED_MAX_N = 1 << 22   # phased one-call cap, 6-pass tiers
+_PHASED_MAX_N_DEFAULT = 1 << 24   # phased cap, `default` tier
+_PHASED_FLAT_MAX_N = 1 << 21      # flat (rank-1 output) phased cap
+# shared memory of one stage block (two buffers). 64 KB lets up to three
+# blocks share an SM so loads, leaf work and stores of different blocks
+# overlap: 8 x 2^20 measured 940 -> 704 us against 128 KB (H100, 700 W)
+_SMEM_BYTES = 64 * 1024
+
+launches = {"stage1": 0, "stage2": 0}
+classes = {"phased_flat": 0, "phased_tiled": 0, "ml": 0}
+
+
+def reset_counts() -> None:
+    """Set every launch and class count to 0."""
+    for d in (launches, classes):
+        for k in d:
+            d[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# host plan (same rules as the JAX package; the zone thresholds and caps
+# were measured on a TPU v5e and are re-measured on the H100 later)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _pow2_split(n: int):
+    """n = n1 * n2 for smooth n = o * 2^k (odd o <= 23), both factors
+    multiples of 128 and n2 a power of two; None otherwise. Pow2 n: the
+    balanced split with n1 capped at 2048 through 2^23 and n2 at 8192.
+    Smooth n: the odd factor stays in n1 <= 3072, most balanced split."""
+    if n < _MIN_FACTOR * _MIN_FACTOR or n > _MAX_N:
+        return None
+    tz = (n & -n).bit_length() - 1
+    o = n >> tz
+    if o == 1:
+        k = n.bit_length() - 1
+        n1 = 1 << (k // 2)
+        if n <= (1 << 23):
+            n1 = min(n1, 2048)
+        n1 = max(n1, n // 8192)
+        n2 = n // n1
+        if n1 < _MIN_FACTOR or n2 < _MIN_FACTOR:
+            return None
+        return n1, n2
+    if o > _MAX_ODD:
+        return None
+    best = None
+    for a in range(7, tz - 6):
+        n1 = o << a
+        n2 = 1 << (tz - a)
+        if n1 > 3072:
+            break
+        if n2 > 8192:
+            continue
+        if best is None or abs(n1 - n2) < abs(best[0] - best[1]):
+            best = (n1, n2)
+    return best
+
+
+def _ml_split(m: int):
+    """Split a line m = a * b toward <= 128 leaves: pow2 m balanced; smooth
+    m keeps its odd factor in b; larger odd factors take the largest
+    divisor <= sqrt(m)."""
+    tz = (m & -m).bit_length() - 1
+    o = m >> tz
+    if o == 1:
+        k = m.bit_length() - 1
+        a = 1 << (k // 2)
+        return a, m // a
+    if o <= _MAX_ODD:
+        a = 1 << max(1, tz // 2)
+        return a, m // a
+    best = None
+    for a in range(2, int(m ** 0.5) + 1):
+        if m % a == 0:
+            best = a
+    return best, m // best
+
+
+def _ml_const_keys(m: int) -> list:
+    """Ordered table keys of the length-m line FFT."""
+    out = []
+
+    def walk(mm):
+        if mm <= _ML_LEAF:
+            key = ("dft", mm)
+            if key not in out:
+                out.append(key)
+            return
+        a, b = _ml_split(mm)
+        key = ("tw", a, b)
+        if key not in out:
+            out.append(key)
+        walk(a)
+        walk(b)
+
+    walk(m)
+    return out
+
+
+def _ml_const_arrays(keys: list, dtype: str) -> list:
+    arrs = []
+    for key in keys:
+        if key[0] == "dft":
+            re, im = tables.dft_matrix(key[1], dtype)
+        else:
+            re, im = tables.twiddle(key[1], key[2], dtype)
+        arrs += [re, im]
+    return arrs
+
+
+def _twiddle_factors(n1: int, n2: int, t: int, dtype: str):
+    """Factored four-step twiddle W[k1, j*t + u] = col[k1, j] * base[k1, u]
+    (exact integer phases; the float32 product adds <= 1 ulp). Returns
+    (base_re, base_im, col_re, col_im), base (n1, t), col (n1, n2/t)."""
+    def build():
+        n = n1 * n2
+        k1 = np.arange(n1, dtype=np.int64)
+        u = np.arange(t, dtype=np.int64)
+        j = np.arange(n2 // t, dtype=np.int64) * t
+        ang_b = (-2.0 * np.pi / n) * np.mod(np.outer(k1, u), n).astype(
+            np.float64)
+        ang_c = (-2.0 * np.pi / n) * np.mod(np.outer(k1, j), n).astype(
+            np.float64)
+        return (np.cos(ang_b).astype(dtype), np.sin(ang_b).astype(dtype),
+                np.cos(ang_c).astype(dtype), np.sin(ang_c).astype(dtype))
+
+    return tables.custom(("twfac", n1, n2, t, dtype), build)
+
+
+def _ml_batch_tile(b: int, n1: int, n2: int) -> int:
+    """Batch rows the JAX two-call pair folds into one grid block (powers
+    of two, ~0.5 MB blocks). bt > 1 routes a shape to the `ml` class."""
+    t = min(_ML_TILE, n2)
+    target = (1 << 19) // (n1 * t * 4)
+    bt = 1
+    while bt * 2 <= min(b, max(1, target)) and b % (bt * 2) == 0:
+        bt *= 2
+    return bt
+
+
+def _use_phased(n: int, bt: int) -> bool:
+    """Whether the JAX package serves the shape with the phased one-call
+    kernel: bt == 1 and n up to the per-tier cap."""
+    cap = (_PHASED_MAX_N_DEFAULT if get_config().precision == "default"
+           else _PHASED_MAX_N)
+    return bt == 1 and n <= cap
+
+
+def _phased_rows(n: int, b: int) -> int:
+    """Batch rows the JAX phased grid folds per step (2 for even b and
+    n <= 2^21). The CUDA stages run one block per (row, tile) and fold
+    nothing; kept so the port's host plan answers as the JAX one does."""
+    if b > 1 and b % 2 == 0 and n <= (1 << 21):
+        return 2
+    return 1
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _line_consts(m: int, device) -> dict:
+    keys = _ml_const_keys(m)
+    arrs = _ml_const_arrays(keys, "float32")
+    return {k: (const(arrs[2 * i], device), const(arrs[2 * i + 1], device))
+            for i, k in enumerate(keys)}
+
+
+def _cdot(fr, fi, xr, xi):
+    """y[k, c] = sum_j F[j, k] x[j, c] by the Gauss three-product (the
+    `highest` tier of the JAX ``_cdot``)."""
+    t1 = torch.matmul(fr.T, xr)
+    t2 = torch.matmul(fi.T, xi)
+    t3 = torch.matmul((fr + fi).T, xr + xi)
+    return t1 - t2, t3 - t1 - t2
+
+
+def fft_axis0_plain(xr, xi, m: int, consts: dict | None = None):
+    """FFT along axis 0 of (m, t) float32 planes: the recursion of
+    ``_fft_axis0_traced``, m = a*b, j = ja*b + jb, output k = ka + a*kb."""
+    if consts is None:
+        consts = _line_consts(m, xr.device)
+    if m <= _ML_LEAF:
+        fr, fi = consts[("dft", m)]
+        return _cdot(fr, fi, xr, xi)
+    a, b = _ml_split(m)
+    t = xr.shape[-1]
+    yr, yi = fft_axis0_plain(xr.reshape(a, b * t), xi.reshape(a, b * t),
+                             a, consts)
+    yr = yr.reshape(a, b, t)
+    yi = yi.reshape(a, b, t)
+    twr, twi = consts[("tw", a, b)]
+    cr = yr * twr[:, :, None] - yi * twi[:, :, None]
+    ci = yr * twi[:, :, None] + yi * twr[:, :, None]
+    cr = cr.transpose(0, 1).reshape(b, a * t)
+    ci = ci.transpose(0, 1).reshape(b, a * t)
+    zr, zi = fft_axis0_plain(cr, ci, b, consts)
+    return zr.reshape(m, t), zi.reshape(m, t)
+
+
+def _twiddle_plane(n1: int, n2: int, device):
+    """W[k1, j2] = col[k1, j2 // t] * base[k1, j2 % t], the product the
+    stage-1 kernel forms from the factored tables."""
+    def build():
+        t = min(_ML_TILE, n1)
+        br, bi, cr, ci = _twiddle_factors(n1, n2, t, "float32")
+        cr = np.repeat(cr, t, axis=1)
+        ci = np.repeat(ci, t, axis=1)
+        br = np.tile(br, (1, n2 // t))
+        bi = np.tile(bi, (1, n2 // t))
+        return cr * br - ci * bi, cr * bi + ci * br
+
+    wr, wi = tables.custom(("twplane", n1, n2), build)
+    return const(wr, device), const(wi, device)
+
+
+def stage1_plain(ar, ai, conj: bool = False):
+    """Plain version of the stage-1 kernel: (b, n1, n2) -> C (b, n1, n2),
+    column FFTs of length n1 then the twiddle W."""
+    b, n1, n2 = ar.shape
+    if conj:
+        ai = -ai
+    xr = ar.permute(1, 0, 2).reshape(n1, b * n2)
+    xi = ai.permute(1, 0, 2).reshape(n1, b * n2)
+    yr, yi = fft_axis0_plain(xr, xi, n1)
+    yr = yr.reshape(n1, b, n2).permute(1, 0, 2)
+    yi = yi.reshape(n1, b, n2).permute(1, 0, 2)
+    wr, wi = _twiddle_plane(n1, n2, ar.device)
+    return ((yr * wr - yi * wi).contiguous(),
+            (yr * wi + yi * wr).contiguous())
+
+
+def stage2_plain(cr, ci, conj: bool = False):
+    """Plain version of the stage-2 kernel: C (b, n1, n2) -> (b, n2, n1),
+    row FFTs of length n2 written transposed."""
+    b, n1, n2 = cr.shape
+    xr = cr.permute(2, 0, 1).reshape(n2, b * n1)
+    xi = ci.permute(2, 0, 1).reshape(n2, b * n1)
+    yr, yi = fft_axis0_plain(xr, xi, n2)
+    yr = yr.reshape(n2, b, n1).permute(1, 0, 2).contiguous()
+    yi = yi.reshape(n2, b, n1).permute(1, 0, 2).contiguous()
+    if conj:
+        yi = -yi
+    return yr, yi
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _kernel_tile(m: int) -> int:
+    """Lines per block: the largest power of two T <= 16 whose two (m, T)
+    float2 buffers fit _SMEM_BYTES, else 1 (T = 4 at m = 1024; a single
+    line of 8192 takes 128 KB, within the 227 KB a block may have)."""
+    t = 16
+    while t > 1 and 16 * m * t > _SMEM_BYTES:
+        t //= 2
+    return t
+
+
+def _leaf_kb(mm: int, kb_max: int) -> int:
+    """Outputs per thread of a leaf step (register blocking): the largest
+    of 8 and 4 that divides mm and is <= kb_max, else 1."""
+    for kb in (8, 4):
+        if kb <= kb_max and mm % kb == 0:
+            return kb
+    return 1
+
+
+def _grid_kb(blocks: int, sms: int) -> int:
+    """Register blocking for a launch of ``blocks`` blocks on ``sms`` SMs.
+    Measured on the H100 (back-to-back device time, 700 W): 8 outputs per
+    thread win on grids of at most ~4 blocks per SM (2^20: 96.7 -> 76.6
+    us, 3*2^18: 92.1 -> 67.2) and lose 3-11 % on large grids (8 x 2^20,
+    2^24, 2^26), where 4 is kept. Why 8 loses there is still open."""
+    return 8 if blocks <= 4 * sms else 4
+
+
+def _line_plan(m: int, t: int, kb_max: int = 8):
+    """The flattened line-FFT chain for (m, t) blocks: an int32 array of
+    (mm, kb, bb, inner, f_off, tw_off) per step, and the float2-interleaved
+    float32 table buffer the offsets point into. Every table starts at an
+    even float2 offset, so the kernel may read table rows 16 bytes at a
+    time."""
+    def build():
+        keys = _ml_const_keys(m)
+        arrs = _ml_const_arrays(keys, "float32")
+        offs, chunks, off = {}, [], 0
+        for i, key in enumerate(keys):
+            re, im = arrs[2 * i], arrs[2 * i + 1]
+            offs[key] = off
+            pad = re.size % 2
+            off += re.size + pad
+            chunks.append(np.stack([re.ravel(), im.ravel()], axis=1).ravel())
+            chunks.append(np.zeros(2 * pad, np.float32))
+        steps, inner, mm = [], t, m
+        while mm > _ML_LEAF:
+            a, b = _ml_split(mm)
+            require(a <= _ML_LEAF, InvalidValueError,
+                    f"line {m}: leading factor {a} of {mm} is not a leaf")
+            steps += [a, _leaf_kb(a, kb_max), b, inner, offs[("dft", a)],
+                      offs[("tw", a, b)]]
+            inner *= a
+            mm = b
+        steps += [mm, _leaf_kb(mm, kb_max), 1, inner, offs[("dft", mm)], 0]
+        return (np.asarray(steps, np.int32),
+                np.concatenate(chunks).astype(np.float32))
+
+    return tables.custom(("lineplan", m, t, kb_max), build)
+
+
+def _check_planes(xr, xi, what: str) -> None:
+    # one condition, message built only on failure: this runs on every
+    # launch, and formatting eagerly cost ~25 us of host time per call
+    if not (xr.dim() == 3 and xr.shape == xi.shape
+            and xr.dtype == torch.float32 and xi.dtype == torch.float32
+            and xr.device == xi.device and xr.device.type in ("cpu", "cuda")
+            and xr.is_contiguous() and xi.is_contiguous()):
+        raise InvalidValueError(
+            f"{what}: planes must be two contiguous float32 (b, n1, n2) "
+            f"tensors of one shape on one cpu or cuda device; got "
+            f"{tuple(xr.shape)} {xr.dtype} on {xr.device} (contiguous "
+            f"{xr.is_contiguous()}) and {tuple(xi.shape)} {xi.dtype} on "
+            f"{xi.device} (contiguous {xi.is_contiguous()})")
+
+
+_ARGS: dict = {}
+
+
+def _static_args(stage: int, b: int, n1: int, n2: int, dev) -> tuple:
+    """The launch arguments that depend only on the shape and the device:
+    (T, steps pointer, step count, table pointers...), built once. The
+    host side of a launch is on the 2^20 critical path (the transform was
+    host-bound there), so nothing is rebuilt per call."""
+    key = (stage, b, n1, n2, dev.index)
+    hit = _ARGS.get(key)
+    if hit is None:
+        m, other = (n1, n2) if stage == 1 else (n2, n1)
+        t = _kernel_tile(m)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        steps, tab = _line_plan(m, t, _grid_kb(b * (other // t), sms))
+        tabs = [const(tab, dev)]
+        if stage == 1:
+            tabs += [const(a, dev) for a in
+                     _twiddle_factors(n1, n2, min(_ML_TILE, n1), "float32")]
+        # the cached host and device tables keep every pointer alive
+        hit = (t, steps.ctypes.data, len(steps) // 6,
+               *[x.data_ptr() for x in tabs])
+        _ARGS[key] = hit
+    return hit
+
+
+def _stream(dev) -> int:
+    # the current stream's raw handle; torch.cuda.current_stream(dev)
+    # costs ~14 us of host time per call on the card's host
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def stage1(ar, ai, conj: bool = False):
+    """Stage 1: (b, n1, n2) planes -> C (b, n1, n2). CUDA tensors launch
+    the kernel (one count in ``launches``); CPU tensors run
+    ``stage1_plain``."""
+    _check_planes(ar, ai, "stage1")
+    if ar.device.type == "cpu":
+        return stage1_plain(ar, ai, conj)
+    from ._cuda_build import check, lib
+    b, n1, n2 = ar.shape
+    dev = ar.device
+    t, steps, nsteps, tab, ebr, ebi, ecr, eci = _static_args(
+        1, b, n1, n2, dev)
+    cr = torch.empty_like(ar)
+    ci = torch.empty_like(ai)
+    err = lib().kofft_stage1(
+        ar.data_ptr(), ai.data_ptr(), cr.data_ptr(), ci.data_ptr(), b, n1,
+        n2, t, steps, nsteps, tab, ebr, ebi, ecr, eci, min(_ML_TILE, n1),
+        int(conj), dev.index, _stream(dev))
+    check(err, "stage1 launch")
+    launches["stage1"] += 1
+    return cr, ci
+
+
+def stage2(cr, ci, conj: bool = False, out=None):
+    """Stage 2: C (b, n1, n2) -> (b, n2, n1). ``out`` is an optional pair of
+    contiguous float32 tensors of b*n1*n2 elements that receive the
+    result (the donated input planes). CUDA tensors launch the kernel;
+    CPU tensors run ``stage2_plain``."""
+    _check_planes(cr, ci, "stage2")
+    b, n1, n2 = cr.shape
+    if out is not None:
+        yr, yi = out[0].view(b, n2, n1), out[1].view(b, n2, n1)
+        _check_planes(yr, yi, "stage2 out")
+    if cr.device.type == "cpu":
+        pr, pi = stage2_plain(cr, ci, conj)
+        if out is None:
+            return pr, pi
+        yr.copy_(pr)
+        yi.copy_(pi)
+        return yr, yi
+    from ._cuda_build import check, lib
+    dev = cr.device
+    if out is None:
+        yr = torch.empty((b, n2, n1), dtype=cr.dtype, device=dev)
+        yi = torch.empty((b, n2, n1), dtype=cr.dtype, device=dev)
+    t, steps, nsteps, tab = _static_args(2, b, n1, n2, dev)
+    err = lib().kofft_stage2(
+        cr.data_ptr(), ci.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1,
+        n2, t, steps, nsteps, tab, int(conj), dev.index, _stream(dev))
+    check(err, "stage2 launch")
+    launches["stage2"] += 1
+    return yr, yi
+
+
+# ---------------------------------------------------------------------------
+# entries with the JAX routing
+# ---------------------------------------------------------------------------
+
+def _route(n: int, b: int, flat_ok: bool) -> str:
+    n1, n2 = _pow2_split(n)
+    bt = _ml_batch_tile(b, n1, n2)
+    if _use_phased(n, bt) and flat_ok and n <= _PHASED_FLAT_MAX_N:
+        return "phased_flat"
+    if _use_phased(n, bt):
+        return "phased_tiled"
+    return "ml"
+
+
+def fused_multilevel_fft(xr, xi, n: int, inverse: bool = False,
+                         donate: bool = False):
+    """Unnormalized DFT (inverse: n * ifft) of (..., n) float32 planes
+    through the two stage kernels, routed and counted by the TPU-kernel
+    class ``kofft_tpu``'s ``fused_multilevel_fft`` would use: a rank-1
+    transform up to 2^21 is ``phased_flat``, other shapes up to the phased
+    cap ``phased_tiled``, larger or batch-folded shapes ``ml``.
+    ``donate=True`` writes the result into the input planes' storage
+    (stage 2 reads only C), and the inputs must not be used afterwards."""
+    batch = tuple(xr.shape[:-1])
+    b = 1
+    for s in batch:
+        b *= s
+    n1, n2 = _pow2_split(n)
+    classes[_route(n, b, batch == ())] += 1
+    cr, ci = stage1(xr.reshape(b, n1, n2), xi.reshape(b, n1, n2),
+                    conj=inverse)
+    yr, yi = stage2(cr, ci, conj=inverse,
+                    out=(xr, xi) if donate else None)
+    return yr.reshape(*batch, n), yi.reshape(*batch, n)
+
+
+def phased_tiled_fft(ar, ai, inverse: bool = False, donate: bool = False):
+    """Unnormalized DFT on tiled (b, m, m) planes, n = m*m (the JAX
+    ``phased_tiled_fft`` contract): :func:`fused_multilevel_fft` on the
+    (b, n) view, whose batch routes ``phased_tiled`` (``ml`` where the JAX
+    package folds it) and whose output is the flat natural-order spectrum."""
+    b, m = ar.shape[0], ar.shape[-1]
+    yr, yi = fused_multilevel_fft(ar.reshape(b, m * m), ai.reshape(b, m * m),
+                                  m * m, inverse, donate)
+    return yr.reshape(b, m, m), yi.reshape(b, m, m)

@@ -1,0 +1,30 @@
+"""Host <-> device transfer helpers."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def asnumpy(x) -> np.ndarray:
+    """A tensor (any device, bfloat16 read as float32) as host numpy."""
+    if isinstance(x, np.ndarray):
+        return x
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    x = x.detach()
+    if x.dtype == torch.bfloat16:
+        x = x.float()
+    return x.cpu().numpy()
+
+
+def planes_from_numpy(xr, xi, device="cpu"):
+    """Two host arrays as float32 (float64 kept) plane tensors on
+    ``device``."""
+    out = []
+    for a in (xr, xi):
+        a = np.asarray(a)
+        if a.dtype != np.float64:
+            a = a.astype(np.float32)
+        out.append(torch.as_tensor(np.ascontiguousarray(a), device=device))
+    return out[0], out[1]

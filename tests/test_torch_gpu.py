@@ -1,0 +1,100 @@
+"""The port's CUDA stage kernels against their plain PyTorch versions, on
+the card. Every test here carries the ``gpu`` marker and skips without a
+CUDA device; whether one exists is decided inside the fixture. Run on the
+card with ``python -m pytest -m gpu --noconftest tests/test_torch_gpu.py``
+(``--noconftest``: the shared conftest imports jax, which the port does
+not need).
+
+Tolerances: kernel vs plain >= 110 dB (both are float32 evaluations of the
+same recursion with equal tables; the kernel sums with direct complex
+FMAs, the plain version with the Gauss three-product, so they differ only
+in rounding order); each vs the float64 numpy FFT > 100 dB
+(SNR_FLOOR_DB of tests/test_fft.py).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from kofft_tpu_torch.ops import hopper_kernels as HK  # noqa: E402
+from kofft_tpu_torch.ops.dft import snr_db  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+PORT_DB = 110.0
+ORACLE_DB = 100.0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run "
+                    "python -m pytest -m gpu --noconftest "
+                    "tests/test_torch_gpu.py")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _np(r, i):
+    return r.double().cpu().numpy() + 1j * i.double().cpu().numpy()
+
+
+def _planes(shape, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((2,) + shape).astype(np.float32)
+    return torch.as_tensor(a[0], device=dev), torch.as_tensor(a[1], device=dev)
+
+
+@pytest.mark.parametrize("b,n", [(1, 1 << 14), (8, 1 << 14), (2, 1 << 16),
+                                 (1, 3 << 18), (1, 23 << 14), (1, 9 << 14),
+                                 (1, 1 << 22)])
+def test_stages_match_plain(cuda, b, n):
+    n1, n2 = HK._pow2_split(n)
+    ar, ai = _planes((b, n1, n2), cuda)
+    before = dict(HK.launches)
+    cr, ci = HK.stage1(ar, ai)
+    pr, pi = HK.stage1_plain(ar, ai)
+    assert snr_db(_np(pr, pi), _np(cr, ci)) >= PORT_DB
+    yr, yi = HK.stage2(cr, ci)
+    qr, qi = HK.stage2_plain(cr, ci)
+    torch.cuda.synchronize()
+    assert snr_db(_np(qr, qi), _np(yr, yi)) >= PORT_DB
+    assert HK.launches["stage1"] == before["stage1"] + 1
+    assert HK.launches["stage2"] == before["stage2"] + 1
+    ref = np.fft.fft(_np(ar, ai).reshape(b, n), axis=-1)
+    assert snr_db(ref, _np(yr, yi).reshape(b, n)) > ORACLE_DB
+
+
+def test_inverse_and_donate(cuda):
+    n = 1 << 16
+    xr, xi = _planes((2, n), cuda, seed=1)
+    x = _np(xr, xi)
+    yr, yi = HK.fused_multilevel_fft(xr, xi, n, inverse=True)
+    assert snr_db(np.fft.ifft(x, axis=-1) * n, _np(yr, yi)) > ORACLE_DB
+    dr, di = xr.clone(), xi.clone()
+    zr, zi = HK.fused_multilevel_fft(dr, di, n, donate=True)
+    torch.cuda.synchronize()
+    assert zr.data_ptr() == dr.data_ptr() and zi.data_ptr() == di.data_ptr()
+    assert snr_db(np.fft.fft(x, axis=-1), _np(zr, zi)) > ORACLE_DB
+
+
+def test_public_grad_on_card(cuda):
+    import kofft_tpu_torch as kt
+    n = 1 << 14
+    xr, xi = _planes((n,), cuda, seed=2)
+    gr, gi = _planes((n,), cuda, seed=3)
+    xr.requires_grad_(True)
+    xi.requires_grad_(True)
+    yr, yi = kt.fft_split(xr, xi)
+    (yr * gr + yi * gi).sum().backward()
+    want = np.fft.ifft(_np(gr, gi)) * n
+    assert snr_db(want, _np(xr.grad, xi.grad)) > ORACLE_DB
+
+
+def test_rejects_bad_planes(cuda):
+    ar, ai = _planes((1, 128, 128), cuda)
+    with pytest.raises(ValueError):
+        HK.stage1(ar.double(), ai.double())
+    with pytest.raises(ValueError):
+        HK.stage1(ar.transpose(1, 2), ai.transpose(1, 2))

@@ -1,0 +1,149 @@
+"""The port's host plan and configuration against kofft_tpu.
+
+The port's only state is its constant tables, so carrying the state
+across means the port's float32 tables are bit-for-bit those of the JAX
+package (exact equality, no tolerance). The host-plan functions that
+route shapes must give the same answers for every size class.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from kofft_tpu.ops import pallas_kernels as PK  # noqa: E402
+from kofft_tpu.plan import tables as jax_tables  # noqa: E402
+from kofft_tpu_torch import config as tcfg  # noqa: E402
+from kofft_tpu_torch.ops import hopper_kernels as HK  # noqa: E402
+from kofft_tpu_torch.plan import (balanced_split, build_factor_tree,  # noqa: E402
+                                  factorize, tables)
+
+SIZES = [1 << k for k in range(14, 27)] + [3 << 14, 3 << 18, 5 << 16,
+                                           23 << 10, 23 << 14, 9 << 14]
+
+
+@pytest.mark.parametrize("kind,args", [
+    ("dft_matrix", (16,)), ("dft_matrix", (48,)), ("dft_matrix", (80,)),
+    ("dft_matrix", (128,)), ("twiddle", (32, 32)), ("twiddle", (16, 48)),
+    ("chirp", (4099,))])
+def test_tables_bit_equal(kind, args):
+    mine = getattr(tables, kind)(*args, "float32")
+    theirs = getattr(jax_tables, kind)(*args, "float32")
+    for a, b in zip(mine, theirs):
+        assert a.dtype == b.dtype == np.float32
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("t", [8, 128])
+def test_twiddle_factors_bit_equal(t):
+    mine = HK._twiddle_factors(1024, 1024, t, "float32")
+    theirs = PK._twiddle_factors(1024, 1024, t, "float32")
+    for a, b in zip(mine, theirs):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_host_plan_agrees(n):
+    assert HK._pow2_split(n) == PK._pow2_split(n)
+    sp = HK._pow2_split(n)
+    if sp is None:
+        return
+    for m in sp:
+        assert HK._ml_split(m) == PK._ml_split(m)
+        assert HK._ml_const_keys(m) == PK._ml_const_keys(m)
+    for bt in (1, 2):
+        assert HK._use_phased(n, bt) == PK._use_phased(n, bt)
+    for b in (1, 2, 3, 8):
+        assert HK._ml_batch_tile(b, *sp) == PK._ml_batch_tile(b, *sp)
+        assert HK._phased_rows(n, b) == PK._phased_rows(n, b)
+
+
+def test_host_plan_agrees_default_tier(monkeypatch):
+    """The phased cap is per tier; both packages read their own config."""
+    from kofft_tpu import config as jcfg
+    monkeypatch.setattr(jcfg.get_config(), "precision", "default")
+    monkeypatch.setattr(tcfg.get_config(), "precision", "default")
+    for n in (1 << 23, 1 << 24, 1 << 25):
+        assert HK._use_phased(n, 1) == PK._use_phased(n, 1)
+    assert HK._use_phased(1 << 24, 1)
+
+
+def test_ml_const_arrays_bit_equal():
+    keys = HK._ml_const_keys(768)
+    for a, b in zip(HK._ml_const_arrays(keys, "float32"),
+                    PK._ml_const_arrays(keys, "float32")):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1, 12, 97, 1000, 4099, 1 << 14, 3125])
+def test_factor_helpers_agree(n):
+    from kofft_tpu import plan as jplan
+    assert factorize(n) == jplan.factorize(n)
+    assert balanced_split(n) == jplan.balanced_split(n)
+    assert repr(build_factor_tree(n)) == repr(jplan.build_factor_tree(n))
+
+
+def test_kernel_tile_fits_shared_memory():
+    for m in (128, 768, 1024, 2048, 2944, 3072, 4096, 8192):
+        t = HK._kernel_tile(m)
+        # T = 1 may exceed the budget (one line of 8192 needs 128 KB) but
+        # never the 227 KB a block can have on Hopper
+        assert t >= 1 and 16 * m * t <= max(HK._SMEM_BYTES, 16 * m)
+        assert 16 * m * t <= 227 * 1024
+        assert t == 16 or t == 1 or 16 * m * (2 * t) > HK._SMEM_BYTES
+
+
+def test_config_env_parsing(monkeypatch):
+    monkeypatch.setenv("KOFFT_TPU_TORCH_BACKEND", "CUFFT")
+    monkeypatch.setenv("KOFFT_TPU_TORCH_DFT_CUTOFF", "64")
+    monkeypatch.setenv("KOFFT_TPU_TORCH_PRECISION", "default")
+    c = tcfg._Config()
+    assert (c.backend, c.dft_cutoff, c.precision) == ("cufft", 64, "default")
+    monkeypatch.setenv("KOFFT_TPU_TORCH_BACKEND", "pallas")
+    with pytest.raises(ValueError):
+        tcfg._Config()
+    monkeypatch.setenv("KOFFT_TPU_TORCH_BACKEND", "auto")
+    monkeypatch.setenv("KOFFT_TPU_TORCH_DFT_CUTOFF", "many")
+    with pytest.raises(ValueError):
+        tcfg._Config()
+
+
+def test_config_setters_revert():
+    cfg = tcfg.get_config()
+    try:
+        tcfg.set_backend("torch")
+        tcfg.set_precision("high")
+        tcfg.set_dft_cutoff(256)
+        assert (cfg.backend, cfg.precision, cfg.dft_cutoff) == \
+            ("torch", "high", 256)
+        assert tcfg.trace_key() == ("high", 256, cfg.max_factor)
+        with pytest.raises(ValueError):
+            tcfg.set_backend("xla")
+        with pytest.raises(ValueError):
+            tcfg.set_precision("low")
+        with pytest.raises(ValueError):
+            tcfg.set_dft_cutoff(1)
+    finally:
+        tcfg.set_backend(None)
+        tcfg.set_precision(None)
+        tcfg.set_dft_cutoff(0)
+    d = tcfg._env_defaults
+    assert (cfg.backend, cfg.precision, cfg.dft_cutoff) == \
+        (d.backend, d.precision, d.dft_cutoff)
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, kofft_tpu_torch, kofft_tpu_torch.ops.hopper_fft, "
+            "kofft_tpu_torch.ops._cuda_build; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'kofft_tpu.'))]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
