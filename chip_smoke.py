@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive kofft_tpu_torch's main path, the 1-D complex FFT, on one CUDA card.
+"""Drive kofft_tpu_torch's main paths, the 1-D complex and real FFT, on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -12,31 +13,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    the ptxas register / shared-memory lines are printed;
 3. kernels vs plain: stage1 and stage2 against their plain PyTorch
    versions on the same CUDA tensors, and the pair against a float64
-   numpy FFT, at (8, 2^14), 2^20, 3*2^18, (8, 2^20), 2^24 and 2^26;
+   numpy FFT, at (8, 2^14), 2^20, 3*2^18, (8, 2^20), 2^24 and 2^26; then
+   stage1_real and stage2_half the same way, the pair against the float64
+   numpy rfft, at (4, 2^14), 2^20, 3*2^18, (8, 2^20), 2^24 and 2^26;
    every SNR must exceed 100 dB;
-4. main path: the public entries on CUDA tensors with every count set to
-   0 just before; each case checks its output against a float64 oracle
-   and that its TPU-kernel class count rose; the kernel launch counts are
-   read just after;
-5. gradient: backward through fft_split at 2^20 against the analytic
-   gradient (the unnormalized inverse of the cotangent);
+4. main paths: the public entries (complex, then real) with every count
+   set to 0 just before each path; each case checks its output against a
+   float64 oracle and that its TPU-kernel class count rose; the kernel
+   launch counts are read just after each path; one real case passes
+   numpy input with no device, which must land on the card;
+5. gradient: backward through fft_split and through rfft_split at 2^20
+   against the analytic gradient (the unnormalized inverse of the
+   cotangent, zero-padded to n for the real transform);
 6. timing: CUDA events after warm-up, of the kernel path, the plain
-   version and torch.fft (cuFFT) at 2^20, 8 x 2^20, 2^24 and 2^26, and
-   of each stage kernel and its plain version at 2^20. Two numbers each: the
-   median of 20 single calls, each between its own pair of events (this
-   includes the host's enqueue time whenever the device would otherwise
-   wait), and the device time per call over 20 back-to-back calls
-   between one pair of events (the host runs ahead; the kernels' JSON
-   record carries this one).
+   version and torch.fft (cuFFT) at 2^20, 8 x 2^20, 2^24 and 2^26 for the
+   complex and the real FFT, and of each stage kernel and its plain
+   version at (1, 1024, 1024). Three numbers each: the median of 20
+   single calls, each between its own pair of events (this includes the
+   host's enqueue time whenever the device would otherwise wait); the
+   device time per call over 20 back-to-back calls between one pair of
+   events (the host runs ahead; the kernels' JSON record carries this
+   one); and the host's time per call to enqueue those 20 calls. The two
+   kernel paths, fft_split and rfft_split, are timed in turns (fft, rfft,
+   rfft, fft, three times) and reported as medians. Each transform row
+   has its bound (``transform_bound``).
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits
-non-zero before it prints any result.
+A bound is the least time the card could take for the work: the larger
+of the bytes the function must move (each input read once, each output
+written once) over 3.35 TB/s, and 5 m log2 m float32 operations per
+complex line of length m (half for real input or one-sided output) over
+67 TFLOP/s. The line before the last is the kernels' JSON record
+(launches on the main paths, max abs error against the plain version,
+back-to-back ms of kernel and plain version at (1, 1024, 1024), and the
+bound there); the last line is {"ok": true, "device": {...}}. Without a
+CUDA device the script exits non-zero before it prints any result.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -50,6 +66,9 @@ sys.path.insert(0, str(ROOT))
 
 FLOOR_DB = 100.0
 SEED = 20261016
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FMA-pipe flop/s
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = 67e12
 
 
 def log(*a):
@@ -62,6 +81,43 @@ def snr_db(ref, got) -> float:
     den = np.sum(np.abs(ref - got) ** 2)
     return float("inf") if den == 0 else float(
         10 * np.log10(np.sum(np.abs(ref) ** 2) / den))
+
+
+def bound_ms(nbytes: float, flops: float):
+    """(ms, "bytes" | "operations"): the least time the card can take to
+    move ``nbytes`` through device memory or to do ``flops`` float32
+    operations, whichever is longer."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fft_flops(points: int, m: int, real: bool) -> float:
+    """Operations of FFTs of length m over ``points`` points: 5 m log2 m
+    per complex line, half that for real input or one-sided output."""
+    return (2.5 if real else 5.0) * points * math.log2(m)
+
+
+def stage_bound(name: str, b: int, n1: int, n2: int):
+    """bound_ms of what one launch of stage kernel ``name`` on (b, n1, n2)
+    must do: its data planes read once and written once, and the FFT
+    operations of its lines. The twiddle products and the dense leaves'
+    extra MACs are left out: they are this algorithm's, not the
+    function's."""
+    pts = b * n1 * n2
+    nbytes = {"stage1": 16 * pts, "stage2": 16 * pts,
+              "stage1_real": 12 * pts,
+              "stage2_half": 8 * pts + 8 * b * (pts // b // 2 + 1)}[name]
+    m = n1 if name.startswith("stage1") else n2
+    return bound_ms(nbytes, fft_flops(
+        pts, m, name in ("stage1_real", "stage2_half")))
+
+
+def transform_bound(real: bool, b: int, n: int):
+    """bound_ms of b transforms of length n: input read once, output
+    written once, 5 n log2 n operations per line (half for the rfft)."""
+    nbytes = b * (4 * n + 8 * (n // 2 + 1)) if real else 16 * b * n
+    return bound_ms(nbytes, fft_flops(b * n, n, real))
 
 
 def main() -> int:
@@ -80,6 +136,10 @@ def main() -> int:
         a = rng.standard_normal((2,) + tuple(shape), dtype=np.float32)
         return (torch.as_tensor(a[0], device=dev),
                 torch.as_tensor(a[1], device=dev))
+
+    def real(shape):
+        return torch.as_tensor(
+            rng.standard_normal(tuple(shape), dtype=np.float32), device=dev)
 
     def host(r, i):
         return (r.detach().double().cpu().numpy()
@@ -140,8 +200,36 @@ def main() -> int:
         assert min(s1, s2, so) > FLOOR_DB, (b, n, s1, s2, so)
         del ar, ai, cr, ci, pr, pi, yr, yi, qr, qi
 
+    err.update(stage1_real=0.0, stage2_half=0.0)
+    for b, n in [(4, 1 << 14), (1, 1 << 20), (1, 3 << 18), (8, 1 << 20),
+                 (1, 1 << 24), (1, 1 << 26)]:
+        n1, n2 = HK._pow2_split(n)
+        ar = real((b, n1, n2))
+        cr, ci = HK.stage1_real(ar)
+        pr, pi = HK.stage1_real_plain(ar)
+        yr, yi = HK.stage2_half(cr, ci)
+        qr, qi = HK.stage2_half_plain(cr, ci)
+        torch.cuda.synchronize()
+        e1 = max((cr - pr).abs().max().item(), (ci - pi).abs().max().item())
+        e2 = max((yr - qr).abs().max().item(), (yi - qi).abs().max().item())
+        err["stage1_real"] = max(err["stage1_real"], e1)
+        err["stage2_half"] = max(err["stage2_half"], e2)
+        s1 = snr_db(host(pr, pi), host(cr, ci))
+        s2 = snr_db(host(qr, qi), host(yr, yi))
+        ref = np.fft.rfft(ar.double().cpu().numpy().reshape(b, n), axis=-1)
+        got = host(yr, yi)
+        so = snr_db(ref, got)
+        sq = snr_db(ref[:, -1], got[:, -1])
+        log(f"({b}, {n}) split ({n1}, {n2}): stage1_real vs plain "
+            f"{s1:.2f} dB (max abs {e1:.3e}), stage2_half vs plain "
+            f"{s2:.2f} dB (max abs {e2:.3e}), real pair vs float64 rfft "
+            f"{so:.2f} dB (Nyquist bin {sq:.2f} dB)")
+        assert min(s1, s2, so, sq) > FLOOR_DB, (b, n, s1, s2, so, sq)
+        del ar, cr, ci, pr, pi, yr, yi, qr, qi, ref, got
+
     # -- 4. main path through the public entries --------------------------
-    log("== phase 4: main path through the public entries")
+    log("== phase 4: main paths through the public entries")
+    log("-- the complex FFT")
     HK.reset_counts()
 
     def case(name, cls, fn, ref_fn):
@@ -193,15 +281,64 @@ def main() -> int:
          lambda: host(*kt.fft_split(zr, zi)),
          lambda: np.fft.fft(zx, axis=-1))
     torch.cuda.synchronize()
-    launches = dict(HK.launches)
-    classes = dict(HK.classes)
-    log(f"main path counts: launches {launches}, classes {classes}")
-    assert all(v > 0 for v in launches.values()), launches
-    assert all(v > 0 for v in classes.values()), classes
+    launches = {k: HK.launches[k] for k in ("stage1", "stage2")}
+    classes = {k: HK.classes[k] for k in ("phased_flat", "phased_tiled",
+                                          "ml")}
+    log(f"complex path counts: launches {launches}, classes {classes}")
     del xr, xi, xc, zr, zi
 
+    log("-- the real FFT")
+    HK.reset_counts()
+
+    def rfft_case(shape, cls, entry):
+        x = real(shape)
+        xh = x.double().cpu().numpy()
+        if entry == "rfft":
+            fn = lambda: kt.rfft(x).cpu().numpy()       # noqa: E731
+        else:
+            fn = lambda: host(*kt.rfft_split(x))         # noqa: E731
+        case(f"{entry} {shape}", cls, fn, lambda: np.fft.rfft(xh, axis=-1))
+
+    rfft_case((1 << 20,), "phased_flat_real", "rfft")
+    rfft_case((8, 1 << 20), "phased_tiled_real", "rfft_split")
+    rfft_case((1 << 24,), "ml_real", "rfft")
+    rfft_case((1 << 26,), "ml_real", "rfft")
+    rfft_case((8, 1 << 14), "ml_real", "rfft")
+    x = real((1 << 20,))
+    xh = x.double().cpu().numpy()
+    case("irfft(rfft(x)) 2^20", "phased_flat_real",
+         lambda: kt.irfft(kt.rfft(x), n=1 << 20).cpu().numpy(), lambda: xh)
+    xn = rng.standard_normal(1 << 20, dtype=np.float32)
+    landed = []
+
+    def numpy_rfft():
+        y = kt.rfft(xn)               # numpy input, no device argument
+        landed.append(y.device.type)
+        return y.cpu().numpy()
+
+    case("rfft of numpy input, default device, 2^20", "phased_flat_real",
+         numpy_rfft, lambda: np.fft.rfft(xn.astype(np.float64)))
+    assert landed == ["cuda"], landed
+    x = real((10 ** 6,))
+    xh = x.double().cpu().numpy()
+    case("rfft 1000000 (plain engine)", None,
+         lambda: kt.rfft(x).cpu().numpy(), lambda: np.fft.rfft(xh))
+    torch.cuda.synchronize()
+    launches.update({k: HK.launches[k] for k in ("stage1_real",
+                                                 "stage2_half")})
+    classes.update({k: HK.classes[k] for k in ("phased_flat_real",
+                                               "phased_tiled_real",
+                                               "ml_real")})
+    log(f"real path counts: launches {HK.launches}, classes {HK.classes}")
+    log(f"main path counts: launches {launches}, classes {classes}")
+    assert set(launches) == set(HK.launches), launches
+    assert set(classes) == set(HK.classes), classes
+    assert all(v > 0 for v in launches.values()), launches
+    assert all(v > 0 for v in classes.values()), classes
+    del x, xh, xn
+
     # -- 5. gradient --------------------------------------------------
-    log("== phase 5: gradient through fft_split at 2^20")
+    log("== phase 5: gradients through fft_split and rfft_split at 2^20")
     n = 1 << 20
     xr, xi = planes((n,))
     gr, gi = planes((n,))
@@ -210,15 +347,31 @@ def main() -> int:
     yr, yi = kt.fft_split(xr, xi)
     (yr * gr + yi * gi).sum().backward()
     s = snr_db(np.fft.ifft(host(gr, gi)) * n, host(xr.grad, xi.grad))
-    log(f"grad vs unnormalized inverse of the cotangent: {s:.2f} dB")
+    log(f"fft_split grad vs unnormalized inverse of the cotangent: "
+        f"{s:.2f} dB")
     assert s > FLOOR_DB, s
     del xr, xi, gr, gi, yr, yi
+    h = n // 2 + 1
+    x = real((n,))
+    gr, gi = planes((h,))
+    x.requires_grad_(True)
+    yr, yi = kt.rfft_split(x)
+    (yr * gr + yi * gi).sum().backward()
+    full = np.zeros(n, np.complex128)
+    full[:h] = host(gr, gi)
+    s = snr_db((np.fft.ifft(full) * n).real,
+               x.grad.detach().double().cpu().numpy())
+    log(f"rfft_split grad vs real plane of the unnormalized inverse of the "
+        f"zero-padded cotangent: {s:.2f} dB")
+    assert s > FLOOR_DB, s
+    del x, gr, gi, yr, yi, full
 
     # -- 6. timing ----------------------------------------------------
     log("== phase 6: timing (CUDA events after 3 warm-up calls)")
 
     def time_ms(fn, runs=20, warm=3):
-        """(median ms of single calls, ms per call back-to-back)"""
+        """(median ms of single calls, device ms per call back-to-back,
+        host ms per call enqueuing those back-to-back calls)"""
         for _ in range(warm):
             fn()
         ts = []
@@ -233,11 +386,20 @@ def main() -> int:
         a = torch.cuda.Event(enable_timing=True)
         z = torch.cuda.Event(enable_timing=True)
         a.record()
+        t = time.perf_counter()
         for _ in range(runs):
             fn()
+        host = (time.perf_counter() - t) * 1e3 / runs
         z.record()
         z.synchronize()
-        return statistics.median(ts), a.elapsed_time(z) / runs
+        return statistics.median(ts), a.elapsed_time(z) / runs, host
+
+    def report(shape, what, t):
+        single, streamed, host = t
+        log(f"{shape}: {what}: single call {single * 1e3:.1f} us, "
+            f"back-to-back {streamed * 1e3:.1f} us/call = "
+            f"{math.prod(shape) / (streamed * 1e-3):.4e} points/s, host "
+            f"enqueue {host * 1e3:.1f} us/call [{smi}]")
 
     for shape in [(1 << 20,), (8, 1 << 20), (1 << 24,), (1 << 26,)]:
         b = shape[0] if len(shape) == 2 else 1
@@ -245,48 +407,73 @@ def main() -> int:
         n1, n2 = HK._pow2_split(n)
         xr, xi = planes(shape)
         xc = torch.complex(xr, xi)
+        x = real(shape)
         a3r, a3i = xr.reshape(b, n1, n2), xi.reshape(b, n1, n2)
-        rows = {
-            "kernel path (fft_split)": lambda: kt.fft_split(xr, xi),
-            "plain version (stage1_plain + stage2_plain)":
-                lambda: HK.stage2_plain(*HK.stage1_plain(a3r, a3i)),
-            "torch.fft.fft (cuFFT)": lambda: torch.fft.fft(xc),
-        }
-        for what, fn in rows.items():
-            single, streamed = time_ms(fn)
-            log(f"{shape}: {what}: single call {single * 1e3:.1f} us, "
-                f"back-to-back {streamed * 1e3:.1f} us/call = "
-                f"{b * n / (streamed * 1e-3):.4e} points/s [{smi}]")
-        del xr, xi, xc, a3r, a3i
+        a3 = x.reshape(b, n1, n2)
+        # the two kernel paths in turns (fft, rfft, rfft, fft, three
+        # times), so that the host's neighbours weigh on both alike; each
+        # number reported is the median of the six
+        paths = {"fft_split": lambda: kt.fft_split(xr, xi),
+                 "rfft_split": lambda: kt.rfft_split(x)}
+        turns = {k: [] for k in paths}
+        for _ in range(3):
+            for k in ("fft_split", "rfft_split", "rfft_split", "fft_split"):
+                turns[k].append(time_ms(paths[k]))
+        rows = (
+            (False, "fft_split",
+             "plain version (stage1_plain + stage2_plain)",
+             lambda: HK.stage2_plain(*HK.stage1_plain(a3r, a3i)),
+             "torch.fft.fft (cuFFT)", lambda: torch.fft.fft(xc)),
+            (True, "rfft_split",
+             "plain version (stage1_real_plain + stage2_half_plain)",
+             lambda: HK.stage2_half_plain(*HK.stage1_real_plain(a3)),
+             "torch.fft.rfft (cuFFT)", lambda: torch.fft.rfft(x)))
+        for real_fft, k, plain_what, plain_fn, lib_what, lib_fn in rows:
+            bd, by = transform_bound(real_fft, b, n)
+            log(f"{shape}: {k} bound {bd * 1e3:.2f} us ({by})")
+            report(shape, f"kernel path ({k}, median of 6 in turns)",
+                   tuple(statistics.median(t[i] for t in turns[k])
+                         for i in range(3)))
+            report(shape, plain_what, time_ms(plain_fn))
+            report(shape, lib_what, time_ms(lib_fn))
+        del xr, xi, xc, x, a3r, a3i, a3, paths, rows
+        torch.cuda.synchronize()
 
-    ar, ai = planes((1, 1024, 1024))
+    shape = (1, 1024, 1024)
+    ar, ai = planes(shape)
     cr, ci = HK.stage1(ar, ai)
     kern = {"stage1": time_ms(lambda: HK.stage1(ar, ai)),
-            "stage2": time_ms(lambda: HK.stage2(cr, ci))}
+            "stage2": time_ms(lambda: HK.stage2(cr, ci)),
+            "stage1_real": time_ms(lambda: HK.stage1_real(ar)),
+            "stage2_half": time_ms(lambda: HK.stage2_half(cr, ci))}
     plain = {"stage1": time_ms(lambda: HK.stage1_plain(ar, ai)),
-             "stage2": time_ms(lambda: HK.stage2_plain(cr, ci))}
+             "stage2": time_ms(lambda: HK.stage2_plain(cr, ci)),
+             "stage1_real": time_ms(lambda: HK.stage1_real_plain(ar)),
+             "stage2_half": time_ms(lambda: HK.stage2_half_plain(cr, ci))}
+    bound = {k: stage_bound(k, *shape) for k in kern}
     for k in kern:
-        log(f"(1, 1024, 1024) {k}: kernel single {kern[k][0] * 1e3:.1f} us,"
+        log(f"{shape} {k}: kernel single {kern[k][0] * 1e3:.1f} us,"
             f" back-to-back {kern[k][1] * 1e3:.1f} us/call; plain single "
             f"{plain[k][0] * 1e3:.1f} us, back-to-back "
-            f"{plain[k][1] * 1e3:.1f} us/call [{smi}]")
+            f"{plain[k][1] * 1e3:.1f} us/call; bound "
+            f"{bound[k][0] * 1e3:.2f} us ({bound[k][1]}) [{smi}]")
     ms = {k: v[1] for k, v in kern.items()}
     plain_ms = {k: v[1] for k, v in plain.items()}
 
     src = "kofft_tpu_torch/ops/csrc/fft_stages.cu"
     tpu = "kofft_tpu/ops/pallas_kernels.py"
+    replaces = {
+        "stage1": (547, "phase 1"), "stage2": (569, "phases 2-3"),
+        "stage1_real": (558, "real=True, phase 1"),
+        "stage2_half": (579, "real=True, phases 2-3 and the Nyquist bin")}
     record = {"kernels": [
-        {"name": "stage1", "route": "cuda", "source": src,
-         "replaces": f"{tpu}:547",
-         "also_replaces": [f"{tpu}:847 (_build_phased kern, phase 1)"],
-         "launches": launches["stage1"], "max_abs_err": err["stage1"],
-         "ms": ms["stage1"], "plain_ms": plain_ms["stage1"]},
-        {"name": "stage2", "route": "cuda", "source": src,
-         "replaces": f"{tpu}:569",
-         "also_replaces": [f"{tpu}:847 (_build_phased kern, phases 2-3)"],
-         "launches": launches["stage2"], "max_abs_err": err["stage2"],
-         "ms": ms["stage2"], "plain_ms": plain_ms["stage2"]},
-    ]}
+        {"name": k, "route": "cuda", "source": src,
+         "replaces": f"{tpu}:{line}",
+         "also_replaces": [f"{tpu}:847 (_build_phased kern, {what})"],
+         "launches": launches[k], "max_abs_err": err[k],
+         "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bound[k][0],
+         "bound_by": bound[k][1], "library_ms": None}
+        for k, (line, what) in replaces.items()]}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """kofft_tpu_torch: the PyTorch + CUDA port of kofft_tpu for NVIDIA Hopper.
 
-This slice ports the 1-D complex FFT: the public 1-D entries, the engine
-ladder, Bluestein, plans, and the Bailey four-step kernels written by hand
-in CUDA for sm_90a (``ops/csrc``). It imports torch and never jax.
+It ports the 1-D complex and real FFT: the public 1-D entries, the
+engine ladder, Bluestein, plans, and the Bailey four-step kernels written
+by hand in CUDA for sm_90a (``ops/csrc``). Host input goes to the card
+unless the caller passes ``device="cpu"``. It imports torch and never jax.
 """
 
 from .config import (get_config, set_backend, set_dft_cutoff,  # noqa: F401
@@ -15,6 +16,7 @@ from .ops.fft import (fft, ifft, fft_batch, ifft_batch,  # noqa: F401
                       ifft_split_tiled, tiled_shape, fftfreq, rfftfreq,
                       fftshift, ifftshift)
 from .ops.plan_api import FftPlan, fft_strided_split  # noqa: F401
+from .ops.rfft import rfft, irfft, rfft_split, irfft_split  # noqa: F401
 from .utils.transfer import asnumpy, planes_from_numpy  # noqa: F401
 
 __version__ = "0.1.0"

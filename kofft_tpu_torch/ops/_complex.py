@@ -25,6 +25,18 @@ def host_float_dtype(dtype):
     return np.float64 if np.dtype(dtype) == np.float64 else np.float32
 
 
+def host_device(device) -> torch.device:
+    """The device that host (numpy or list) input goes to. The entries
+    default to ``"cuda"``; without a card that raises instead of computing
+    on the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"host input goes to device={device!r}, but no CUDA device is "
+            f"available; pass device='cpu' to compute on the CPU")
+    return dev
+
+
 def const(arr: np.ndarray, device) -> torch.Tensor:
     """Device copy of a cached host table, made once per (table, device).
     The host array is kept alive beside its copy, so its id stays

@@ -32,8 +32,12 @@ _I = ctypes.c_int
 SIGNATURES = {
     "kofft_stage1": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
                      _P, _P, _P, _P, _I, _I, _I, _P],
+    "kofft_stage1_real": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
+                          _P, _P, _P, _P, _I, _I, _P],
     "kofft_stage2": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
                      _I, _I, _P],
+    "kofft_stage2_half": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
+                          _I, _P],
 }
 
 _lock = threading.Lock()

@@ -24,6 +24,20 @@
 // store in stage 2 (the conjugation identity of pallas_fft.py:75-80), so
 // the inverse costs no extra pass.
 //
+// The real FFT (rfft) runs two more instances of the same kernels:
+// - stage1_real replaces s1r_kernel (:558) and phase 1 of the phased
+//   real form (real=True, :847): it reads ONE real (b, n1, n2) plane into
+//   shared memory as floats, and the first leaf step of the line FFT does
+//   2 FFMAs per MAC instead of 4 (line_fft.cuh). 4 bytes in, 8 out per
+//   point.
+// - stage2_half replaces s2h_kernel (:579), phases 2-3 of the phased real
+//   form and the Nyquist epilogue (:1347-1356): it runs the full row FFTs
+//   and stores only the flat bins k = k2*n1 + k1 <= n/2 straight into
+//   one-sided (b, n/2 + 1) planes. That set is the rows k2 < n2/2 plus the
+//   Nyquist bin X[n/2] (k2 = n2/2, k1 = 0), which the block holding line
+//   k1 = 0 has in shared memory, so no pass runs after the kernel. The
+//   row stride n/2 + 1 is odd, so the stores stay scalar.
+//
 // Where trouble is likely, and what the design does about it:
 // - Shared memory: a block holds two (m, T) float2 buffers (ping-pong),
 //   16*m*T bytes. The host picks T (16 down to 1) so that this stays
@@ -35,8 +49,8 @@
 // - Coalescing: stage 1 reads and stage 2 writes T consecutive floats per
 //   row (64-byte segments at T = 16, 4-byte at T = 1 for n = 2^26).
 //   Tiling the transposes through shared memory is later work.
-// - Leaf cost: see line_fft.cuh; dense leaves make the pair FFMA-bound at
-//   2^26.
+// - Leaf cost: see line_fft.cuh; the dense leaves, not device memory,
+//   limit the pair.
 #include <cuda_runtime.h>
 
 #include "line_fft.cuh"
@@ -49,6 +63,8 @@ namespace {
 // registers per thread (3 blocks of 512 per SM) spilled and lost too
 constexpr int kThreads = 512;
 
+// kReal: ar is one real plane (ai and sgn are not read)
+template <bool kReal>
 __global__ void __launch_bounds__(kThreads)
 stage1_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
               float* __restrict__ cr, float* __restrict__ ci, int n1, int n2,
@@ -65,14 +81,18 @@ stage1_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
   const int j2_0 = (blockIdx.x - static_cast<int>(row) * tiles) * T;
   const long long base = row * n1 * static_cast<long long>(n2);
   const float* a_r = ar + base;
-  const float* a_i = ai + base;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int j1 = idx / T;
     const int c = idx - j1 * T;
     const long long g = static_cast<long long>(j1) * n2 + j2_0 + c;
-    buf0[idx] = make_float2(a_r[g], sgn * a_i[g]);
+    if constexpr (kReal) {
+      reinterpret_cast<float*>(buf0)[idx] = a_r[g];
+    } else {
+      buf0[idx] = make_float2(a_r[g], sgn * ai[base + g]);
+    }
   }
-  const float2* y = kofft::line_fft(buf0, buf1, total, plan, tab);
+  const float2* y =
+      kofft::line_fft<kReal>(buf0, buf1, total, plan, tab);
   const int ncol = n2 / tw_t;
   float* c_r = cr + base;
   float* c_i = ci + base;
@@ -94,6 +114,8 @@ stage1_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
   }
 }
 
+// kHalf: write the one-sided (b, n/2 + 1) planes (sgn is not read)
+template <bool kHalf>
 __global__ void __launch_bounds__(kThreads)
 stage2_kernel(const float* __restrict__ cr, const float* __restrict__ ci,
               float* __restrict__ yr, float* __restrict__ yi, int n1, int n2,
@@ -116,20 +138,39 @@ stage2_kernel(const float* __restrict__ cr, const float* __restrict__ ci,
     buf0[j2 * T + c] = make_float2(c_r[g], c_i[g]);
   }
   const float2* y = kofft::line_fft(buf0, buf1, total, plan, tab);
-  float* o_r = yr + base;
-  float* o_i = yi + base;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int k2 = idx / T;
-    const int c = idx - k2 * T;
-    const long long g = static_cast<long long>(k2) * n1 + k1_0 + c;
-    o_r[g] = y[idx].x;
-    o_i[g] = sgn * y[idx].y;
+  if constexpr (kHalf) {
+    // flat bins k = k2*n1 + k1 <= n/2: rows k2 < n2/2 and, from the
+    // k1 = 0 line, the Nyquist bin
+    const long long half = static_cast<long long>(n1) * (n2 / 2);
+    float* o_r = yr + row * (half + 1);
+    float* o_i = yi + row * (half + 1);
+    const int stored = (n2 / 2 + 1) * T;
+    for (int idx = threadIdx.x; idx < stored; idx += blockDim.x) {
+      const int k2 = idx / T;
+      const int c = idx - k2 * T;
+      const long long g = static_cast<long long>(k2) * n1 + k1_0 + c;
+      if (g <= half) {
+        o_r[g] = y[idx].x;
+        o_i[g] = y[idx].y;
+      }
+    }
+  } else {
+    float* o_r = yr + base;
+    float* o_i = yi + base;
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int k2 = idx / T;
+      const int c = idx - k2 * T;
+      const long long g = static_cast<long long>(k2) * n1 + k1_0 + c;
+      o_r[g] = y[idx].x;
+      o_i[g] = sgn * y[idx].y;
+    }
   }
 }
 
 constexpr int kMaxDevices = 64;
-int g_smem1[kMaxDevices];  // dynamic shared memory already allowed, per device
-int g_smem2[kMaxDevices];
+// dynamic shared memory already allowed, per kernel instance and device
+int g_smem1[2][kMaxDevices];
+int g_smem2[2][kMaxDevices];
 
 // Selects the device (only if it is not current) and raises the kernel's
 // dynamic shared-memory limit once per device: the attribute persists, and
@@ -173,6 +214,48 @@ int fill_plan(LinePlan* p, const int* steps, int nsteps) {
   return cudaSuccess;
 }
 
+template <bool kReal>
+int launch_stage1(const float* ar, const float* ai, float* cr, float* ci,
+                  int b, int n1, int n2, int T, const int* steps, int nsteps,
+                  const void* tab, const float* ebr, const float* ebi,
+                  const float* ecr, const float* eci, int tw_t, int conj,
+                  int device, void* stream) {
+  LinePlan p;
+  int r = fill_plan(&p, steps, nsteps);
+  if (r != cudaSuccess) return r;
+  if (T < 1 || n2 % T != 0 || n2 % tw_t != 0) return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(2 * sizeof(float2) * n1 * T);
+  r = prepare(reinterpret_cast<const void*>(stage1_kernel<kReal>),
+              g_smem1[kReal], device, smem);
+  if (r != cudaSuccess) return r;
+  const unsigned grid = static_cast<unsigned>(b) * (n2 / T);
+  stage1_kernel<kReal>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          ar, ai, cr, ci, n1, n2, T, p, static_cast<const float2*>(tab), ebr,
+          ebi, ecr, eci, tw_t, conj ? -1.f : 1.f);
+  return cudaGetLastError();
+}
+
+template <bool kHalf>
+int launch_stage2(const float* cr, const float* ci, float* yr, float* yi,
+                  int b, int n1, int n2, int T, const int* steps, int nsteps,
+                  const void* tab, int conj, int device, void* stream) {
+  LinePlan p;
+  int r = fill_plan(&p, steps, nsteps);
+  if (r != cudaSuccess) return r;
+  if (T < 1 || n1 % T != 0 || n2 % 2 != 0) return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(2 * sizeof(float2) * n2 * T);
+  r = prepare(reinterpret_cast<const void*>(stage2_kernel<kHalf>),
+              g_smem2[kHalf], device, smem);
+  if (r != cudaSuccess) return r;
+  const unsigned grid = static_cast<unsigned>(b) * (n1 / T);
+  stage2_kernel<kHalf>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          cr, ci, yr, yi, n1, n2, T, p, static_cast<const float2*>(tab),
+          conj ? -1.f : 1.f);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int kofft_stage1(const float* ar, const float* ai, float* cr,
@@ -181,36 +264,37 @@ extern "C" int kofft_stage1(const float* ar, const float* ai, float* cr,
                             const float* ebr, const float* ebi,
                             const float* ecr, const float* eci, int tw_t,
                             int conj, int device, void* stream) {
-  LinePlan p;
-  int r = fill_plan(&p, steps, nsteps);
-  if (r != cudaSuccess) return r;
-  if (T < 1 || n2 % T != 0 || n2 % tw_t != 0) return cudaErrorInvalidValue;
-  const int smem = static_cast<int>(2 * sizeof(float2) * n1 * T);
-  r = prepare(reinterpret_cast<const void*>(stage1_kernel), g_smem1, device,
-              smem);
-  if (r != cudaSuccess) return r;
-  const unsigned grid = static_cast<unsigned>(b) * (n2 / T);
-  stage1_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      ar, ai, cr, ci, n1, n2, T, p, static_cast<const float2*>(tab), ebr, ebi,
-      ecr, eci, tw_t, conj ? -1.f : 1.f);
-  return cudaGetLastError();
+  return launch_stage1<false>(ar, ai, cr, ci, b, n1, n2, T, steps, nsteps,
+                              tab, ebr, ebi, ecr, eci, tw_t, conj, device,
+                              stream);
+}
+
+// ar: one real (b, n1, n2) plane
+extern "C" int kofft_stage1_real(const float* ar, float* cr, float* ci,
+                                 int b, int n1, int n2, int T,
+                                 const int* steps, int nsteps,
+                                 const void* tab, const float* ebr,
+                                 const float* ebi, const float* ecr,
+                                 const float* eci, int tw_t, int device,
+                                 void* stream) {
+  return launch_stage1<true>(ar, nullptr, cr, ci, b, n1, n2, T, steps,
+                             nsteps, tab, ebr, ebi, ecr, eci, tw_t, 0, device,
+                             stream);
 }
 
 extern "C" int kofft_stage2(const float* cr, const float* ci, float* yr,
                             float* yi, int b, int n1, int n2, int T,
                             const int* steps, int nsteps, const void* tab,
                             int conj, int device, void* stream) {
-  LinePlan p;
-  int r = fill_plan(&p, steps, nsteps);
-  if (r != cudaSuccess) return r;
-  if (T < 1 || n1 % T != 0) return cudaErrorInvalidValue;
-  const int smem = static_cast<int>(2 * sizeof(float2) * n2 * T);
-  r = prepare(reinterpret_cast<const void*>(stage2_kernel), g_smem2, device,
-              smem);
-  if (r != cudaSuccess) return r;
-  const unsigned grid = static_cast<unsigned>(b) * (n1 / T);
-  stage2_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      cr, ci, yr, yi, n1, n2, T, p, static_cast<const float2*>(tab),
-      conj ? -1.f : 1.f);
-  return cudaGetLastError();
+  return launch_stage2<false>(cr, ci, yr, yi, b, n1, n2, T, steps, nsteps,
+                              tab, conj, device, stream);
+}
+
+// yr, yi: one-sided (b, n1*n2/2 + 1) planes
+extern "C" int kofft_stage2_half(const float* cr, const float* ci, float* yr,
+                                 float* yi, int b, int n1, int n2, int T,
+                                 const int* steps, int nsteps,
+                                 const void* tab, int device, void* stream) {
+  return launch_stage2<true>(cr, ci, yr, yi, b, n1, n2, T, steps, nsteps,
+                             tab, 0, device, stream);
 }

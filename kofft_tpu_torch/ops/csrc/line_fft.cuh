@@ -17,7 +17,12 @@
 // is itself a leaf (the host asserts it), so this chain is the whole
 // recursion.
 //
-// Bound: a dense leaf costs mm complex MACs per point, so a line of 1024
+// Real input (rfft stage 1, _fft_axis0_traced with xi=None): the source
+// of the first step holds (m, T) floats, not float2, and that step does
+// 2 FFMAs per MAC instead of 4 (y = F_re x + i F_im x). No zero imaginary
+// part is stored or read.
+//
+// Cost: a dense leaf costs mm complex MACs per point, so a line of 1024
 // (32 x 32) costs 64 MACs per point and a line of 8192 (64 x 128) 192.
 // Each thread computes KB outputs k of one column r (register blocking,
 // KB = 8, 4 or 1 as the host plan picks per step): the shared-memory
@@ -48,10 +53,24 @@ __device__ __forceinline__ float2 cmulf(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
+// acc += w * x, one complex MAC; kReal: x is real (x.y is not read)
+template <bool kReal>
+__device__ __forceinline__ void cmac(float2& acc, float wr, float wi,
+                                     float2 x) {
+  if constexpr (kReal) {
+    acc.x = fmaf(wr, x.x, acc.x);
+    acc.y = fmaf(wi, x.x, acc.y);
+  } else {
+    acc.x = fmaf(wr, x.x, fmaf(-wi, x.y, acc.x));
+    acc.y = fmaf(wr, x.y, fmaf(wi, x.x, acc.y));
+  }
+}
+
 // One step of the chain: src (mm, R) -> dst, KB outputs k per thread.
 // KB > 1 reads F two entries at a time: the host keeps every table offset
-// even, so F + j*mm + k0 (mm and k0 even) is 16-byte aligned.
-template <int KB>
+// even, so F + j*mm + k0 (mm and k0 even) is 16-byte aligned. kReal: src
+// holds (mm, R) floats.
+template <int KB, bool kReal>
 __device__ void leaf_step(const float2* __restrict__ src,
                           float2* __restrict__ dst, int total, int mm,
                           int bb, int inner, const float2* __restrict__ F,
@@ -66,22 +85,22 @@ __device__ void leaf_step(const float2* __restrict__ src,
 #pragma unroll
     for (int q = 0; q < KB; ++q) acc[q] = make_float2(0.f, 0.f);
     for (int j = 0; j < mm; ++j) {
-      const float2 x = src[j * R + r];
+      float2 x;
+      if constexpr (kReal) {
+        x = make_float2(reinterpret_cast<const float*>(src)[j * R + r], 0.f);
+      } else {
+        x = src[j * R + r];
+      }
       if constexpr (KB == 1) {
         const float2 w = __ldg(F + j * mm + k0);
-        acc[0].x = fmaf(w.x, x.x, fmaf(-w.y, x.y, acc[0].x));
-        acc[0].y = fmaf(w.x, x.y, fmaf(w.y, x.x, acc[0].y));
+        cmac<kReal>(acc[0], w.x, w.y, x);
       } else {
         const float4* f = reinterpret_cast<const float4*>(F + j * mm + k0);
 #pragma unroll
         for (int q = 0; q < KB / 2; ++q) {
           const float4 w = __ldg(f + q);
-          float2& a0 = acc[2 * q];
-          float2& a1 = acc[2 * q + 1];
-          a0.x = fmaf(w.x, x.x, fmaf(-w.y, x.y, a0.x));
-          a0.y = fmaf(w.x, x.y, fmaf(w.y, x.x, a0.y));
-          a1.x = fmaf(w.z, x.x, fmaf(-w.w, x.y, a1.x));
-          a1.y = fmaf(w.z, x.y, fmaf(w.w, x.x, a1.y));
+          cmac<kReal>(acc[2 * q], w.x, w.y, x);
+          cmac<kReal>(acc[2 * q + 1], w.z, w.w, x);
         }
       }
     }
@@ -100,25 +119,42 @@ __device__ void leaf_step(const float2* __restrict__ src,
   }
 }
 
+template <bool kReal>
+__device__ __forceinline__ void run_step(const float2* src, float2* dst,
+                                         int total, const LinePlan& p, int s,
+                                         const float2* __restrict__ tab) {
+  const int mm = p.mm[s];
+  const float2* F = tab + p.f_off[s];
+  const float2* tw = tab + p.tw_off[s];
+  if (p.kb[s] == 8) {
+    leaf_step<8, kReal>(src, dst, total, mm, p.bb[s], p.inner[s], F, tw);
+  } else if (p.kb[s] == 4) {
+    leaf_step<4, kReal>(src, dst, total, mm, p.bb[s], p.inner[s], F, tw);
+  } else {
+    leaf_step<1, kReal>(src, dst, total, mm, p.bb[s], p.inner[s], F, tw);
+  }
+}
+
 // Runs the chain on buf0 (input) with buf1 as the ping-pong partner and
-// returns the buffer that holds the natural-order result, (m, T).
+// returns the buffer that holds the natural-order result, (m, T) float2.
+// kRealInput: buf0 holds the real (m, T) input as floats.
+template <bool kRealInput = false>
 __device__ __forceinline__ float2* line_fft(float2* buf0, float2* buf1,
                                             int total, const LinePlan& p,
                                             const float2* __restrict__ tab) {
   float2* src = buf0;
   float2* dst = buf1;
-  for (int s = 0; s < p.nsteps; ++s) {
+  int s = 0;
+  if constexpr (kRealInput) {
     __syncthreads();
-    const int mm = p.mm[s];
-    const float2* F = tab + p.f_off[s];
-    const float2* tw = tab + p.tw_off[s];
-    if (p.kb[s] == 8) {
-      leaf_step<8>(src, dst, total, mm, p.bb[s], p.inner[s], F, tw);
-    } else if (p.kb[s] == 4) {
-      leaf_step<4>(src, dst, total, mm, p.bb[s], p.inner[s], F, tw);
-    } else {
-      leaf_step<1>(src, dst, total, mm, p.bb[s], p.inner[s], F, tw);
-    }
+    run_step<true>(src, dst, total, p, 0, tab);
+    src = buf1;
+    dst = buf0;
+    s = 1;
+  }
+  for (; s < p.nsteps; ++s) {
+    __syncthreads();
+    run_step<false>(src, dst, total, p, s, tab);
     float2* t = src;
     src = dst;
     dst = t;

@@ -11,7 +11,8 @@ The counterpart of ``kofft_tpu.ops.fft``. The engine ladder is the same:
 
 Everything computes on split (re, im) float planes. A tensor is computed
 on the device where it lies; a numpy input is placed on ``device``
-(default ``"cpu"``). Nothing probes for a card. Normalization follows
+(default ``"cuda"``, the card; ``device="cpu"`` computes host data on
+the CPU, and with no card the default raises). Normalization follows
 numpy: forward unscaled, inverse 1/n.
 """
 
@@ -28,7 +29,7 @@ from ..errors import (EmptyInputError, InvalidValueError,
 from ..plan import (DftLeaf, FourStepNode, balanced_split,
                     build_factor_tree, is_smooth, tables)
 from ._complex import (cmatmul_last, cmul, const, dtype_name,
-                       host_float_dtype, merge, split)
+                       host_device, host_float_dtype, merge, split)
 
 _NORMS = (None, "backward", "ortho", "forward")
 _STRATEGIES = ("auto", "dft", "four_step", "bluestein")
@@ -238,10 +239,11 @@ def _as_tensor(x, device) -> torch.Tensor:
                      == _np.float64 else _np.complex64, copy=False)
     else:
         a = a.astype(host_float_dtype(a.dtype), copy=False)
-    return torch.as_tensor(_np.ascontiguousarray(a), device=device)
+    return torch.as_tensor(_np.ascontiguousarray(a),
+                           device=host_device(device))
 
 
-def _prep(x, n: Optional[int], axis: int, device="cpu"):
+def _prep(x, n: Optional[int], axis: int, device="cuda"):
     """Move ``axis`` last and pad/trim to ``n`` (numpy semantics).
     Returns (tensor, n)."""
     x = _as_tensor(x, device)
@@ -284,7 +286,7 @@ def _dispatch(x, n, axis, norm, inverse, backend, device):
 
 def fft(x, n: Optional[int] = None, axis: int = -1,
         norm: Optional[str] = None, backend: Optional[str] = None,
-        device="cpu"):
+        device="cuda"):
     """Complex DFT along ``axis``. Returns a complex tensor on the device
     of ``x`` (a numpy input is placed on ``device`` first)."""
     return _dispatch(x, n, axis, norm, False, backend, device)
@@ -292,7 +294,7 @@ def fft(x, n: Optional[int] = None, axis: int = -1,
 
 def ifft(x, n: Optional[int] = None, axis: int = -1,
          norm: Optional[str] = None, backend: Optional[str] = None,
-         device="cpu"):
+         device="cuda"):
     """Inverse complex DFT along ``axis`` (1/n backward normalization)."""
     return _dispatch(x, n, axis, norm, True, backend, device)
 
@@ -316,7 +318,7 @@ def _planes(xr, xi, device):
 
 def fft_split(xr, xi, inverse: bool = False, norm: Optional[str] = None,
               backend: Optional[str] = None, donate: bool = False,
-              device="cpu"):
+              device="cuda"):
     """Split-complex FFT along the last axis: (re, im) planes in and out.
 
     ``donate=True`` lets the transform reuse the input planes' storage:
@@ -333,7 +335,7 @@ def fft_split(xr, xi, inverse: bool = False, norm: Optional[str] = None,
 
 def ifft_split(xr, xi, norm: Optional[str] = None,
                backend: Optional[str] = None, donate: bool = False,
-               device="cpu"):
+               device="cuda"):
     return fft_split(xr, xi, inverse=True, norm=norm, backend=backend,
                      donate=donate, device=device)
 
@@ -350,7 +352,7 @@ def tiled_shape(n: int) -> tuple:
 
 
 def fft_split_tiled(ar, ai, inverse: bool = False, donate: bool = False,
-                    device="cpu"):
+                    device="cuda"):
     """FFT on tiled (..., m, m) planes, n = m*m: flat row-major order is
     the 1-D order on both ends (input = signal, output = natural-order
     spectrum), so pointwise spectral work applies to the tiled planes
@@ -387,7 +389,7 @@ def fft_split_tiled(ar, ai, inverse: bool = False, donate: bool = False,
     return yr.reshape(*batch, m, m), yi.reshape(*batch, m, m)
 
 
-def ifft_split_tiled(ar, ai, donate: bool = False, device="cpu"):
+def ifft_split_tiled(ar, ai, donate: bool = False, device="cuda"):
     return fft_split_tiled(ar, ai, inverse=True, donate=donate,
                            device=device)
 
@@ -419,10 +421,10 @@ def ifftshift(x, axes=None):
     return _np.fft.ifftshift(_np.asarray(x), axes=axes)
 
 
-def fft_batch(xs, backend: Optional[str] = None, device="cpu"):
+def fft_batch(xs, backend: Optional[str] = None, device="cuda"):
     """Batch FFT over the leading dims (the batch is the leading dims)."""
     return fft(xs, axis=-1, backend=backend, device=device)
 
 
-def ifft_batch(xs, backend: Optional[str] = None, device="cpu"):
+def ifft_batch(xs, backend: Optional[str] = None, device="cuda"):
     return ifft(xs, axis=-1, backend=backend, device=device)

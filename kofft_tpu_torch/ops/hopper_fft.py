@@ -5,7 +5,9 @@ The DFT is linear with a symmetric matrix, so the backward of the planes
 map is the same transform in the other direction (the unnormalized
 inverse of the cotangent, pallas_fft.py:105-110) and the forward-mode
 derivative is the same transform of the tangents (:95-99). Both run the
-same kernels, so no backward kernel exists or is needed.
+same kernels, so no backward kernel exists or is needed. The real FFT's
+backward zero-pads the one-sided cotangent and takes the real plane of
+the unnormalized complex inverse (pallas_fft.py:166-178).
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from __future__ import annotations
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from .hopper_kernels import _pow2_split, fused_multilevel_fft
+from .hopper_kernels import (_pow2_split, fused_multilevel_fft,
+                             fused_multilevel_rfft)
 
 
 def kernel_supported(n: int, dtype: str) -> bool:
@@ -82,3 +85,39 @@ def kernel_tiled_planes(ar, ai, inverse: bool = False,
     yr, yi = kernel_fft_planes(ar.reshape(b, m * m), ai.reshape(b, m * m),
                                m * m, inverse, donate)
     return yr.reshape(b, m, m), yi.reshape(b, m, m)
+
+
+class _KernelRFFT(torch.autograd.Function):
+    @staticmethod
+    def forward(x, n):
+        return fused_multilevel_rfft(x, n)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n = inputs[1]
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        # transpose of (real -> one-sided planes): zero-pad the cotangent
+        # (materialized by autograd) to the full spectrum, then the real
+        # plane of the unnormalized inverse
+        pad = (0, ctx.n - gr.shape[-1])
+        xr, _ = _KernelFFT.apply(torch.nn.functional.pad(gr, pad),
+                                 torch.nn.functional.pad(gi, pad), ctx.n,
+                                 True)
+        return xr, None
+
+    @staticmethod
+    def jvp(ctx, t, _n):
+        # x is the only tensor input, so its tangent is never None here
+        return fused_multilevel_rfft(t.contiguous(), ctx.n)
+
+
+def kernel_rfft_planes(x, n: int):
+    """One-sided unnormalized DFT (..., n//2 + 1) of a real (..., n)
+    float32 plane through the real stage kernels, differentiable in both
+    modes."""
+    x = x.contiguous()
+    if not _tracked(x, x):
+        return fused_multilevel_rfft(x, n)
+    return _KernelRFFT.apply(x, n)

@@ -1,6 +1,7 @@
-"""Hand-written Hopper kernels of the 1-D complex FFT, their host plan,
-their plain PyTorch versions, and the routing that mirrors
-``kofft_tpu.ops.pallas_kernels.fused_multilevel_fft``.
+"""Hand-written Hopper kernels of the 1-D complex and real FFT, their host
+plan, their plain PyTorch versions, and the routing that mirrors
+``kofft_tpu.ops.pallas_kernels.fused_multilevel_fft`` and
+``fused_multilevel_rfft``.
 
 The JAX package runs the Bailey four-step X = F_n2 . ((F_n1 . A) o W)
 through three Pallas forms: the phased one-call kernel in its flat
@@ -13,12 +14,17 @@ length n2, written transposed), both built on one block-wide line FFT
 (``csrc/line_fft.cuh``). The routing still picks a class per shape, as
 the JAX function does, and counts it in ``classes`` so a run shows which
 TPU-kernel class it went through; ``launches`` counts the CUDA launches.
+The real FFT runs two more instances of the same kernels, ``stage1_real``
+(one real input plane, a first leaf with two real products) and
+``stage2_half`` (only the one-sided bins k <= n/2 stored, the Nyquist bin
+included), counted by the classes of the JAX real forms.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 PyTorch version for a CPU tensor; any other device raises. The plain
-versions (``fft_axis0_plain``, ``stage1_plain``, ``stage2_plain``) are the
-JAX routine's recursion with the Gauss three-product of ``_cdot`` at the
-`highest` tier, in float32 matmuls.
+versions (``fft_axis0_plain``, ``stage1_plain``, ``stage2_plain``,
+``stage1_real_plain``, ``stage2_half_plain``) are the JAX routine's
+recursion with the Gauss three-product of ``_cdot`` at the `highest`
+tier, in float32 matmuls.
 """
 
 from __future__ import annotations
@@ -42,13 +48,15 @@ _ML_TILE = 128            # twiddle factor tile t of _twiddle_factors
 _PHASED_MAX_N = 1 << 22   # phased one-call cap, 6-pass tiers
 _PHASED_MAX_N_DEFAULT = 1 << 24   # phased cap, `default` tier
 _PHASED_FLAT_MAX_N = 1 << 21      # flat (rank-1 output) phased cap
+_PHASED_FLAT_REAL_MAX_N = 1 << 23  # the same for the real form
 # shared memory of one stage block (two buffers). 64 KB lets up to three
 # blocks share an SM so loads, leaf work and stores of different blocks
 # overlap: 8 x 2^20 measured 940 -> 704 us against 128 KB (H100, 700 W)
 _SMEM_BYTES = 64 * 1024
 
-launches = {"stage1": 0, "stage2": 0}
-classes = {"phased_flat": 0, "phased_tiled": 0, "ml": 0}
+launches = {"stage1": 0, "stage2": 0, "stage1_real": 0, "stage2_half": 0}
+classes = {"phased_flat": 0, "phased_tiled": 0, "ml": 0,
+           "phased_flat_real": 0, "phased_tiled_real": 0, "ml_real": 0}
 
 
 def reset_counts() -> None:
@@ -219,15 +227,20 @@ def _cdot(fr, fi, xr, xi):
 
 def fft_axis0_plain(xr, xi, m: int, consts: dict | None = None):
     """FFT along axis 0 of (m, t) float32 planes: the recursion of
-    ``_fft_axis0_traced``, m = a*b, j = ja*b + jb, output k = ka + a*kb."""
+    ``_fft_axis0_traced``, m = a*b, j = ja*b + jb, output k = ka + a*kb.
+    ``xi=None`` is a real input: the first leaf takes two real products
+    instead of three."""
     if consts is None:
         consts = _line_consts(m, xr.device)
     if m <= _ML_LEAF:
         fr, fi = consts[("dft", m)]
+        if xi is None:
+            return torch.matmul(fr.T, xr), torch.matmul(fi.T, xr)
         return _cdot(fr, fi, xr, xi)
     a, b = _ml_split(m)
     t = xr.shape[-1]
-    yr, yi = fft_axis0_plain(xr.reshape(a, b * t), xi.reshape(a, b * t),
+    yr, yi = fft_axis0_plain(xr.reshape(a, b * t),
+                             None if xi is None else xi.reshape(a, b * t),
                              a, consts)
     yr = yr.reshape(a, b, t)
     yi = yi.reshape(a, b, t)
@@ -258,12 +271,12 @@ def _twiddle_plane(n1: int, n2: int, device):
 
 def stage1_plain(ar, ai, conj: bool = False):
     """Plain version of the stage-1 kernel: (b, n1, n2) -> C (b, n1, n2),
-    column FFTs of length n1 then the twiddle W."""
+    column FFTs of length n1 then the twiddle W. ``ai=None``: real input."""
     b, n1, n2 = ar.shape
-    if conj:
-        ai = -ai
     xr = ar.permute(1, 0, 2).reshape(n1, b * n2)
-    xi = ai.permute(1, 0, 2).reshape(n1, b * n2)
+    xi = None
+    if ai is not None:
+        xi = (-ai if conj else ai).permute(1, 0, 2).reshape(n1, b * n2)
     yr, yi = fft_axis0_plain(xr, xi, n1)
     yr = yr.reshape(n1, b, n2).permute(1, 0, 2)
     yi = yi.reshape(n1, b, n2).permute(1, 0, 2)
@@ -284,6 +297,24 @@ def stage2_plain(cr, ci, conj: bool = False):
     if conj:
         yi = -yi
     return yr, yi
+
+
+def stage1_real_plain(ar):
+    """Plain version of the real-input stage-1 kernel: one real
+    (b, n1, n2) plane -> C (b, n1, n2), the first leaf with two real
+    products."""
+    return stage1_plain(ar, None)
+
+
+def stage2_half_plain(cr, ci):
+    """Plain version of the one-sided stage-2 kernel: the flat spectrum of
+    ``stage2_plain`` cut to the bins k <= n/2 (rows k2 < n2/2 and the
+    Nyquist bin), as (b, n/2 + 1) planes."""
+    b, n1, n2 = cr.shape
+    h = n1 * n2 // 2 + 1
+    yr, yi = stage2_plain(cr, ci)
+    return (yr.reshape(b, -1)[:, :h].contiguous(),
+            yi.reshape(b, -1)[:, :h].contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +390,7 @@ def _check_planes(xr, xi, what: str) -> None:
             and xr.device == xi.device and xr.device.type in ("cpu", "cuda")
             and xr.is_contiguous() and xi.is_contiguous()):
         raise InvalidValueError(
-            f"{what}: planes must be two contiguous float32 (b, n1, n2) "
+            f"{what}: planes must be contiguous float32 (b, n1, n2) "
             f"tensors of one shape on one cpu or cuda device; got "
             f"{tuple(xr.shape)} {xr.dtype} on {xr.device} (contiguous "
             f"{xr.is_contiguous()}) and {tuple(xi.shape)} {xi.dtype} on "
@@ -452,18 +483,69 @@ def stage2(cr, ci, conj: bool = False, out=None):
     return yr, yi
 
 
+def stage1_real(ar):
+    """Real-input stage 1: one real (b, n1, n2) plane -> C (b, n1, n2).
+    CUDA tensors launch the kernel (one count in ``launches``); CPU tensors
+    run ``stage1_real_plain``."""
+    _check_planes(ar, ar, "stage1_real")
+    if ar.device.type == "cpu":
+        return stage1_real_plain(ar)
+    from ._cuda_build import check, lib
+    b, n1, n2 = ar.shape
+    dev = ar.device
+    t, steps, nsteps, tab, ebr, ebi, ecr, eci = _static_args(
+        1, b, n1, n2, dev)
+    cr = torch.empty_like(ar)
+    ci = torch.empty_like(ar)
+    err = lib().kofft_stage1_real(
+        ar.data_ptr(), cr.data_ptr(), ci.data_ptr(), b, n1, n2, t, steps,
+        nsteps, tab, ebr, ebi, ecr, eci, min(_ML_TILE, n1), dev.index,
+        _stream(dev))
+    check(err, "stage1_real launch")
+    launches["stage1_real"] += 1
+    return cr, ci
+
+
+def stage2_half(cr, ci):
+    """One-sided stage 2: C (b, n1, n2) -> (b, n/2 + 1) planes, the flat
+    spectrum's bins k <= n/2 (the Nyquist bin written by the kernel). CUDA
+    tensors launch the kernel; CPU tensors run ``stage2_half_plain``."""
+    _check_planes(cr, ci, "stage2_half")
+    if cr.device.type == "cpu":
+        return stage2_half_plain(cr, ci)
+    from ._cuda_build import check, lib
+    b, n1, n2 = cr.shape
+    dev = cr.device
+    h = n1 * n2 // 2 + 1
+    yr = torch.empty((b, h), dtype=cr.dtype, device=dev)
+    yi = torch.empty((b, h), dtype=cr.dtype, device=dev)
+    t, steps, nsteps, tab = _static_args(2, b, n1, n2, dev)
+    err = lib().kofft_stage2_half(
+        cr.data_ptr(), ci.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1,
+        n2, t, steps, nsteps, tab, dev.index, _stream(dev))
+    check(err, "stage2_half launch")
+    launches["stage2_half"] += 1
+    return yr, yi
+
+
 # ---------------------------------------------------------------------------
 # entries with the JAX routing
 # ---------------------------------------------------------------------------
 
-def _route(n: int, b: int, flat_ok: bool) -> str:
+def _route(n: int, b: int, flat_ok: bool, real: bool = False) -> str:
+    """The TPU-kernel class of ``kofft_tpu``'s routing; the real forms
+    take a flat cap of 2^23 (pallas_kernels.py:1292) and a ``_real``
+    suffix."""
     n1, n2 = _pow2_split(n)
     bt = _ml_batch_tile(b, n1, n2)
-    if _use_phased(n, bt) and flat_ok and n <= _PHASED_FLAT_MAX_N:
-        return "phased_flat"
-    if _use_phased(n, bt):
-        return "phased_tiled"
-    return "ml"
+    cap = _PHASED_FLAT_REAL_MAX_N if real else _PHASED_FLAT_MAX_N
+    if not _use_phased(n, bt):
+        cls = "ml"
+    elif flat_ok and n <= cap:
+        cls = "phased_flat"
+    else:
+        cls = "phased_tiled"
+    return cls + "_real" if real else cls
 
 
 def fused_multilevel_fft(xr, xi, n: int, inverse: bool = False,
@@ -497,3 +579,22 @@ def phased_tiled_fft(ar, ai, inverse: bool = False, donate: bool = False):
     yr, yi = fused_multilevel_fft(ar.reshape(b, m * m), ai.reshape(b, m * m),
                                   m * m, inverse, donate)
     return yr.reshape(b, m, m), yi.reshape(b, m, m)
+
+
+def fused_multilevel_rfft(x, n: int):
+    """One-sided unnormalized DFT (..., n//2 + 1) of a real (..., n) float32
+    plane through ``stage1_real`` and ``stage2_half``, routed and counted
+    by the class ``kofft_tpu``'s ``fused_multilevel_rfft`` would use: a
+    rank-1 transform up to 2^23 is ``phased_flat_real``, other shapes up
+    to the phased cap ``phased_tiled_real``, larger or batch-folded shapes
+    ``ml_real``."""
+    batch = tuple(x.shape[:-1])
+    b = 1
+    for s in batch:
+        b *= s
+    n1, n2 = _pow2_split(n)
+    classes[_route(n, b, batch == (), real=True)] += 1
+    cr, ci = stage1_real(x.reshape(b, n1, n2))
+    yr, yi = stage2_half(cr, ci)
+    h = n // 2 + 1
+    return yr.reshape(*batch, h), yi.reshape(*batch, h)

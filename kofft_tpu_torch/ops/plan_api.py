@@ -10,6 +10,7 @@ from typing import Optional
 import torch
 
 from ..errors import InvalidStrideError, InvalidValueError, require
+from ._complex import host_device
 from .fft import _fft_norm_planes, _planes, resolve_backend
 
 
@@ -34,19 +35,20 @@ class FftPlan:
         return _fft_norm_planes(xr, xi, self.n, inverse, self.norm,
                                 self.backend)
 
-    def forward(self, xr, xi, device="cpu"):
+    def forward(self, xr, xi, device="cuda"):
         """Planes in/out forward transform along the last axis."""
         return self._run(xr, xi, False, device)
 
-    def inverse(self, yr, yi, device="cpu"):
+    def inverse(self, yr, yi, device="cuda"):
         return self._run(yr, yi, True, device)
 
     __call__ = forward
 
-    def warmup(self, batch_shape: tuple = (), device="cpu") -> "FftPlan":
-        """Run both directions once on zeros of (batch..., n)."""
+    def warmup(self, batch_shape: tuple = (), device="cuda") -> "FftPlan":
+        """Run both directions once on zeros of (batch..., n) on
+        ``device`` (default the card)."""
         z = torch.zeros((*batch_shape, self.n), dtype=torch.float32,
-                        device=device)
+                        device=host_device(device))
         self.forward(z, z)
         self.inverse(z, z)
         return self
@@ -54,7 +56,7 @@ class FftPlan:
 
 def fft_strided_split(xr, xi, stride: int, inverse: bool = False,
                       backend: Optional[str] = None,
-                      norm: Optional[str] = None, device="cpu"):
+                      norm: Optional[str] = None, device="cuda"):
     """FFT over elements x[k*stride], k = 0..n-1, for each offset in
     [0, stride): input planes of last-axis length stride * n; returns
     planes of the same shape with each strided line transformed."""

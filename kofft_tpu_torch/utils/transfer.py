@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops._complex import host_device
+
 
 def asnumpy(x) -> np.ndarray:
     """A tensor (any device, bfloat16 read as float32) as host numpy."""
@@ -18,13 +20,14 @@ def asnumpy(x) -> np.ndarray:
     return x.cpu().numpy()
 
 
-def planes_from_numpy(xr, xi, device="cpu"):
+def planes_from_numpy(xr, xi, device="cuda"):
     """Two host arrays as float32 (float64 kept) plane tensors on
-    ``device``."""
+    ``device`` (default the card)."""
+    dev = host_device(device)
     out = []
     for a in (xr, xi):
         a = np.asarray(a)
         if a.dtype != np.float64:
             a = a.astype(np.float32)
-        out.append(torch.as_tensor(np.ascontiguousarray(a), device=device))
+        out.append(torch.as_tensor(np.ascontiguousarray(a), device=dev))
     return out[0], out[1]

@@ -5,7 +5,8 @@ The same seeded numpy inputs go through both packages. Tolerance: SNR
 tests/test_fft.py), 80 dB where tests/test_fft.py uses 80 for the same
 entry (host complex input, batch aliases, zone reroute). Both packages
 compute in float32 with bit-equal tables, so they differ only in
-summation order.
+summation order. The port's entries put host data on the card unless
+asked otherwise, so every host-data call here passes ``**CPU``.
 """
 
 import numpy as np
@@ -25,6 +26,7 @@ from kofft_tpu_torch.ops.dft import dft, snr_db  # noqa: E402
 FLOOR = 100.0
 LOOSE = 80.0
 SIZES = [1, 2, 7, 128, 1000, 4099, 1 << 14, 3 << 14]
+CPU = {"device": "cpu"}
 
 
 def _cx(shape, seed):
@@ -45,11 +47,11 @@ def _both(fn_t, fn_j):
 def test_fft_ifft_vs_jax(n):
     x = _cx((2, n), n)
     ref = np.fft.fft(x.astype(np.complex128), axis=-1)
-    got, want = _both(lambda: tk.fft(x), lambda: jk.fft(x))
+    got, want = _both(lambda: tk.fft(x, **CPU), lambda: jk.fft(x))
     assert got.dtype == np.complex64 and got.shape == (2, n)
     assert snr_db(want, got) >= FLOOR
     assert snr_db(ref, got) >= FLOOR
-    back, jback = _both(lambda: tk.ifft(got), lambda: jk.ifft(want))
+    back, jback = _both(lambda: tk.ifft(got, **CPU), lambda: jk.ifft(want))
     assert snr_db(jback, back) >= FLOOR
     assert snr_db(x, back) >= FLOOR
 
@@ -59,7 +61,7 @@ def test_cufft_zone_vs_jax():
     assert tfft._cufft_zone((32, 1 << 13), 1 << 13)
     x = _cx((32, 1 << 13), 5)
     HK.reset_counts()
-    got, want = _both(lambda: tk.fft(x), lambda: jk.fft(x))
+    got, want = _both(lambda: tk.fft(x, **CPU), lambda: jk.fft(x))
     assert HK.classes == {k: 0 for k in HK.classes}
     assert snr_db(want, got) >= FLOOR
 
@@ -70,7 +72,7 @@ def test_norms_vs_jax(norm, n):
     x = _cx((n,), 3)
     for inv in (False, True):
         f_t, f_j = (tk.ifft, jk.ifft) if inv else (tk.fft, jk.fft)
-        got, want = _both(lambda: f_t(x, norm=norm),
+        got, want = _both(lambda: f_t(x, norm=norm, **CPU),
                           lambda: f_j(x, norm=norm))
         assert snr_db(want, got) >= FLOOR, (norm, inv)
 
@@ -78,7 +80,7 @@ def test_norms_vs_jax(norm, n):
 @pytest.mark.parametrize("axis", [0, 1, -3])
 def test_axis_vs_jax(axis):
     x = _cx((6, 5, 4), axis + 10)
-    got, want = _both(lambda: tk.fft(x, axis=axis),
+    got, want = _both(lambda: tk.fft(x, axis=axis, **CPU),
                       lambda: jk.fft(x, axis=axis))
     assert got.shape == x.shape
     assert snr_db(want, got) >= FLOOR
@@ -89,7 +91,8 @@ def test_axis_vs_jax(axis):
 @pytest.mark.parametrize("n", [5, 12, 1 << 14])
 def test_pad_trim_vs_jax(n):
     x = _cx((3, 9), 4)
-    got, want = _both(lambda: tk.fft(x, n=n), lambda: jk.fft(x, n=n))
+    got, want = _both(lambda: tk.fft(x, n=n, **CPU),
+                      lambda: jk.fft(x, n=n))
     assert got.shape == (3, n)
     assert snr_db(want, got) >= FLOOR
     assert snr_db(np.fft.fft(x.astype(np.complex128), n=n, axis=-1),
@@ -117,7 +120,7 @@ def test_fft_split_vs_jax(n):
     x = _cx((2, n), 8)
     xr = np.ascontiguousarray(x.real)
     xi = np.ascontiguousarray(x.imag)
-    tr, ti = tk.fft_split(xr, xi)
+    tr, ti = tk.fft_split(xr, xi, **CPU)
     jr, ji = jk.fft_split(xr, xi)
     got = tr.numpy() + 1j * ti.numpy()
     assert snr_db(np.asarray(jr) + 1j * np.asarray(ji), got) >= FLOOR
@@ -143,7 +146,7 @@ def test_tiled_vs_jax():
     x = _cx((2, m * m), 12)
     ar = np.ascontiguousarray(x.real).reshape(2, m, m)
     ai = np.ascontiguousarray(x.imag).reshape(2, m, m)
-    tr, ti = tk.fft_split_tiled(ar, ai)
+    tr, ti = tk.fft_split_tiled(ar, ai, **CPU)
     jr, ji = jk.fft_split_tiled(ar, ai)
     got = (tr.numpy() + 1j * ti.numpy()).reshape(2, -1)
     want = (np.asarray(jr) + 1j * np.asarray(ji)).reshape(2, -1)
@@ -171,9 +174,10 @@ def test_freq_shift_batch_vs_jax():
         assert np.array_equal(tk.ifftshift(ta, axes).numpy(),
                               np.fft.ifftshift(a, axes))
     xs = _cx((4, 32), 13)
-    got, want = _both(lambda: tk.fft_batch(xs), lambda: jk.fft_batch(xs))
+    got, want = _both(lambda: tk.fft_batch(xs, **CPU),
+                      lambda: jk.fft_batch(xs))
     assert snr_db(want, got) >= LOOSE
-    back = _np(tk.ifft_batch(got))
+    back = _np(tk.ifft_batch(got, **CPU))
     assert snr_db(xs, back) >= LOOSE
 
 
@@ -182,17 +186,17 @@ def test_plan_and_strided_vs_jax():
     x = _cx((3, n), 14)
     xr = np.ascontiguousarray(x.real)
     xi = np.ascontiguousarray(x.imag)
-    p = tk.FftPlan(n, norm="ortho").warmup((3,))
+    p = tk.FftPlan(n, norm="ortho").warmup((3,), **CPU)
     q = jk.FftPlan(n, norm="ortho")
     assert repr(p) == repr(q)
-    tr, ti = p(xr, xi)
+    tr, ti = p(xr, xi, **CPU)
     jr, ji = q(xr, xi)
     assert snr_db(np.asarray(jr) + 1j * np.asarray(ji),
                   tr.numpy() + 1j * ti.numpy()) >= FLOOR
     br, bi = p.inverse(tr, ti)
     assert snr_db(x, br.numpy() + 1j * bi.numpy()) >= FLOOR
     for inverse in (False, True):
-        sr, si = tk.fft_strided_split(xr, xi, 4, inverse=inverse)
+        sr, si = tk.fft_strided_split(xr, xi, 4, inverse=inverse, **CPU)
         kr, ki = jk.fft_strided_split(xr, xi, 4, inverse=inverse)
         assert snr_db(np.asarray(kr) + 1j * np.asarray(ki),
                       sr.numpy() + 1j * si.numpy()) >= FLOOR
@@ -200,25 +204,27 @@ def test_plan_and_strided_vs_jax():
 
 def test_errors_match_jax_classes():
     z = np.zeros(8, np.float32)
+    # kw: the port's entries get **CPU, the JAX package's nothing
     cases = [
-        (lambda m: m.fft(z, norm="bogus")),
-        (lambda m: m.fft(np.zeros(0, np.complex64))),
-        (lambda m: m.fft(z, n=0)),
-        (lambda m: m.fft(z, axis=3)),
-        (lambda m: m.fft_split(z, np.zeros(4, np.float32))),
-        (lambda m: m.tiled_shape(1000)),
-        (lambda m: m.fft_split_tiled(np.zeros((4, 8), np.float32),
-                                     np.zeros((4, 8), np.float32))),
-        (lambda m: m.FftPlan(0)),
-        (lambda m: m.fft_strided_split(z, z, 3)),
-        (lambda m: m.fft_strided_split(z, z, 0)),
-        (lambda m: m.fftfreq(0)),
+        (lambda m, kw: m.fft(z, norm="bogus", **kw)),
+        (lambda m, kw: m.fft(np.zeros(0, np.complex64), **kw)),
+        (lambda m, kw: m.fft(z, n=0, **kw)),
+        (lambda m, kw: m.fft(z, axis=3, **kw)),
+        (lambda m, kw: m.fft_split(z, np.zeros(4, np.float32), **kw)),
+        (lambda m, kw: m.tiled_shape(1000)),
+        (lambda m, kw: m.fft_split_tiled(np.zeros((4, 8), np.float32),
+                                         np.zeros((4, 8), np.float32),
+                                         **kw)),
+        (lambda m, kw: m.FftPlan(0)),
+        (lambda m, kw: m.fft_strided_split(z, z, 3, **kw)),
+        (lambda m, kw: m.fft_strided_split(z, z, 0, **kw)),
+        (lambda m, kw: m.fftfreq(0)),
     ]
     for case in cases:
         with pytest.raises(jk.KofftError) as ej:
-            case(jk)
+            case(jk, {})
         with pytest.raises(tk.KofftError) as et:
-            case(tk)
+            case(tk, CPU)
         assert type(et.value).__name__ == type(ej.value).__name__
     zt = torch.zeros(4)
     for strategy, n in (("stockham", 4), ("four_step", 101)):
@@ -274,7 +280,7 @@ def test_dtypes():
     float32 and round back."""
     n = 1 << 14
     x = _cx((n,), 19).astype(np.complex128)
-    y = tk.fft(x)
+    y = tk.fft(x, **CPU)
     assert y.dtype == torch.complex128
     assert snr_db(np.fft.fft(x), y.numpy()) > 250.0
     br = torch.as_tensor(x.real, dtype=torch.bfloat16)
@@ -283,3 +289,34 @@ def test_dtypes():
     assert yr.dtype == torch.bfloat16
     ref = np.fft.fft(br.double().numpy() + 1j * bi.double().numpy())
     assert snr_db(ref, tk.asnumpy(yr) + 1j * tk.asnumpy(yi)) > 40.0
+
+
+_HOST_CALLS = {
+    "fft": lambda x: tk.fft(x),
+    "ifft": lambda x: tk.ifft(x),
+    "fft_batch": lambda x: tk.fft_batch(x),
+    "ifft_batch": lambda x: tk.ifft_batch(x),
+    "fft_split": lambda x: tk.fft_split(x, x),
+    "ifft_split": lambda x: tk.ifft_split(x, x),
+    "fft_split_tiled": lambda x: tk.fft_split_tiled(x, x),
+    "ifft_split_tiled": lambda x: tk.ifft_split_tiled(x, x),
+    "fft_strided_split": lambda x: tk.fft_strided_split(x, x, 2),
+    "FftPlan.forward": lambda x: tk.FftPlan(8).forward(x, x),
+    "FftPlan.inverse": lambda x: tk.FftPlan(8).inverse(x, x),
+    "FftPlan.warmup": lambda x: tk.FftPlan(8).warmup(),
+    "planes_from_numpy": lambda x: tk.planes_from_numpy(x, x),
+    "rfft": lambda x: tk.rfft(x),
+    "irfft": lambda x: tk.irfft(x),
+    "rfft_split": lambda x: tk.rfft_split(x),
+    "irfft_split": lambda x: tk.irfft_split(x, x),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_HOST_CALLS))
+def test_host_input_defaults_to_the_card(entry):
+    """With no ``device``, host data goes to the card; without one the
+    entry raises and names ``device=`` instead of computing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: host data computes there")
+    with pytest.raises(RuntimeError, match="device="):
+        _HOST_CALLS[entry](np.zeros(8, np.float32))

@@ -1,5 +1,5 @@
-"""The port's CUDA stage kernels against their plain PyTorch versions, on
-the card. Every test here carries the ``gpu`` marker and skips without a
+"""The port's CUDA stage kernels (complex and real) against their plain
+PyTorch versions, and the public entries, on the card. Every test here carries the ``gpu`` marker and skips without a
 CUDA device; whether one exists is decided inside the fixture. Run on the
 card with ``python -m pytest -m gpu --noconftest tests/test_torch_gpu.py``
 (``--noconftest``: the shared conftest imports jax, which the port does
@@ -90,6 +90,58 @@ def test_public_grad_on_card(cuda):
     (yr * gr + yi * gi).sum().backward()
     want = np.fft.ifft(_np(gr, gi)) * n
     assert snr_db(want, _np(xr.grad, xi.grad)) > ORACLE_DB
+
+
+@pytest.mark.parametrize("b,n", [(1, 1 << 14), (4, 1 << 14), (1, 1 << 16),
+                                 (2, 3 << 14)])
+def test_real_stages_match_plain(cuda, b, n):
+    n1, n2 = HK._pow2_split(n)
+    ar, _ = _planes((b, n1, n2), cuda, seed=4)
+    before = dict(HK.launches)
+    cr, ci = HK.stage1_real(ar)
+    pr, pi = HK.stage1_real_plain(ar)
+    assert snr_db(_np(pr, pi), _np(cr, ci)) >= PORT_DB
+    yr, yi = HK.stage2_half(cr, ci)
+    qr, qi = HK.stage2_half_plain(cr, ci)
+    torch.cuda.synchronize()
+    assert tuple(yr.shape) == (b, n // 2 + 1)
+    assert snr_db(_np(qr, qi), _np(yr, yi)) >= PORT_DB
+    assert HK.launches["stage1_real"] == before["stage1_real"] + 1
+    assert HK.launches["stage2_half"] == before["stage2_half"] + 1
+    ref = np.fft.rfft(ar.double().cpu().numpy().reshape(b, n), axis=-1)
+    assert snr_db(ref, _np(yr, yi)) > ORACLE_DB
+    assert snr_db(ref[:, -1], _np(yr, yi)[:, -1]) > ORACLE_DB   # Nyquist
+
+
+def test_public_rfft_irfft_on_card(cuda):
+    import kofft_tpu_torch as kt
+    n = 1 << 16
+    x = np.random.default_rng(5).standard_normal((3, n)).astype(np.float32)
+    before = dict(HK.launches)
+    y = kt.rfft(x)                  # host input, default device: the card
+    assert y.device.type == "cuda"
+    assert HK.launches["stage1_real"] > before["stage1_real"]
+    ref = np.fft.rfft(x.astype(np.float64))
+    assert snr_db(ref, y.cpu().numpy()) > ORACLE_DB
+    back = kt.irfft(y, n=n)
+    assert snr_db(x, back.cpu().numpy()) > ORACLE_DB
+    yr, yi = kt.rfft_split(torch.as_tensor(x[0], device=cuda))
+    assert snr_db(ref[0], _np(yr, yi)) > ORACLE_DB
+
+
+def test_rfft_grad_on_card(cuda):
+    import kofft_tpu_torch as kt
+    n = 1 << 16
+    h = n // 2 + 1
+    x, _ = _planes((n,), cuda, seed=6)
+    gr, gi = _planes((h,), cuda, seed=7)
+    x.requires_grad_(True)
+    yr, yi = kt.rfft_split(x)
+    (yr * gr + yi * gi).sum().backward()
+    full = np.zeros(n, np.complex128)
+    full[:h] = _np(gr, gi)
+    want = (np.fft.ifft(full) * n).real
+    assert snr_db(want, x.grad.double().cpu().numpy()) > ORACLE_DB
 
 
 def test_rejects_bad_planes(cuda):

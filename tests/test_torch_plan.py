@@ -138,7 +138,7 @@ def test_config_setters_revert():
 
 def test_port_imports_no_jax():
     code = ("import sys, kofft_tpu_torch, kofft_tpu_torch.ops.hopper_fft, "
-            "kofft_tpu_torch.ops._cuda_build; "
+            "kofft_tpu_torch.ops.rfft, kofft_tpu_torch.ops._cuda_build; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'kofft_tpu.'))]; print(bad); "
             "sys.exit(1 if bad else 0)")
