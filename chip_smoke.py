@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive kofft_tpu_torch's main paths, the 1-D complex and real FFT, on one
-CUDA card.
+"""Drive kofft_tpu_torch's main paths, the 1-D complex and real FFT and the
+N-D FFT, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -16,15 +16,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    numpy FFT, at (8, 2^14), 2^20, 3*2^18, (8, 2^20), 2^24 and 2^26; then
    stage1_real and stage2_half the same way, the pair against the float64
    numpy rfft, at (4, 2^14), 2^20, 3*2^18, (8, 2^20), 2^24 and 2^26;
-   every SNR must exceed 100 dB;
-4. main paths: the public entries (complex, then real) with every count
-   set to 0 just before each path; each case checks its output against a
-   float64 oracle and that its TPU-kernel class count rose; the kernel
-   launch counts are read just after each path; one real case passes
-   numpy input with no device, which must land on the card;
-5. gradient: backward through fft_split and through rfft_split at 2^20
-   against the analytic gradient (the unnormalized inverse of the
-   cotangent, zero-padded to n for the real transform);
+   then col_fft and row_fft the same way, the pair against the float64
+   numpy fft2, at (1, 1024, 1024), (8, 512, 512), (1, 4096, 4096) and
+   (1, 8192, 8192), the three axis passes of a 128^3 grid against its
+   fftn, and the fused_nd route (d launches) against fused_nd_plain at
+   128^3 and (512, 256); every SNR must exceed 100 dB;
+4. main paths: the public entries (complex, then real, then N-D) with
+   every count set to 0 just before each path; each case checks its
+   output against a float64 oracle and that its TPU-kernel class count
+   rose; the kernel launch counts are read just after each path; one
+   real case passes numpy input with no device, which must land on the
+   card; the N-D path runs all three N-D classes (fft2, fft2_big,
+   fused_nd), the cuFFT zone and the per-axis route;
+5. gradient: backward through fft_split and through rfft_split at 2^20,
+   through fft2 at 1024^2 and through fftn_split at 128^3, against the
+   analytic gradient (the unnormalized inverse of the cotangent,
+   zero-padded to n for the real transform);
 6. timing: CUDA events after warm-up, of the kernel path, the plain
    version and torch.fft (cuFFT) at 2^20, 8 x 2^20, 2^24 and 2^26 for the
    complex and the real FFT, and of each stage kernel and its plain
@@ -36,16 +43,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    one); and the host's time per call to enqueue those 20 calls. The two
    kernel paths, fft_split and rfft_split, are timed in turns (fft, rfft,
    rfft, fft, three times) and reported as medians. Each transform row
-   has its bound (``transform_bound``).
+   has its bound (``transform_bound``). Then the N-D rows: the kernel
+   route (fftn_split), its plain version and torch.fft.fft2 / fftn at
+   1024^2, (8, 512, 512), 4096^2, 8192^2 and 128^3 with their bound
+   (``nd_bound``); col_fft and row_fft alone at (1, 1024, 1024), each
+   beside torch.fft.fft along its axis; and the three axis passes of a
+   128^3 grid alone (kernel, plain version, torch.fft.fft, bound).
 
 A bound is the least time the card could take for the work: the larger
 of the bytes the function must move (each input read once, each output
 written once) over 3.35 TB/s, and 5 m log2 m float32 operations per
 complex line of length m (half for real input or one-sided output) over
-67 TFLOP/s. The line before the last is the kernels' JSON record
+67 TFLOP/s; an N-D transform does that along each of its axes. The line
+before the last is the kernels' JSON record
 (launches on the main paths, max abs error against the plain version,
-back-to-back ms of kernel and plain version at (1, 1024, 1024), and the
-bound there); the last line is {"ok": true, "device": {...}}. Without a
+back-to-back ms of kernel and plain version at (1, 1024, 1024), the
+bound there, and for col_fft and row_fft the back-to-back ms of
+torch.fft.fft along the same axis, null for the four-step stages); the
+last line is {"ok": true, "device": {...}}. Without a
 CUDA device the script exits non-zero before it prints any result.
 """
 
@@ -107,8 +122,9 @@ def stage_bound(name: str, b: int, n1: int, n2: int):
     pts = b * n1 * n2
     nbytes = {"stage1": 16 * pts, "stage2": 16 * pts,
               "stage1_real": 12 * pts,
-              "stage2_half": 8 * pts + 8 * b * (pts // b // 2 + 1)}[name]
-    m = n1 if name.startswith("stage1") else n2
+              "stage2_half": 8 * pts + 8 * b * (pts // b // 2 + 1),
+              "col_fft": 16 * pts, "row_fft": 16 * pts}[name]
+    m = n1 if name.startswith("stage1") or name == "col_fft" else n2
     return bound_ms(nbytes, fft_flops(
         pts, m, name in ("stage1_real", "stage2_half")))
 
@@ -118,6 +134,16 @@ def transform_bound(real: bool, b: int, n: int):
     written once, 5 n log2 n operations per line (half for the rfft)."""
     nbytes = b * (4 * n + 8 * (n // 2 + 1)) if real else 16 * b * n
     return bound_ms(nbytes, fft_flops(b * n, n, real))
+
+
+def nd_bound(shape, axes=None):
+    """bound_ms of a complex N-D transform of ``shape`` over ``axes``
+    (default all): the planes read once and written once, and 5 m log2 m
+    operations per line along each transformed axis."""
+    pts = math.prod(shape)
+    axes = range(len(shape)) if axes is None else axes
+    return bound_ms(16 * pts, sum(fft_flops(pts, shape[a], False)
+                                  for a in axes))
 
 
 def main() -> int:
@@ -227,6 +253,61 @@ def main() -> int:
         assert min(s1, s2, so, sq) > FLOOR_DB, (b, n, s1, s2, so, sq)
         del ar, cr, ci, pr, pi, yr, yi, qr, qi, ref, got
 
+    err.update(col_fft=0.0, row_fft=0.0)
+
+    def axis_pass(name, fn, plain_fn, ar, ai):
+        """One col_fft / row_fft launch against its plain version on the
+        same input: (output planes, SNR)."""
+        yr, yi = fn(ar, ai)
+        pr, pi = plain_fn(ar, ai)
+        torch.cuda.synchronize()
+        e = max((yr - pr).abs().max().item(), (yi - pi).abs().max().item())
+        err[name] = max(err[name], e)
+        return yr, yi, snr_db(host(pr, pi), host(yr, yi)), e
+
+    for shape in [(1, 1024, 1024), (8, 512, 512), (1, 4096, 4096),
+                  (1, 8192, 8192)]:
+        ar, ai = planes(shape)
+        cr, ci, s1, e1 = axis_pass("col_fft", HK.col_fft, HK.col_fft_plain,
+                                   ar, ai)
+        yr, yi, s2, e2 = axis_pass("row_fft", HK.row_fft, HK.row_fft_plain,
+                                   cr, ci)
+        so = snr_db(np.fft.fft2(host(ar, ai)), host(yr, yi))
+        log(f"{shape}: col_fft vs plain {s1:.2f} dB (max abs {e1:.3e}), "
+            f"row_fft vs plain {s2:.2f} dB (max abs {e2:.3e}), pair vs "
+            f"float64 fft2 {so:.2f} dB")
+        assert min(s1, s2, so) > FLOOR_DB, (shape, s1, s2, so)
+        del ar, ai, cr, ci, yr, yi
+    # the three axis passes of a 128^3 grid: axis 0 and 1 as col_fft views,
+    # the last axis as a row_fft view
+    ar, ai = planes((128, 128, 128))
+    yr, yi = ar, ai
+    snrs = []
+    for view, name, fn, plain_fn in [
+            ((1, 128, 16384), "col_fft", HK.col_fft, HK.col_fft_plain),
+            ((128, 128, 128), "col_fft", HK.col_fft, HK.col_fft_plain),
+            ((1, 16384, 128), "row_fft", HK.row_fft, HK.row_fft_plain)]:
+        yr, yi, sv, _ = axis_pass(name, fn, plain_fn, yr.reshape(view),
+                                  yi.reshape(view))
+        snrs.append(sv)
+    so = snr_db(np.fft.fftn(host(ar, ai)),
+                host(yr, yi).reshape(128, 128, 128))
+    log(f"(128, 128, 128) axis views: passes vs plain "
+        f"{', '.join(f'{v:.2f}' for v in snrs)} dB, passes vs float64 fftn "
+        f"{so:.2f} dB")
+    assert min(*snrs, so) > FLOOR_DB, (snrs, so)
+    for shape in [(128, 128, 128), (512, 256)]:
+        xr, xi = planes(shape)
+        yr, yi = HK.fused_ndfft_planes(xr, xi)
+        pr, pi = HK.fused_nd_plain(xr, xi)
+        torch.cuda.synchronize()
+        sp = snr_db(host(pr, pi), host(yr, yi))
+        so = snr_db(np.fft.fftn(host(xr, xi)), host(yr, yi))
+        log(f"{shape}: fused_nd route ({len(shape)} launches) vs "
+            f"fused_nd_plain {sp:.2f} dB, vs float64 fftn {so:.2f} dB")
+        assert min(sp, so) > FLOOR_DB, (shape, sp, so)
+    del ar, ai, xr, xi, yr, yi, pr, pi
+
     # -- 4. main path through the public entries --------------------------
     log("== phase 4: main paths through the public entries")
     log("-- the complex FFT")
@@ -330,15 +411,67 @@ def main() -> int:
                                                "phased_tiled_real",
                                                "ml_real")})
     log(f"real path counts: launches {HK.launches}, classes {HK.classes}")
+    del x, xh, xn
+
+    log("-- the N-D FFT")
+    log(f"precision tier: {kt.get_config().precision}")
+    HK.reset_counts()
+
+    def nd_case(shape, cls, axes=None, entry="fftn"):
+        x = host(*planes(shape))
+        xc = torch.as_tensor(x.astype(np.complex64), device=dev)
+        if entry == "fft2":
+            axes = (-2, -1)
+            fn = lambda: kt.fft2(xc)                        # noqa: E731
+        else:
+            fn = lambda: kt.fftn(xc, axes=axes)             # noqa: E731
+        case(f"{entry} {shape} axes {axes}", cls,
+             lambda: fn().cpu().numpy(), lambda: np.fft.fftn(x, axes=axes))
+
+    nd_case((1024, 1024), "fft2", entry="fft2")
+    nd_case((8, 512, 512), "fft2", entry="fft2")
+    nd_case((2048, 2048), "fft2_big", entry="fft2")
+    nd_case((4096, 4096), "fft2_big", entry="fft2")
+    nd_case((8192, 8192), "fft2_big", entry="fft2")
+    nd_case((128, 128, 128), "fused_nd")
+    nd_case((512, 256), "fused_nd")
+    xr, xi = planes((1024, 1024))
+    x = host(xr, xi)
+    xc = torch.complex(xr, xi)
+    case("ifft2(fft2(x)) 1024^2", "fft2",
+         lambda: kt.ifft2(kt.fft2(xc)).cpu().numpy(), lambda: x)
+    xr, xi = planes((128, 128, 128))
+    x = host(xr, xi)
+    case("fftn_split inverse (128, 128, 128)", "fused_nd",
+         lambda: host(*kt.fftn_split(xr, xi, inverse=True)),
+         lambda: np.fft.ifftn(x))
+    x = real((4, 8, 1 << 17))
+    xh = x.double().cpu().numpy()
+    case("rfftn (4, 8, 2^17)", "ml_real", lambda: kt.rfftn(x).cpu().numpy(),
+         lambda: np.fft.rfftn(xh))
+    nd_case((1024, 16384), None)            # cuFFT zone
+    # per-axis: the 2^17-point axis takes the 1-D stage kernels
+    nd_case((128, 2, 1 << 17), "ml", axes=(0, 2))
+    torch.cuda.synchronize()
+    nd_launches = dict(HK.launches)
+    nd_classes = dict(HK.classes)
+    log(f"N-D path counts: launches {nd_launches}, classes {nd_classes}")
+    assert all(nd_launches[k] > 0 for k in HK.launches), nd_launches
+    assert all(nd_classes[k] > 0 for k in ("fft2", "fft2_big", "fused_nd")), \
+        nd_classes
+    launches.update({k: nd_launches[k] for k in ("col_fft", "row_fft")})
+    classes.update({k: nd_classes[k] for k in ("fft2", "fft2_big",
+                                               "fused_nd")})
     log(f"main path counts: launches {launches}, classes {classes}")
     assert set(launches) == set(HK.launches), launches
     assert set(classes) == set(HK.classes), classes
     assert all(v > 0 for v in launches.values()), launches
     assert all(v > 0 for v in classes.values()), classes
-    del x, xh, xn
+    del x, xh, xr, xi, xc
 
     # -- 5. gradient --------------------------------------------------
-    log("== phase 5: gradients through fft_split and rfft_split at 2^20")
+    log("== phase 5: gradients through fft_split and rfft_split at 2^20, "
+        "fft2 at 1024^2 and fftn_split at 128^3")
     n = 1 << 20
     xr, xi = planes((n,))
     gr, gi = planes((n,))
@@ -365,6 +498,28 @@ def main() -> int:
         f"zero-padded cotangent: {s:.2f} dB")
     assert s > FLOOR_DB, s
     del x, gr, gi, yr, yi, full
+    xr, xi = planes((1024, 1024))
+    gr, gi = planes((1024, 1024))
+    xc = torch.complex(xr, xi).requires_grad_(True)
+    y = kt.fft2(xc)
+    (y.real * gr + y.imag * gi).sum().backward()
+    s = snr_db(np.fft.ifft2(host(gr, gi)) * xr.numel(),
+               xc.grad.detach().cpu().numpy())
+    log(f"fft2 grad (1024^2, route fft2) vs unnormalized inverse of the "
+        f"cotangent: {s:.2f} dB")
+    assert s > FLOOR_DB, s
+    xr, xi = planes((128, 128, 128))
+    gr, gi = planes((128, 128, 128))
+    xr.requires_grad_(True)
+    xi.requires_grad_(True)
+    yr, yi = kt.fftn_split(xr, xi)
+    (yr * gr + yi * gi).sum().backward()
+    s = snr_db(np.fft.ifftn(host(gr, gi)) * xr.numel(),
+               host(xr.grad, xi.grad))
+    log(f"fftn_split grad (128^3, route fused_nd) vs unnormalized inverse "
+        f"of the cotangent: {s:.2f} dB")
+    assert s > FLOOR_DB, s
+    del xr, xi, gr, gi, xc, y, yr, yi
 
     # -- 6. timing ----------------------------------------------------
     log("== phase 6: timing (CUDA events after 3 warm-up calls)")
@@ -439,17 +594,48 @@ def main() -> int:
         del xr, xi, xc, x, a3r, a3i, a3, paths, rows
         torch.cuda.synchronize()
 
+    for shape, axes in [((1024, 1024), (-2, -1)), ((8, 512, 512), (-2, -1)),
+                        ((4096, 4096), (-2, -1)), ((8192, 8192), (-2, -1)),
+                        ((128, 128, 128), None)]:
+        xr, xi = planes(shape)
+        xc = torch.complex(xr, xi)
+        if axes is None:
+            plain_what = "plain version (fused_nd_plain)"
+            plain_fn = lambda: HK.fused_nd_plain(xr, xi)      # noqa: E731
+            lib_what = "torch.fft.fftn (cuFFT)"
+            lib_fn = lambda: torch.fft.fftn(xc)               # noqa: E731
+        else:
+            a3r = xr.reshape(-1, *shape[-2:])
+            a3i = xi.reshape(-1, *shape[-2:])
+            plain_what = "plain version (col_fft_plain + row_fft_plain)"
+            plain_fn = lambda: HK.row_fft_plain(            # noqa: E731
+                *HK.col_fft_plain(a3r, a3i))
+            lib_what = "torch.fft.fft2 (cuFFT)"
+            lib_fn = lambda: torch.fft.fft2(xc)               # noqa: E731
+        bd, by = nd_bound(shape, axes)
+        log(f"{shape}: fftn_split bound {bd * 1e3:.2f} us ({by})")
+        report(shape, "kernel path (fftn_split)",
+               time_ms(lambda: kt.fftn_split(xr, xi, axes=axes)))
+        report(shape, plain_what, time_ms(plain_fn))
+        report(shape, lib_what, time_ms(lib_fn))
+        del xr, xi, xc, plain_fn, lib_fn
+        torch.cuda.synchronize()
+
     shape = (1, 1024, 1024)
     ar, ai = planes(shape)
     cr, ci = HK.stage1(ar, ai)
     kern = {"stage1": time_ms(lambda: HK.stage1(ar, ai)),
             "stage2": time_ms(lambda: HK.stage2(cr, ci)),
             "stage1_real": time_ms(lambda: HK.stage1_real(ar)),
-            "stage2_half": time_ms(lambda: HK.stage2_half(cr, ci))}
+            "stage2_half": time_ms(lambda: HK.stage2_half(cr, ci)),
+            "col_fft": time_ms(lambda: HK.col_fft(ar, ai)),
+            "row_fft": time_ms(lambda: HK.row_fft(ar, ai))}
     plain = {"stage1": time_ms(lambda: HK.stage1_plain(ar, ai)),
              "stage2": time_ms(lambda: HK.stage2_plain(cr, ci)),
              "stage1_real": time_ms(lambda: HK.stage1_real_plain(ar)),
-             "stage2_half": time_ms(lambda: HK.stage2_half_plain(cr, ci))}
+             "stage2_half": time_ms(lambda: HK.stage2_half_plain(cr, ci)),
+             "col_fft": time_ms(lambda: HK.col_fft_plain(ar, ai)),
+             "row_fft": time_ms(lambda: HK.row_fft_plain(ar, ai))}
     bound = {k: stage_bound(k, *shape) for k in kern}
     for k in kern:
         log(f"{shape} {k}: kernel single {kern[k][0] * 1e3:.1f} us,"
@@ -457,23 +643,60 @@ def main() -> int:
             f"{plain[k][0] * 1e3:.1f} us, back-to-back "
             f"{plain[k][1] * 1e3:.1f} us/call; bound "
             f"{bound[k][0] * 1e3:.2f} us ({bound[k][1]}) [{smi}]")
+    # one axis pass is one library call: torch.fft.fft along that axis of
+    # the complex tensor (built once, outside the timed calls); the four
+    # stage kernels have none (no PyTorch call computes one four-step stage)
+    ac = torch.complex(ar, ai)
+    library_ms = {}
+    for k, dim in (("col_fft", 1), ("row_fft", 2)):
+        t = time_ms(lambda: torch.fft.fft(ac, dim=dim))
+        library_ms[k] = t[1]
+        log(f"{shape} {k} library torch.fft.fft(complex, dim={dim}): "
+            f"single {t[0] * 1e3:.1f} us, back-to-back {t[1] * 1e3:.1f} "
+            f"us/call [{smi}]")
     ms = {k: v[1] for k, v in kern.items()}
     plain_ms = {k: v[1] for k, v in plain.items()}
+    del ar, ai, cr, ci, ac
+    # the three axis passes of a 128^3 grid alone: lines of 128, T = 16
+    for view, k, dim in (((1, 128, 16384), "col_fft", 1),
+                         ((128, 128, 128), "col_fft", 1),
+                         ((1, 16384, 128), "row_fft", 2)):
+        vr, vi = planes(view)
+        vc = torch.complex(vr, vi)
+        fn, plain_fn = {"col_fft": (HK.col_fft, HK.col_fft_plain),
+                        "row_fft": (HK.row_fft, HK.row_fft_plain)}[k]
+        tkern = time_ms(lambda: fn(vr, vi))
+        tp = time_ms(lambda: plain_fn(vr, vi))
+        tl = time_ms(lambda: torch.fft.fft(vc, dim=dim))
+        bd, by = stage_bound(k, *view)
+        log(f"{view} {k}: kernel back-to-back {tkern[1] * 1e3:.1f} us/call; "
+            f"plain {tp[1] * 1e3:.1f}; torch.fft.fft(dim={dim}) "
+            f"{tl[1] * 1e3:.1f}; bound {bd * 1e3:.2f} us ({by}) [{smi}]")
+        del vr, vi, vc
 
     src = "kofft_tpu_torch/ops/csrc/fft_stages.cu"
     tpu = "kofft_tpu/ops/pallas_kernels.py"
     replaces = {
-        "stage1": (547, "phase 1"), "stage2": (569, "phases 2-3"),
-        "stage1_real": (558, "real=True, phase 1"),
-        "stage2_half": (579, "real=True, phases 2-3 and the Nyquist bin")}
+        "stage1": (547, ["847 (_build_phased kern, phase 1)"]),
+        "stage2": (569, ["847 (_build_phased kern, phases 2-3)"]),
+        "stage1_real": (558, ["847 (_build_phased kern, real=True, "
+                              "phase 1)"]),
+        "stage2_half": (579, ["847 (_build_phased kern, real=True, phases "
+                              "2-3 and the Nyquist bin)"]),
+        "col_fft": (1701, ["1597 (_build_fft2 kern, phase 1)",
+                           "1415 (_build_fused_nd kern, the passes over "
+                           "axes 0 ... d-2)"]),
+        "row_fft": (1708, ["1597 (_build_fft2 kern, phase 2)",
+                           "1415 (_build_fused_nd kern, the last-axis "
+                           "pass)"])}
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src,
          "replaces": f"{tpu}:{line}",
-         "also_replaces": [f"{tpu}:847 (_build_phased kern, {what})"],
+         "also_replaces": [f"{tpu}:{a}" for a in also],
          "launches": launches[k], "max_abs_err": err[k],
          "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bound[k][0],
-         "bound_by": bound[k][1], "library_ms": None}
-        for k, (line, what) in replaces.items()]}
+         "bound_by": bound[k][1], "library_ms": library_ms.get(k)}
+        for k, (line, also) in replaces.items()]}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,10 @@ SIGNATURES = {
                      _I, _I, _P],
     "kofft_stage2_half": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
                           _I, _P],
+    "kofft_col_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
+                      _I, _I, _P],
+    "kofft_row_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
+                      _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -38,6 +38,25 @@
 //   k1 = 0 has in shared memory, so no pass runs after the kernel. The
 //   row stride n/2 + 1 is odd, so the stores stay scalar.
 //
+// The N-D FFT (fft2/fftn) runs two more instances, with no twiddle between
+// its passes (every axis is a DFT of its own):
+// - col_fft replaces sa_kern of _build_fft2_big (:1701), phase 1 of the
+//   one-call 2-D kernel (_build_fft2 kern, :1597-1615) and the non-last
+//   axis passes of the fused all-axes kernel (_build_fused_nd kern, :1415):
+//   stage1_kernel<false, false>, line FFTs of length m along axis 1 of
+//   (b, m, inner) planes, written back in the input layout. Any axis a of
+//   an N-D grid is the (prod(d[:a]), d[a], prod(d[a+1:])) view.
+// - row_fft replaces sb_kern (:1708), phase 2 of the one-call 2-D kernel
+//   (:1617-1639) and the last-axis pass of the fused kernel:
+//   stage2_kernel<kNatural>, line FFTs along the last axis of (b, n1, m)
+//   planes, stored in natural order (b, n1, m), not transposed.
+// The conjugation of an inverse rides on the first pass's load and the
+// last pass's store (the axis DFTs commute), so no pass is added. The TPU
+// kept a 2-D image (one-call kernel) or the whole grid (fused kernel) in
+// VMEM between the passes; here every pass goes through device memory, 16
+// bytes per point, so a 2-D route moves twice and a d-axis route d times
+// the bytes its bound counts (8 MB per pass at 1024^2, within the L2).
+//
 // Where trouble is likely, and what the design does about it:
 // - Shared memory: a block holds two (m, T) float2 buffers (ping-pong),
 //   16*m*T bytes. The host picks T (16 down to 1) so that this stays
@@ -49,8 +68,15 @@
 // - Coalescing: stage 1 reads and stage 2 writes T consecutive floats per
 //   row (64-byte segments at T = 16, 4-byte at T = 1 for n = 2^26).
 //   Tiling the transposes through shared memory is later work.
+// - Coalescing of row_fft's natural-order store: line c's result sits at
+//   y[k2*T + c] in shared memory, and the store walks k2 fastest across
+//   the threads (the order of the loads), so a warp writes 128
+//   consecutive bytes of one output row; c fastest would write at strides
+//   of m floats. col_fft reads and writes T consecutive floats per row, as
+//   stage 1 does (4 bytes at T = 1 for lines of 4096 and 8192).
 // - Leaf cost: see line_fft.cuh; the dense leaves, not device memory,
-//   limit the pair.
+//   limit the pair. Lines of 128 are one dense 128-point leaf (128 MACs
+//   per point, against 64 for lines of 1024).
 #include <cuda_runtime.h>
 
 #include "line_fft.cuh"
@@ -63,8 +89,10 @@ namespace {
 // registers per thread (3 blocks of 512 per SM) spilled and lost too
 constexpr int kThreads = 512;
 
-// kReal: ar is one real plane (ai and sgn are not read)
-template <bool kReal>
+// kReal: ar is one real plane (ai and sgn are not read). kTwiddle = false
+// is col_fft: no twiddle, the line FFTs stored as they are (the twiddle
+// tables are not read)
+template <bool kReal, bool kTwiddle>
 __global__ void __launch_bounds__(kThreads)
 stage1_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
               float* __restrict__ cr, float* __restrict__ ci, int n1, int n2,
@@ -93,29 +121,44 @@ stage1_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
   }
   const float2* y =
       kofft::line_fft<kReal>(buf0, buf1, total, plan, tab);
-  const int ncol = n2 / tw_t;
   float* c_r = cr + base;
   float* c_i = ci + base;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int k1 = idx / T;
-    const int c = idx - k1 * T;
-    const int j2 = j2_0 + c;
-    const int col = j2 / tw_t;
-    const int u = j2 - col * tw_t;
-    const float wcr = ecr[k1 * ncol + col];
-    const float wci = eci[k1 * ncol + col];
-    const float wbr = ebr[k1 * tw_t + u];
-    const float wbi = ebi[k1 * tw_t + u];
-    const float2 w = make_float2(wcr * wbr - wci * wbi, wcr * wbi + wci * wbr);
-    const float2 v = kofft::cmulf(y[idx], w);
-    const long long g = static_cast<long long>(k1) * n2 + j2;
-    c_r[g] = v.x;
-    c_i[g] = v.y;
+  if constexpr (kTwiddle) {
+    const int ncol = n2 / tw_t;
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int k1 = idx / T;
+      const int c = idx - k1 * T;
+      const int j2 = j2_0 + c;
+      const int col = j2 / tw_t;
+      const int u = j2 - col * tw_t;
+      const float wcr = ecr[k1 * ncol + col];
+      const float wci = eci[k1 * ncol + col];
+      const float wbr = ebr[k1 * tw_t + u];
+      const float wbi = ebi[k1 * tw_t + u];
+      const float2 w =
+          make_float2(wcr * wbr - wci * wbi, wcr * wbi + wci * wbr);
+      const float2 v = kofft::cmulf(y[idx], w);
+      const long long g = static_cast<long long>(k1) * n2 + j2;
+      c_r[g] = v.x;
+      c_i[g] = v.y;
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int k1 = idx / T;
+      const int c = idx - k1 * T;
+      const long long g = static_cast<long long>(k1) * n2 + j2_0 + c;
+      c_r[g] = y[idx].x;
+      c_i[g] = y[idx].y;
+    }
   }
 }
 
-// kHalf: write the one-sided (b, n/2 + 1) planes (sgn is not read)
-template <bool kHalf>
+// How stage2_kernel stores its lines: transposed into (b, n2, n1) (the
+// 1-D spectrum), only the one-sided bins into (b, n/2 + 1) (sgn is not
+// read), or in natural order into (b, n1, n2) (row_fft)
+enum Store { kTransposed, kHalf, kNatural };
+
+template <int kStore>
 __global__ void __launch_bounds__(kThreads)
 stage2_kernel(const float* __restrict__ cr, const float* __restrict__ ci,
               float* __restrict__ yr, float* __restrict__ yi, int n1, int n2,
@@ -138,7 +181,22 @@ stage2_kernel(const float* __restrict__ cr, const float* __restrict__ ci,
     buf0[j2 * T + c] = make_float2(c_r[g], c_i[g]);
   }
   const float2* y = kofft::line_fft(buf0, buf1, total, plan, tab);
-  if constexpr (kHalf) {
+  if constexpr (kStore == kNatural) {
+    // k2 fastest across the threads: a warp writes one row's run of
+    // consecutive floats. The shared-memory reads stride by T float2, as
+    // the loads above do: at T = 16 (lines of 256 or fewer) that is 128
+    // bytes, so the lanes of a warp fall on one bank. A padded layout
+    // (stride T + 1) or a register transpose is queued.
+    float* o_r = yr + base + static_cast<long long>(k1_0) * n2;
+    float* o_i = yi + base + static_cast<long long>(k1_0) * n2;
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int c = idx / n2;
+      const int k2 = idx - c * n2;
+      const float2 v = y[k2 * T + c];
+      o_r[idx] = v.x;
+      o_i[idx] = sgn * v.y;
+    }
+  } else if constexpr (kStore == kHalf) {
     // flat bins k = k2*n1 + k1 <= n/2: rows k2 < n2/2 and, from the
     // k1 = 0 line, the Nyquist bin
     const long long half = static_cast<long long>(n1) * (n2 / 2);
@@ -168,9 +226,6 @@ stage2_kernel(const float* __restrict__ cr, const float* __restrict__ ci,
 }
 
 constexpr int kMaxDevices = 64;
-// dynamic shared memory already allowed, per kernel instance and device
-int g_smem1[2][kMaxDevices];
-int g_smem2[2][kMaxDevices];
 
 // Selects the device (only if it is not current) and raises the kernel's
 // dynamic shared-memory limit once per device: the attribute persists, and
@@ -214,7 +269,9 @@ int fill_plan(LinePlan* p, const int* steps, int nsteps) {
   return cudaSuccess;
 }
 
-template <bool kReal>
+// Each instance of a launcher keeps its own record of the dynamic shared
+// memory already allowed per device (the attribute is per kernel function).
+template <bool kReal, bool kTwiddle>
 int launch_stage1(const float* ar, const float* ai, float* cr, float* ci,
                   int b, int n1, int n2, int T, const int* steps, int nsteps,
                   const void* tab, const float* ebr, const float* ebi,
@@ -225,31 +282,34 @@ int launch_stage1(const float* ar, const float* ai, float* cr, float* ci,
   if (r != cudaSuccess) return r;
   if (T < 1 || n2 % T != 0 || n2 % tw_t != 0) return cudaErrorInvalidValue;
   const int smem = static_cast<int>(2 * sizeof(float2) * n1 * T);
-  r = prepare(reinterpret_cast<const void*>(stage1_kernel<kReal>),
-              g_smem1[kReal], device, smem);
+  static int allowed[kMaxDevices];
+  r = prepare(reinterpret_cast<const void*>(stage1_kernel<kReal, kTwiddle>),
+              allowed, device, smem);
   if (r != cudaSuccess) return r;
   const unsigned grid = static_cast<unsigned>(b) * (n2 / T);
-  stage1_kernel<kReal>
+  stage1_kernel<kReal, kTwiddle>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           ar, ai, cr, ci, n1, n2, T, p, static_cast<const float2*>(tab), ebr,
           ebi, ecr, eci, tw_t, conj ? -1.f : 1.f);
   return cudaGetLastError();
 }
 
-template <bool kHalf>
+template <int kStore>
 int launch_stage2(const float* cr, const float* ci, float* yr, float* yi,
                   int b, int n1, int n2, int T, const int* steps, int nsteps,
                   const void* tab, int conj, int device, void* stream) {
   LinePlan p;
   int r = fill_plan(&p, steps, nsteps);
   if (r != cudaSuccess) return r;
-  if (T < 1 || n1 % T != 0 || n2 % 2 != 0) return cudaErrorInvalidValue;
+  if (T < 1 || n1 % T != 0 || (kStore == kHalf && n2 % 2 != 0))
+    return cudaErrorInvalidValue;
   const int smem = static_cast<int>(2 * sizeof(float2) * n2 * T);
-  r = prepare(reinterpret_cast<const void*>(stage2_kernel<kHalf>),
-              g_smem2[kHalf], device, smem);
+  static int allowed[kMaxDevices];
+  r = prepare(reinterpret_cast<const void*>(stage2_kernel<kStore>), allowed,
+              device, smem);
   if (r != cudaSuccess) return r;
   const unsigned grid = static_cast<unsigned>(b) * (n1 / T);
-  stage2_kernel<kHalf>
+  stage2_kernel<kStore>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           cr, ci, yr, yi, n1, n2, T, p, static_cast<const float2*>(tab),
           conj ? -1.f : 1.f);
@@ -264,9 +324,9 @@ extern "C" int kofft_stage1(const float* ar, const float* ai, float* cr,
                             const float* ebr, const float* ebi,
                             const float* ecr, const float* eci, int tw_t,
                             int conj, int device, void* stream) {
-  return launch_stage1<false>(ar, ai, cr, ci, b, n1, n2, T, steps, nsteps,
-                              tab, ebr, ebi, ecr, eci, tw_t, conj, device,
-                              stream);
+  return launch_stage1<false, true>(ar, ai, cr, ci, b, n1, n2, T, steps,
+                                    nsteps, tab, ebr, ebi, ecr, eci, tw_t,
+                                    conj, device, stream);
 }
 
 // ar: one real (b, n1, n2) plane
@@ -277,17 +337,17 @@ extern "C" int kofft_stage1_real(const float* ar, float* cr, float* ci,
                                  const float* ebi, const float* ecr,
                                  const float* eci, int tw_t, int device,
                                  void* stream) {
-  return launch_stage1<true>(ar, nullptr, cr, ci, b, n1, n2, T, steps,
-                             nsteps, tab, ebr, ebi, ecr, eci, tw_t, 0, device,
-                             stream);
+  return launch_stage1<true, true>(ar, nullptr, cr, ci, b, n1, n2, T, steps,
+                                   nsteps, tab, ebr, ebi, ecr, eci, tw_t, 0,
+                                   device, stream);
 }
 
 extern "C" int kofft_stage2(const float* cr, const float* ci, float* yr,
                             float* yi, int b, int n1, int n2, int T,
                             const int* steps, int nsteps, const void* tab,
                             int conj, int device, void* stream) {
-  return launch_stage2<false>(cr, ci, yr, yi, b, n1, n2, T, steps, nsteps,
-                              tab, conj, device, stream);
+  return launch_stage2<kTransposed>(cr, ci, yr, yi, b, n1, n2, T, steps,
+                                    nsteps, tab, conj, device, stream);
 }
 
 // yr, yi: one-sided (b, n1*n2/2 + 1) planes
@@ -295,6 +355,27 @@ extern "C" int kofft_stage2_half(const float* cr, const float* ci, float* yr,
                                  float* yi, int b, int n1, int n2, int T,
                                  const int* steps, int nsteps,
                                  const void* tab, int device, void* stream) {
-  return launch_stage2<true>(cr, ci, yr, yi, b, n1, n2, T, steps, nsteps,
-                             tab, 0, device, stream);
+  return launch_stage2<kHalf>(cr, ci, yr, yi, b, n1, n2, T, steps, nsteps,
+                              tab, 0, device, stream);
+}
+
+// (b, m, inner) planes -> (b, m, inner), line FFTs of length m along axis
+// 1; conj negates the imaginary part on load
+extern "C" int kofft_col_fft(const float* ar, const float* ai, float* yr,
+                             float* yi, int b, int m, int inner, int T,
+                             const int* steps, int nsteps, const void* tab,
+                             int conj, int device, void* stream) {
+  return launch_stage1<false, false>(ar, ai, yr, yi, b, m, inner, T, steps,
+                                     nsteps, tab, nullptr, nullptr, nullptr,
+                                     nullptr, 1, conj, device, stream);
+}
+
+// (b, n1, m) planes -> (b, n1, m), line FFTs of length m along the last
+// axis in natural order; conj negates the imaginary part on store
+extern "C" int kofft_row_fft(const float* xr, const float* xi, float* yr,
+                             float* yi, int b, int n1, int m, int T,
+                             const int* steps, int nsteps, const void* tab,
+                             int conj, int device, void* stream) {
+  return launch_stage2<kNatural>(xr, xi, yr, yi, b, n1, m, T, steps, nsteps,
+                                 tab, conj, device, stream);
 }

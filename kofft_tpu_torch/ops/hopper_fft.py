@@ -7,7 +7,10 @@ inverse of the cotangent, pallas_fft.py:105-110) and the forward-mode
 derivative is the same transform of the tangents (:95-99). Both run the
 same kernels, so no backward kernel exists or is needed. The real FFT's
 backward zero-pads the one-sided cotangent and takes the real plane of
-the unnormalized complex inverse (pallas_fft.py:166-178).
+the unnormalized complex inverse (pallas_fft.py:166-178). The N-D routes
+are one op keyed by the route (``_KernelND``); every per-axis DFT matrix
+is symmetric, so the same argument holds axis by axis
+(pallas_fft.py:227-234).
 """
 
 from __future__ import annotations
@@ -15,8 +18,9 @@ from __future__ import annotations
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from .hopper_kernels import (_pow2_split, fused_multilevel_fft,
-                             fused_multilevel_rfft)
+from .hopper_kernels import (_pow2_split, fused_fft2_big_planes,
+                             fused_fft2_planes, fused_multilevel_fft,
+                             fused_multilevel_rfft, fused_ndfft_planes)
 
 
 def kernel_supported(n: int, dtype: str) -> bool:
@@ -121,3 +125,44 @@ def kernel_rfft_planes(x, n: int):
     if not _tracked(x, x):
         return fused_multilevel_rfft(x, n)
     return _KernelRFFT.apply(x, n)
+
+
+# the N-D routes by class: the counterparts of the linear primitives
+# _dft2_p, _dft2big_p and _dftn_p (pallas_fft.py:201-390)
+_ND_ROUTES = {"fft2": fused_fft2_planes, "fft2_big": fused_fft2_big_planes,
+              "fused_nd": fused_ndfft_planes}
+
+
+class _KernelND(torch.autograd.Function):
+    @staticmethod
+    def forward(xr, xi, route, inverse):
+        return _ND_ROUTES[route](xr, xi, inverse)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.route, ctx.inverse = inputs[2], inputs[3]
+        ctx.like = inputs[0].detach()
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        yr, yi = _KernelND.apply(_zeros_if_none(gr, ctx.like),
+                                 _zeros_if_none(gi, ctx.like), ctx.route,
+                                 not ctx.inverse)
+        return yr, yi, None, None
+
+    @staticmethod
+    def jvp(ctx, tr, ti, _route, _inverse):
+        return _ND_ROUTES[ctx.route](_zeros_if_none(tr, ctx.like),
+                                     _zeros_if_none(ti, ctx.like),
+                                     ctx.inverse)
+
+
+def kernel_nd_planes(xr, xi, route: str, inverse: bool):
+    """Unnormalized N-D DFT (inverse: N * ifftn) of float32 planes through
+    the N-D route ``route`` ("fft2", "fft2_big" or "fused_nd"),
+    differentiable in both modes."""
+    xr = xr.contiguous()
+    xi = xi.contiguous()
+    if not _tracked(xr, xi):
+        return _ND_ROUTES[route](xr, xi, inverse)
+    return _KernelND.apply(xr, xi, route, bool(inverse))

@@ -1,7 +1,8 @@
-"""Hand-written Hopper kernels of the 1-D complex and real FFT, their host
-plan, their plain PyTorch versions, and the routing that mirrors
-``kofft_tpu.ops.pallas_kernels.fused_multilevel_fft`` and
-``fused_multilevel_rfft``.
+"""Hand-written Hopper kernels of the 1-D complex and real FFT and of the
+N-D FFT, their host plan, their plain PyTorch versions, and the routing
+that mirrors ``kofft_tpu.ops.pallas_kernels.fused_multilevel_fft``,
+``fused_multilevel_rfft``, ``fused_fft2_planes``,
+``fused_fft2_big_planes`` and ``fused_ndfft_planes``.
 
 The JAX package runs the Bailey four-step X = F_n2 . ((F_n1 . A) o W)
 through three Pallas forms: the phased one-call kernel in its flat
@@ -19,12 +20,24 @@ The real FFT runs two more instances of the same kernels, ``stage1_real``
 ``stage2_half`` (only the one-sided bins k <= n/2 stored, the Nyquist bin
 included), counted by the classes of the JAX real forms.
 
+The N-D FFT's three Pallas kernels (the one-call 2-D kernel, the two-call
+2-D pair and the fused all-axes kernel) compute DFTs along axes with no
+twiddle between the passes. On Hopper they are two more instances of the
+same kernels: ``col_fft`` (line FFTs along axis 1 of (b, m, inner)
+planes, stored in the input layout) and ``row_fft`` (line FFTs along the
+last axis, stored in natural order). A 2-D route is ``col_fft`` then
+``row_fft``; the all-axes route is ``col_fft`` per leading axis, then
+``row_fft``. The routes count the JAX classes ``fft2``, ``fft2_big`` and
+``fused_nd``.
+
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 PyTorch version for a CPU tensor; any other device raises. The plain
 versions (``fft_axis0_plain``, ``stage1_plain``, ``stage2_plain``,
-``stage1_real_plain``, ``stage2_half_plain``) are the JAX routine's
-recursion with the Gauss three-product of ``_cdot`` at the `highest`
-tier, in float32 matmuls.
+``stage1_real_plain``, ``stage2_half_plain``, ``col_fft_plain``,
+``row_fft_plain``) are the JAX routine's recursion with the Gauss
+three-product of ``_cdot`` at the `highest` tier, in float32 matmuls;
+``fused_nd_plain`` is the fused all-axes kernel's own math, one dense
+Gauss product per axis.
 """
 
 from __future__ import annotations
@@ -54,9 +67,15 @@ _PHASED_FLAT_REAL_MAX_N = 1 << 23  # the same for the real form
 # overlap: 8 x 2^20 measured 940 -> 704 us against 128 KB (H100, 700 W)
 _SMEM_BYTES = 64 * 1024
 
-launches = {"stage1": 0, "stage2": 0, "stage1_real": 0, "stage2_half": 0}
+# the longest line col_fft and row_fft take: one line of 8192 fills 128 KB
+# of shared memory (T = 1), and 16384 would not fit a block's 227 KB
+_LINE_MAX = 8192
+
+launches = {"stage1": 0, "stage2": 0, "stage1_real": 0, "stage2_half": 0,
+            "col_fft": 0, "row_fft": 0}
 classes = {"phased_flat": 0, "phased_tiled": 0, "ml": 0,
-           "phased_flat_real": 0, "phased_tiled_real": 0, "ml_real": 0}
+           "phased_flat_real": 0, "phased_tiled_real": 0, "ml_real": 0,
+           "fft2": 0, "fft2_big": 0, "fused_nd": 0}
 
 
 def reset_counts() -> None:
@@ -269,17 +288,34 @@ def _twiddle_plane(n1: int, n2: int, device):
     return const(wr, device), const(wi, device)
 
 
+def _col_lines(ar, ai, conj: bool):
+    """FFTs of length m along axis 1 of (b, m, inner) planes, as (b, m,
+    inner) views. ``ai=None``: real input."""
+    b, m, inner = ar.shape
+    xr = ar.permute(1, 0, 2).reshape(m, b * inner)
+    xi = None
+    if ai is not None:
+        xi = (-ai if conj else ai).permute(1, 0, 2).reshape(m, b * inner)
+    yr, yi = fft_axis0_plain(xr, xi, m)
+    return (yr.reshape(m, b, inner).permute(1, 0, 2),
+            yi.reshape(m, b, inner).permute(1, 0, 2))
+
+
+def _row_lines(cr, ci):
+    """FFTs of length n2 along the last axis of (b, n1, n2) planes, as
+    (n2, b, n1) tensors."""
+    b, n1, n2 = cr.shape
+    xr = cr.permute(2, 0, 1).reshape(n2, b * n1)
+    xi = ci.permute(2, 0, 1).reshape(n2, b * n1)
+    yr, yi = fft_axis0_plain(xr, xi, n2)
+    return yr.reshape(n2, b, n1), yi.reshape(n2, b, n1)
+
+
 def stage1_plain(ar, ai, conj: bool = False):
     """Plain version of the stage-1 kernel: (b, n1, n2) -> C (b, n1, n2),
     column FFTs of length n1 then the twiddle W. ``ai=None``: real input."""
     b, n1, n2 = ar.shape
-    xr = ar.permute(1, 0, 2).reshape(n1, b * n2)
-    xi = None
-    if ai is not None:
-        xi = (-ai if conj else ai).permute(1, 0, 2).reshape(n1, b * n2)
-    yr, yi = fft_axis0_plain(xr, xi, n1)
-    yr = yr.reshape(n1, b, n2).permute(1, 0, 2)
-    yi = yi.reshape(n1, b, n2).permute(1, 0, 2)
+    yr, yi = _col_lines(ar, ai, conj)
     wr, wi = _twiddle_plane(n1, n2, ar.device)
     return ((yr * wr - yi * wi).contiguous(),
             (yr * wi + yi * wr).contiguous())
@@ -288,15 +324,52 @@ def stage1_plain(ar, ai, conj: bool = False):
 def stage2_plain(cr, ci, conj: bool = False):
     """Plain version of the stage-2 kernel: C (b, n1, n2) -> (b, n2, n1),
     row FFTs of length n2 written transposed."""
-    b, n1, n2 = cr.shape
-    xr = cr.permute(2, 0, 1).reshape(n2, b * n1)
-    xi = ci.permute(2, 0, 1).reshape(n2, b * n1)
-    yr, yi = fft_axis0_plain(xr, xi, n2)
-    yr = yr.reshape(n2, b, n1).permute(1, 0, 2).contiguous()
-    yi = yi.reshape(n2, b, n1).permute(1, 0, 2).contiguous()
+    yr, yi = _row_lines(cr, ci)
+    yr = yr.permute(1, 0, 2).contiguous()
+    yi = yi.permute(1, 0, 2).contiguous()
     if conj:
         yi = -yi
     return yr, yi
+
+
+def col_fft_plain(ar, ai, conj: bool = False):
+    """Plain version of the col_fft kernel: (b, m, inner) -> (b, m, inner),
+    line FFTs of length m along axis 1 in the input layout (stage 1 with
+    no twiddle); ``conj`` negates the imaginary part of the input."""
+    yr, yi = _col_lines(ar, ai, conj)
+    return yr.contiguous(), yi.contiguous()
+
+
+def row_fft_plain(xr, xi, conj: bool = False):
+    """Plain version of the row_fft kernel: (b, n1, m) -> (b, n1, m), line
+    FFTs of length m along the last axis in natural order (stage 2 with no
+    transpose); ``conj`` negates the imaginary part of the output."""
+    yr, yi = _row_lines(xr, xi)
+    yr = yr.permute(1, 2, 0).contiguous()
+    yi = yi.permute(1, 2, 0).contiguous()
+    if conj:
+        yi = -yi
+    return yr, yi
+
+
+def fused_nd_plain(xr, xi, conj: bool = False):
+    """Plain version of the fused all-axes kernel with its own math
+    (``_build_fused_nd``, pallas_kernels.py:1415-1429): one dense Gauss
+    product per axis, last axis first. Each product contracts the grid's
+    current last axis with DFT_m and puts the output axis first, a cyclic
+    rotation of the axes, so after d products the grid is back in natural
+    order. ``conj``: the conjugation identity (the unnormalized
+    inverse)."""
+    shape = tuple(xr.shape)
+    total = xr.numel()
+    if conj:
+        xi = -xi
+    for m in reversed(shape):
+        fr, fi = (const(a, xr.device) for a in tables.dft_matrix(m))
+        xr, xi = _cdot(fr, fi, xr.reshape(total // m, m).T,
+                       xi.reshape(total // m, m).T)
+    yr, yi = xr.reshape(shape), xi.reshape(shape)
+    return (yr, -yi) if conj else (yr, yi)
 
 
 def stage1_real_plain(ar):
@@ -329,6 +402,14 @@ def _kernel_tile(m: int) -> int:
     while t > 1 and 16 * m * t > _SMEM_BYTES:
         t //= 2
     return t
+
+
+def _check_line(m: int, what: str) -> None:
+    """col_fft and row_fft take pow2 lines of 2 ... _LINE_MAX points."""
+    if m & (m - 1) or not 2 <= m <= _LINE_MAX:
+        raise InvalidValueError(
+            f"{what}: lines must be a power of two in [2, {_LINE_MAX}]; "
+            f"got {m}")
 
 
 def _leaf_kb(mm: int, kb_max: int) -> int:
@@ -400,20 +481,23 @@ def _check_planes(xr, xi, what: str) -> None:
 _ARGS: dict = {}
 
 
-def _static_args(stage: int, b: int, n1: int, n2: int, dev) -> tuple:
-    """The launch arguments that depend only on the shape and the device:
-    (T, steps pointer, step count, table pointers...), built once. The
-    host side of a launch is on the 2^20 critical path (the transform was
+def _static_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
+    """The launch arguments that depend only on the kernel kind ("stage1",
+    "stage2", "col" or "row"), the (b, n1, n2) shape and the device: (T,
+    steps pointer, step count, table pointers...), built once. "stage1"
+    and "col" run lines of n1 along axis 1, "stage2" and "row" lines of
+    n2 along the last axis; only "stage1" has twiddle tables. The host
+    side of a launch is on the 2^20 critical path (the transform was
     host-bound there), so nothing is rebuilt per call."""
-    key = (stage, b, n1, n2, dev.index)
+    key = (kind, b, n1, n2, dev.index)
     hit = _ARGS.get(key)
     if hit is None:
-        m, other = (n1, n2) if stage == 1 else (n2, n1)
+        m, other = (n1, n2) if kind in ("stage1", "col") else (n2, n1)
         t = _kernel_tile(m)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         steps, tab = _line_plan(m, t, _grid_kb(b * (other // t), sms))
         tabs = [const(tab, dev)]
-        if stage == 1:
+        if kind == "stage1":
             tabs += [const(a, dev) for a in
                      _twiddle_factors(n1, n2, min(_ML_TILE, n1), "float32")]
         # the cached host and device tables keep every pointer alive
@@ -440,7 +524,7 @@ def stage1(ar, ai, conj: bool = False):
     b, n1, n2 = ar.shape
     dev = ar.device
     t, steps, nsteps, tab, ebr, ebi, ecr, eci = _static_args(
-        1, b, n1, n2, dev)
+        "stage1", b, n1, n2, dev)
     cr = torch.empty_like(ar)
     ci = torch.empty_like(ai)
     err = lib().kofft_stage1(
@@ -474,7 +558,7 @@ def stage2(cr, ci, conj: bool = False, out=None):
     if out is None:
         yr = torch.empty((b, n2, n1), dtype=cr.dtype, device=dev)
         yi = torch.empty((b, n2, n1), dtype=cr.dtype, device=dev)
-    t, steps, nsteps, tab = _static_args(2, b, n1, n2, dev)
+    t, steps, nsteps, tab = _static_args("stage2", b, n1, n2, dev)
     err = lib().kofft_stage2(
         cr.data_ptr(), ci.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1,
         n2, t, steps, nsteps, tab, int(conj), dev.index, _stream(dev))
@@ -494,7 +578,7 @@ def stage1_real(ar):
     b, n1, n2 = ar.shape
     dev = ar.device
     t, steps, nsteps, tab, ebr, ebi, ecr, eci = _static_args(
-        1, b, n1, n2, dev)
+        "stage1", b, n1, n2, dev)
     cr = torch.empty_like(ar)
     ci = torch.empty_like(ar)
     err = lib().kofft_stage1_real(
@@ -519,12 +603,58 @@ def stage2_half(cr, ci):
     h = n1 * n2 // 2 + 1
     yr = torch.empty((b, h), dtype=cr.dtype, device=dev)
     yi = torch.empty((b, h), dtype=cr.dtype, device=dev)
-    t, steps, nsteps, tab = _static_args(2, b, n1, n2, dev)
+    t, steps, nsteps, tab = _static_args("stage2", b, n1, n2, dev)
     err = lib().kofft_stage2_half(
         cr.data_ptr(), ci.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1,
         n2, t, steps, nsteps, tab, dev.index, _stream(dev))
     check(err, "stage2_half launch")
     launches["stage2_half"] += 1
+    return yr, yi
+
+
+def col_fft(ar, ai, conj: bool = False):
+    """Line FFTs of length m along axis 1 of (b, m, inner) planes, written
+    in the input layout (the column pass of the N-D routes); ``conj``
+    negates the imaginary part on load. CUDA tensors launch the kernel
+    (one count in ``launches``); CPU tensors run ``col_fft_plain``."""
+    _check_planes(ar, ai, "col_fft")
+    b, m, inner = ar.shape
+    _check_line(m, "col_fft")
+    if ar.device.type == "cpu":
+        return col_fft_plain(ar, ai, conj)
+    from ._cuda_build import check, lib
+    dev = ar.device
+    t, steps, nsteps, tab = _static_args("col", b, m, inner, dev)
+    yr = torch.empty_like(ar)
+    yi = torch.empty_like(ai)
+    err = lib().kofft_col_fft(
+        ar.data_ptr(), ai.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, m,
+        inner, t, steps, nsteps, tab, int(conj), dev.index, _stream(dev))
+    check(err, "col_fft launch")
+    launches["col_fft"] += 1
+    return yr, yi
+
+
+def row_fft(xr, xi, conj: bool = False):
+    """Line FFTs of length m along the last axis of (b, n1, m) planes,
+    written in natural order (b, n1, m); ``conj`` negates the imaginary
+    part on store. CUDA tensors launch the kernel (one count in
+    ``launches``); CPU tensors run ``row_fft_plain``."""
+    _check_planes(xr, xi, "row_fft")
+    b, n1, m = xr.shape
+    _check_line(m, "row_fft")
+    if xr.device.type == "cpu":
+        return row_fft_plain(xr, xi, conj)
+    from ._cuda_build import check, lib
+    dev = xr.device
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xi)
+    t, steps, nsteps, tab = _static_args("row", b, n1, m, dev)
+    err = lib().kofft_row_fft(
+        xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1, m,
+        t, steps, nsteps, tab, int(conj), dev.index, _stream(dev))
+    check(err, "row_fft launch")
+    launches["row_fft"] += 1
     return yr, yi
 
 
@@ -598,3 +728,123 @@ def fused_multilevel_rfft(x, n: int):
     yr, yi = stage2_half(cr, ci)
     h = n // 2 + 1
     return yr.reshape(*batch, h), yi.reshape(*batch, h)
+
+
+# ---------------------------------------------------------------------------
+# N-D zones and entries. The zone predicates and their thresholds are the
+# JAX package's (pallas_kernels.py:1382-1394, :1522-1553, :1759-1777),
+# measured on a TPU v5e; re-measuring them on the H100 is queued.
+# ---------------------------------------------------------------------------
+
+_FUSED_ND_MIN_POINTS = 1 << 17
+_FUSED_ND_MAX_POINTS = 1 << 21
+_FUSED_2D_MIN_POINTS = 1 << 18
+_FUSED_2D_MAX_POINTS = 1 << 22
+
+
+def _pow2_in(s: int, lo: int, hi: int) -> bool:
+    return not s & (s - 1) and lo <= s <= hi
+
+
+def _last_two(shape: tuple, axes: tuple) -> bool:
+    nd = len(shape)
+    return (nd >= 2 and len(axes) == 2
+            and sorted(a % nd for a in axes) == [nd - 2, nd - 1])
+
+
+def _one_call_2d_cap() -> int:
+    """Per-image point cap of the one-call 2-D zone: 2^22 on the 1-pass
+    `default` tier, 2^20 on the 6-pass tiers (v5e)."""
+    return (_FUSED_2D_MAX_POINTS if get_config().precision == "default"
+            else 1 << 20)
+
+
+def fused_nd_zone(shape: tuple, axes: tuple) -> bool:
+    """Class ``fused_nd``: every dim transformed, each a power of two in
+    [128, 512], 2^17 ... 2^21 points in all (the TPU kernel's
+    VMEM-resident range)."""
+    nd = len(shape)
+    if len(axes) < 2 or sorted(a % nd for a in axes) != list(range(nd)):
+        return False
+    total = 1
+    for s in shape:
+        if not _pow2_in(s, 128, 512):
+            return False
+        total *= s
+    return _FUSED_ND_MIN_POINTS <= total <= _FUSED_ND_MAX_POINTS
+
+
+def fused_2d_zone(shape: tuple, axes: tuple) -> bool:
+    """Class ``fft2``: the last two dims transformed (leading dims are the
+    batch), both powers of two in [128, 2048], 2^18 points per image up
+    to the per-tier cap (``_one_call_2d_cap``)."""
+    if not _last_two(shape, axes):
+        return False
+    n1, n2 = shape[-2], shape[-1]
+    if not (_pow2_in(n1, 128, 2048) and _pow2_in(n2, 128, 2048)):
+        return False
+    return _FUSED_2D_MIN_POINTS <= n1 * n2 <= _one_call_2d_cap()
+
+
+def fused_2d_big_zone(shape: tuple, axes: tuple) -> bool:
+    """Class ``fft2_big``: the last two dims transformed, both powers of
+    two in [128, 8192], per-image points above the one-call zone's
+    per-tier cap up to 2^26, so the two 2-D zones tile the range."""
+    if not _last_two(shape, axes):
+        return False
+    n1, n2 = shape[-2], shape[-1]
+    if not (_pow2_in(n1, 128, 8192) and _pow2_in(n2, 128, 8192)):
+        return False
+    return _one_call_2d_cap() < n1 * n2 <= (1 << 26)
+
+
+def _fft2_route(xr, xi, inverse: bool, cls: str):
+    shape = tuple(xr.shape)
+    n1, n2 = shape[-2:]
+    b = xr.numel() // (n1 * n2)
+    classes[cls] += 1
+    cr, ci = col_fft(xr.reshape(b, n1, n2), xi.reshape(b, n1, n2),
+                     conj=inverse)
+    yr, yi = row_fft(cr, ci, conj=inverse)
+    return yr.reshape(shape), yi.reshape(shape)
+
+
+def fused_fft2_planes(xr, xi, inverse: bool = False):
+    """Unnormalized 2-D DFT (inverse: n1*n2 * ifft2) over the last two dims
+    of contiguous float32 planes, leading dims folded into the batch: the
+    counterpart of the one-call 2-D kernel's entry (class ``fft2``),
+    ``col_fft`` then ``row_fft``. The conjugation of the inverse rides on
+    the first pass's load and the last pass's store."""
+    return _fft2_route(xr, xi, inverse, "fft2")
+
+
+def fused_fft2_big_planes(xr, xi, inverse: bool = False):
+    """:func:`fused_fft2_planes` counted as the two-call 2-D pair's class
+    ``fft2_big``: the TPU split the images above its one-call cap into
+    two calls with an HBM intermediate, which the two CUDA launches
+    always have."""
+    return _fft2_route(xr, xi, inverse, "fft2_big")
+
+
+def fused_ndfft_planes(xr, xi, inverse: bool = False):
+    """Unnormalized DFT over every axis of contiguous float32 planes with
+    d >= 2 dims (inverse: N * ifftn): the counterpart of the fused
+    all-axes kernel's entry (class ``fused_nd``). Axis a < d-1 is
+    ``col_fft`` on the (prod(d[:a]), d[a], prod(d[a+1:])) view, then the
+    last axis is ``row_fft``: d launches, the conjugation on the first
+    load and the last store (the axis DFTs commute)."""
+    shape = tuple(xr.shape)
+    require(len(shape) >= 2, InvalidValueError,
+            f"fused_ndfft_planes needs >= 2 dims, got {shape}")
+    classes["fused_nd"] += 1
+    total = xr.numel()
+    yr, yi = xr, xi
+    lead = 1
+    for a, m in enumerate(shape[:-1]):
+        inner = total // (lead * m)
+        yr, yi = col_fft(yr.reshape(lead, m, inner),
+                         yi.reshape(lead, m, inner), conj=inverse and a == 0)
+        lead *= m
+    yr, yi = row_fft(yr.reshape(1, lead, shape[-1]),
+                     yi.reshape(1, lead, shape[-1]), conj=inverse)
+    return yr.reshape(shape), yi.reshape(shape)

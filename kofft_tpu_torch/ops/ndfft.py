@@ -1,0 +1,280 @@
+"""N-D FFT: the counterpart of ``kofft_tpu.ops.ndfft``.
+
+``_fftn_planes`` tries its routes in the JAX package's order:
+
+    'auto'/'cuda', float32, fft2 zone      -> col_fft + row_fft (class fft2)
+    'auto'/'cuda', float32, big 2-D zone   -> the same pair (class fft2_big)
+    'auto'/'cuda', float32, fused N-D zone -> col_fft per axis + row_fft
+                                              (class fused_nd)
+    'cufft', or 'auto' in the cuFFT zone   -> torch.fft.fftn
+    small axes (<= 256)                    -> dense-DFT einsums per axis
+    otherwise                              -> per axis, the 1-D engine ladder
+
+The kernel routes take CUDA tensors to the hand-written kernels and CPU
+tensors to their plain versions. An explicit 'cufft' backend takes
+``torch.fft.fftn`` over the axes, where the JAX package maps 'jnpfft' to
+its XLA engines. Inverse transforms scale by 1/N (numpy). Host input goes
+to ``device`` (default ``"cuda"``, the card).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from ..errors import EmptyInputError, InvalidValueError, require
+from ..plan import tables
+from ._complex import const, dtype_name, merge, split
+from .fft import (_as_tensor, _fft_planes, _planes, engine_fft_planes,
+                  resolve_backend)
+
+__all__ = ["fft2", "ifft2", "fft3", "ifft3", "fftn", "ifftn",
+           "fftn_split", "rfftn", "irfftn", "rfftn_split", "irfftn_split"]
+
+
+def _nd_cufft_zone(shape: tuple, axes: tuple) -> bool:
+    """Shape class 'auto' sends to torch.fft.fftn: >= 2 pow2 axes, each
+    in [2^10, 2^16], at >= 2^20 points in all. The predicate is the JAX
+    package's ``_nd_jnp_zone``, whose thresholds were measured on a TPU
+    v5e; re-measuring them on the H100 is queued."""
+    if len(axes) < 2:
+        return False
+    total = 1
+    for s in shape:
+        total *= s
+    if total < (1 << 20):
+        return False
+    for a in axes:
+        n = shape[a]
+        if n & (n - 1) or not ((1 << 10) <= n <= (1 << 16)):
+            return False
+    return True
+
+
+_SMALL_AXES_MAX_N = 256
+
+
+def _small_axes_zone(shape: tuple, axes: tuple) -> bool:
+    """Shape class of the per-axis einsum route: >= 2 transform axes, each
+    short enough for one dense DFT matmul (<= 256), at most 15 dims (the
+    einsum letter pool)."""
+    if len(axes) < 2 or len(shape) > 15:
+        return False
+    return all(2 <= shape[a] <= _SMALL_AXES_MAX_N for a in axes)
+
+
+def _axis_einsum_planes(xr, xi, axes: tuple, inverse: bool, dtype: str):
+    """N-D DFT over small axes as dense-DFT einsums in place of each axis,
+    ``Y[a,k,c] = sum_j F[j,k] X[a,j,c]``, with the Gauss three-product.
+    The JAX package computes this route outside any Pallas kernel, so it
+    is plain ``torch.einsum`` here. Inverse by conjugation, unnormalized
+    (the caller scales)."""
+    if inverse:
+        yr, yi = _axis_einsum_planes(xr, -xi, axes, False, dtype)
+        return yr, -yi
+    nd = xr.dim()
+    ltrs = "abcdefghilmnopq"[:nd]   # j, k reserved for the contraction
+    for ax in axes:
+        a = ax % nd
+        fr, fi = (const(t, xr.device)
+                  for t in tables.dft_matrix(xr.shape[a], dtype))
+        sub = f"jk,{ltrs[:a]}j{ltrs[a + 1:]}->{ltrs[:a]}k{ltrs[a + 1:]}"
+        t1 = torch.einsum(sub, fr, xr)
+        t2 = torch.einsum(sub, fi, xi)
+        t3 = torch.einsum(sub, fr + fi, xr + xi)
+        xr, xi = t1 - t2, t3 - t1 - t2
+    return xr, xi
+
+
+def _inverse_rescale(yr, yi, shape: tuple, axes: tuple, inverse: bool):
+    """1/N scaling for routes that return the unnormalized inverse."""
+    if not inverse:
+        return yr, yi
+    scale = 1
+    for a in axes:
+        scale *= shape[a]
+    return yr / scale, yi / scale
+
+
+def _fftn_planes(xr, xi, axes: tuple, inverse: bool, backend: str):
+    dtype = dtype_name(xr)
+    if dtype == "bfloat16":
+        yr, yi = _fftn_planes(xr.float(), xi.float(), axes, inverse, backend)
+        return yr.to(xr.dtype), yi.to(xr.dtype)
+    shape = tuple(xr.shape)
+    nd = xr.dim()
+    if backend in ("auto", "cuda") and dtype == "float32":
+        from . import hopper_kernels as HK
+        from .hopper_fft import kernel_nd_planes
+        # The 2-D zone is checked BEFORE the cuFFT zone below (1024^2 sits
+        # in both; the 2-D kernel won 134 vs 152 us on the v5e) and BEFORE
+        # the dense fused-nd zone (512^2 sits in both; the leaf-32
+        # recursion won 33.8 vs 51.0): the zones are disjoint only by this
+        # ordering, not by construction (kofft_tpu/ops/ndfft.py:146-152)
+        for route, zone in (("fft2", HK.fused_2d_zone),
+                            ("fft2_big", HK.fused_2d_big_zone),
+                            ("fused_nd", HK.fused_nd_zone)):
+            if zone(shape, axes):
+                yr, yi = kernel_nd_planes(xr, xi, route, inverse)
+                return _inverse_rescale(yr, yi, shape, axes, inverse)
+    if backend == "cufft" or (backend == "auto"
+                              and _nd_cufft_zone(shape, axes)):
+        x = merge(xr, xi)
+        y = (torch.fft.ifftn(x, dim=axes) if inverse
+             else torch.fft.fftn(x, dim=axes))
+        return y.real.contiguous(), y.imag.contiguous()
+    if backend in ("auto", "torch", "cuda") and _small_axes_zone(shape, axes):
+        yr, yi = _axis_einsum_planes(xr, xi, axes, inverse, dtype)
+        return _inverse_rescale(yr, yi, shape, axes, inverse)
+    for ax in axes:
+        a = ax % nd
+        if a != nd - 1:
+            xr = torch.movedim(xr, a, -1)
+            xi = torch.movedim(xi, a, -1)
+        n = xr.shape[-1]
+        if backend in ("auto", "cuda"):
+            xr, xi = engine_fft_planes(xr.contiguous(), xi.contiguous(), n,
+                                       inverse, dtype, backend)
+        else:
+            xr, xi = _fft_planes(xr, xi, n, inverse, backend, dtype)
+        if inverse:
+            xr, xi = xr / n, xi / n
+        if a != nd - 1:
+            xr = torch.movedim(xr, -1, a)
+            xi = torch.movedim(xi, -1, a)
+    return xr, xi
+
+
+def _norm_axes(ndim: int, axes: Optional[Sequence[int]]) -> tuple:
+    if axes is None:
+        axes = tuple(range(ndim))
+    axes = tuple(int(a) % ndim for a in axes)
+    require(len(set(axes)) == len(axes), InvalidValueError,
+            f"repeated axes in {axes}")
+    return axes
+
+
+def fftn_split(xr, xi, axes: Optional[Sequence[int]] = None,
+               inverse: bool = False, backend: Optional[str] = None,
+               device="cuda"):
+    """N-D FFT over ``axes`` (default: all) on (re, im) planes; the
+    inverse scales by 1/N."""
+    xr, xi = _planes(xr, xi, device)
+    require(xr.dim() >= 1, EmptyInputError, "fftn input must have >= 1 dim")
+    axes = _norm_axes(xr.dim(), axes)
+    return _fftn_planes(xr, xi, axes, inverse, resolve_backend(backend))
+
+
+def _dispatch_nd(x, axes, inverse: bool, backend, device):
+    xr, xi = split(_as_tensor(x, device))
+    require(xr.dim() >= 1 and min(xr.shape) >= 1, EmptyInputError,
+            "fftn input must be non-empty")
+    axes = _norm_axes(xr.dim(), axes)
+    return merge(*_fftn_planes(xr.contiguous(), xi, axes, inverse,
+                               resolve_backend(backend)))
+
+
+def fftn(x, axes: Optional[Sequence[int]] = None,
+         backend: Optional[str] = None, device="cuda"):
+    """N-D FFT over ``axes`` (default: all). Returns a complex tensor on
+    the device of ``x`` (a host input is placed on ``device`` first)."""
+    return _dispatch_nd(x, axes, False, backend, device)
+
+
+def ifftn(x, axes: Optional[Sequence[int]] = None,
+          backend: Optional[str] = None, device="cuda"):
+    """Inverse N-D FFT over ``axes`` (1/N normalization)."""
+    return _dispatch_nd(x, axes, True, backend, device)
+
+
+def _at_least(x, nd: int, what: str, device):
+    x = _as_tensor(x, device)
+    require(x.dim() >= nd, InvalidValueError, f"{what} needs >= {nd} dims")
+    return x
+
+
+def fft2(x, backend: Optional[str] = None, device="cuda"):
+    """2-D FFT over the last two axes."""
+    return fftn(_at_least(x, 2, "fft2", device), axes=(-2, -1),
+                backend=backend)
+
+
+def ifft2(x, backend: Optional[str] = None, device="cuda"):
+    return ifftn(_at_least(x, 2, "ifft2", device), axes=(-2, -1),
+                 backend=backend)
+
+
+def fft3(x, backend: Optional[str] = None, device="cuda"):
+    """3-D FFT over the last three axes."""
+    return fftn(_at_least(x, 3, "fft3", device), axes=(-3, -2, -1),
+                backend=backend)
+
+
+def ifft3(x, backend: Optional[str] = None, device="cuda"):
+    return ifftn(_at_least(x, 3, "ifft3", device), axes=(-3, -2, -1),
+                 backend=backend)
+
+
+def rfftn_split(x, axes: Optional[Sequence[int]] = None,
+                backend: Optional[str] = None, device="cuda"):
+    """N-D FFT of a real input on planes (numpy ``rfftn`` convention):
+    the one-sided real FFT along the LAST of ``axes`` (length n//2 + 1),
+    then the complex FFT over the other axes, each on its own ladder."""
+    from .rfft import rfft_split
+    x = _as_tensor(x, device)
+    require(not x.is_complex(), InvalidValueError, "rfftn input must be real")
+    require(x.dim() >= 1 and min(x.shape) >= 1, EmptyInputError,
+            "rfftn input must be non-empty")
+    axes = _norm_axes(x.dim(), axes)
+    require(len(axes) >= 1, InvalidValueError,
+            "rfftn needs at least one axis (numpy raises here too)")
+    last = axes[-1]
+    if last != x.dim() - 1:
+        x = torch.movedim(x, last, -1)
+    yr, yi = rfft_split(x, backend=backend)
+    if last != yr.dim() - 1:
+        yr = torch.movedim(yr, -1, last)
+        yi = torch.movedim(yi, -1, last)
+    if len(axes) > 1:
+        yr, yi = fftn_split(yr, yi, axes=axes[:-1], backend=backend)
+    return yr, yi
+
+
+def irfftn_split(yr, yi, n: Optional[int] = None,
+                 axes: Optional[Sequence[int]] = None,
+                 backend: Optional[str] = None, device="cuda"):
+    """Inverse of :func:`rfftn_split` -> real signal. ``n`` sets the last
+    transformed axis's output length (default ``2*(shape[axes[-1]] - 1)``,
+    numpy convention); the other axes keep their lengths."""
+    from .rfft import irfft_split
+    yr, yi = _planes(yr, yi, device)
+    require(yr.dim() >= 1 and min(yr.shape) >= 1, EmptyInputError,
+            "irfftn input must be non-empty")
+    axes = _norm_axes(yr.dim(), axes)
+    require(len(axes) >= 1, InvalidValueError,
+            "irfftn needs at least one axis")
+    last = axes[-1]
+    if len(axes) > 1:
+        yr, yi = fftn_split(yr, yi, axes=axes[:-1], inverse=True,
+                            backend=backend)
+    if last != yr.dim() - 1:
+        yr = torch.movedim(yr, last, -1)
+        yi = torch.movedim(yi, last, -1)
+    x = irfft_split(yr, yi, n=n, backend=backend)
+    return x if last == x.dim() - 1 else torch.movedim(x, -1, last)
+
+
+def rfftn(x, axes: Optional[Sequence[int]] = None,
+          backend: Optional[str] = None, device="cuda"):
+    """N-D real FFT (complex output; see :func:`rfftn_split`)."""
+    return merge(*rfftn_split(x, axes=axes, backend=backend, device=device))
+
+
+def irfftn(y, n: Optional[int] = None,
+           axes: Optional[Sequence[int]] = None,
+           backend: Optional[str] = None, device="cuda"):
+    """Inverse N-D real FFT from a complex spectrum (numpy ``irfftn``
+    convention for the last transformed axis's length ``n``)."""
+    yr, yi = split(_as_tensor(y, device))
+    return irfftn_split(yr, yi, n=n, axes=axes, backend=backend)

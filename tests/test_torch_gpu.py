@@ -1,5 +1,6 @@
-"""The port's CUDA stage kernels (complex and real) against their plain
-PyTorch versions, and the public entries, on the card. Every test here carries the ``gpu`` marker and skips without a
+"""The port's CUDA kernels (the complex and real stage kernels and the N-D
+axis kernels) against their plain PyTorch versions, and the public
+entries, on the card. Every test here carries the ``gpu`` marker and skips without a
 CUDA device; whether one exists is decided inside the fixture. Run on the
 card with ``python -m pytest -m gpu --noconftest tests/test_torch_gpu.py``
 (``--noconftest``: the shared conftest imports jax, which the port does
@@ -9,7 +10,7 @@ Tolerances: kernel vs plain >= 110 dB (both are float32 evaluations of the
 same recursion with equal tables; the kernel sums with direct complex
 FMAs, the plain version with the Gauss three-product, so they differ only
 in rounding order); each vs the float64 numpy FFT > 100 dB
-(SNR_FLOOR_DB of tests/test_fft.py).
+(SNR_FLOOR_DB of tests/test_fft.py), the N-D routes included.
 """
 
 import numpy as np
@@ -150,3 +151,70 @@ def test_rejects_bad_planes(cuda):
         HK.stage1(ar.double(), ai.double())
     with pytest.raises(ValueError):
         HK.stage1(ar.transpose(1, 2), ai.transpose(1, 2))
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 1024), (8, 512, 512),
+                                   (2, 128, 256), (1, 8192, 128),
+                                   (1, 128, 8192)])
+@pytest.mark.parametrize("conj", [False, True])
+def test_axis_kernels_match_plain(cuda, shape, conj):
+    ar, ai = _planes(shape, cuda, seed=8)
+    before = dict(HK.launches)
+    cr, ci = HK.col_fft(ar, ai, conj)
+    pr, pi = HK.col_fft_plain(ar, ai, conj)
+    yr, yi = HK.row_fft(ar, ai, conj)
+    qr, qi = HK.row_fft_plain(ar, ai, conj)
+    torch.cuda.synchronize()
+    assert snr_db(_np(pr, pi), _np(cr, ci)) >= PORT_DB
+    assert snr_db(_np(qr, qi), _np(yr, yi)) >= PORT_DB
+    assert HK.launches["col_fft"] == before["col_fft"] + 1
+    assert HK.launches["row_fft"] == before["row_fft"] + 1
+    x = _np(ar, ai)
+    x = np.conj(x) if conj else x
+    assert snr_db(np.fft.fft(x, axis=1), _np(cr, ci)) > ORACLE_DB
+    want = np.fft.fft(_np(ar, ai), axis=2)
+    assert snr_db(np.conj(want) if conj else want, _np(yr, yi)) > ORACLE_DB
+
+
+@pytest.mark.parametrize("shape,axes,cls", [
+    ((1024, 1024), (0, 1), "fft2"),
+    ((4, 512, 512), (1, 2), "fft2"),
+    ((2048, 2048), (0, 1), "fft2_big"),
+    ((128, 128, 128), None, "fused_nd"),
+    ((512, 256), None, "fused_nd"),
+])
+def test_nd_routes_on_card(cuda, shape, axes, cls):
+    import kofft_tpu_torch as kt
+    xr, xi = _planes(shape, cuda, seed=9)
+    x = _np(xr, xi)
+    HK.reset_counts()
+    yr, yi = kt.fftn_split(xr, xi, axes=axes)
+    assert HK.classes[cls] == 1
+    assert HK.launches["col_fft"] == (len(shape) - 1 if axes is None else 1)
+    assert HK.launches["row_fft"] == 1
+    assert snr_db(np.fft.fftn(x, axes=axes), _np(yr, yi)) > ORACLE_DB
+    br, bi = kt.fftn_split(yr, yi, axes=axes, inverse=True)
+    assert snr_db(x, _np(br, bi)) > ORACLE_DB
+
+
+@pytest.mark.parametrize("shape", [(512, 256), (128, 128, 128)])
+def test_fused_nd_route_matches_plain(cuda, shape):
+    xr, xi = _planes(shape, cuda, seed=10)
+    for inverse in (False, True):
+        yr, yi = HK.fused_ndfft_planes(xr, xi, inverse)
+        pr, pi = HK.fused_nd_plain(xr, xi, conj=inverse)
+        torch.cuda.synchronize()
+        assert snr_db(_np(pr, pi), _np(yr, yi)) > ORACLE_DB
+
+
+def test_nd_grad_on_card(cuda):
+    import kofft_tpu_torch as kt
+    shape = (1024, 256)
+    xr, xi = _planes(shape, cuda, seed=11)
+    gr, gi = _planes(shape, cuda, seed=12)
+    xr.requires_grad_(True)
+    xi.requires_grad_(True)
+    yr, yi = kt.fftn_split(xr, xi)
+    (yr * gr + yi * gi).sum().backward()
+    want = np.fft.ifftn(_np(gr, gi)) * xr.numel()
+    assert snr_db(want, _np(xr.grad, xi.grad)) > ORACLE_DB
