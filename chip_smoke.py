@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive kofft_tpu_torch's main paths, the 1-D complex and real FFT and the
-N-D FFT, on one CUDA card.
+"""Drive kofft_tpu_torch's main paths, the 1-D complex and real FFT (on
+float32 and bfloat16 planes, on the `highest` and the `default` tier), the
+dense four-step pair and the N-D FFT, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,8 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for matmuls and cuDNN so the plain
    versions run in full float32;
-2. build: nvcc builds every kernel source of the package (timed), and
-   the ptxas register / shared-memory lines are printed;
+2. build: nvcc builds every kernel source of the package, one process per
+   source, all at once (timed), and the ptxas register / spill lines are
+   printed;
 3. kernels vs plain: stage1 and stage2 against their plain PyTorch
    versions on the same CUDA tensors, and the pair against a float64
    numpy FFT, at (8, 2^14), 2^20, 3*2^18, (8, 2^20), 2^24 and 2^26; then
@@ -20,22 +22,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    numpy fft2, at (1, 1024, 1024), (8, 512, 512), (1, 4096, 4096) and
    (1, 8192, 8192), the three axis passes of a 128^3 grid against its
    fftn, and the fused_nd route (d launches) against fused_nd_plain at
-   128^3 and (512, 256); every SNR must exceed 100 dB;
-4. main paths: the public entries (complex, then real, then N-D) with
-   every count set to 0 just before each path; each case checks its
-   output against a float64 oracle and that its TPU-kernel class count
-   rose; the kernel launch counts are read just after each path; one
-   real case passes numpy input with no device, which must land on the
-   card; the N-D path runs all three N-D classes (fft2, fft2_big,
-   fused_nd), the cuFFT zone and the per-axis route;
+   128^3 and (512, 256); then dense_stage_a and dense_stage_b, and
+   fused_four_step_fft against float64, at 2^14, (3, 2^14), 3*2^14, 2^20,
+   (8, 2^20), 2^24 and 2^26; every SNR must exceed 100 dB; last, every
+   bf16 I/O form of the four stage kernels against its plain version with
+   the same types at (8, 1024, 1024), (1, 4096, 4096) and (1, 8192, 8192)
+   (the `default` tier's 2^26 shape), above 70 dB where it stores bf16;
+4. main paths: the public entries (complex, then real, then N-D, then
+   the dense pair, bf16 planes and the `default` tier) with every count
+   set to 0 just before each path; each case checks its output against a
+   float64 oracle and that its TPU-kernel class count rose; the kernel
+   launch counts are read just after each path; one real case passes
+   numpy input with no device, which must land on the card; the N-D path
+   runs all three N-D classes (fft2, fft2_big, fused_nd), the cuFFT zone
+   and the per-axis route; bf16 planes must come back bf16 (>= 40 dB), and
+   the `default` tier's float32 route float32 (>= 42 dB); every kernel
+   form and every class must have launched;
 5. gradient: backward through fft_split and through rfft_split at 2^20,
-   through fft2 at 1024^2 and through fftn_split at 128^3, against the
-   analytic gradient (the unnormalized inverse of the cotangent,
-   zero-padded to n for the real transform);
+   through fft2 at 1024^2, through fftn_split at 128^3 and through
+   fft_split on bf16 planes at 2^20, against the analytic gradient (the
+   unnormalized inverse of the cotangent, zero-padded to n for the real
+   transform);
 6. timing: CUDA events after warm-up, of the kernel path, the plain
    version and torch.fft (cuFFT) at 2^20, 8 x 2^20, 2^24 and 2^26 for the
-   complex and the real FFT, and of each stage kernel and its plain
-   version at (1, 1024, 1024). Three numbers each: the median of 20
+   complex and the real FFT. Three numbers each: the median of 20
    single calls, each between its own pair of events (this includes the
    host's enqueue time whenever the device would otherwise wait); the
    device time per call over 20 back-to-back calls between one pair of
@@ -43,25 +53,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    one); and the host's time per call to enqueue those 20 calls. The two
    kernel paths, fft_split and rfft_split, are timed in turns (fft, rfft,
    rfft, fft, three times) and reported as medians. Each transform row
-   has its bound (``transform_bound``). Then the N-D rows: the kernel
-   route (fftn_split), its plain version and torch.fft.fft2 / fftn at
-   1024^2, (8, 512, 512), 4096^2, 8192^2 and 128^3 with their bound
-   (``nd_bound``); col_fft and row_fft alone at (1, 1024, 1024), each
-   beside torch.fft.fft along its axis; and the three axis passes of a
-   128^3 grid alone (kernel, plain version, torch.fft.fft, bound).
+   has its bound (``transform_bound``). Then fused_four_step_fft at 2^20,
+   8 x 2^20 and 2^24 beside its plain version and cuFFT; the float32
+   route, the bf16-planes route and the `default` tier in turns at
+   8 x 2^20, 2^24 and 2^26 for both 1-D transforms. Then the N-D rows: the
+   kernel route (fftn_split), its plain version and torch.fft.fft2 / fftn
+   at 1024^2, (8, 512, 512), 4096^2, 8192^2 and 128^3 with their bound
+   (``nd_bound``); every kernel and bf16 form alone at (1, 1024, 1024)
+   beside its plain version, and the library call where one computes the
+   same function; and the three axis passes of a 128^3 grid alone
+   (kernel, plain version, torch.fft.fft, bound).
 
 A bound is the least time the card could take for the work: the larger
 of the bytes the function must move (each input read once, each output
 written once) over 3.35 TB/s, and 5 m log2 m float32 operations per
 complex line of length m (half for real input or one-sided output) over
 67 TFLOP/s; an N-D transform does that along each of its axes. The line
-before the last is the kernels' JSON record
-(launches on the main paths, max abs error against the plain version,
-back-to-back ms of kernel and plain version at (1, 1024, 1024), the
-bound there, and for col_fft and row_fft the back-to-back ms of
-torch.fft.fft along the same axis, null for the four-step stages); the
-last line is {"ok": true, "device": {...}}. Without a
-CUDA device the script exits non-zero before it prints any result.
+before the last is the kernels' JSON record (launches on the main paths,
+max abs error against the plain version, back-to-back ms of kernel and
+plain version at (1, 1024, 1024), the bound there, and the library
+call's back-to-back ms or null); the last line is {"ok": true, "device":
+{...}}. Without a CUDA device the script exits non-zero before it prints
+any result.
 """
 
 from __future__ import annotations
@@ -80,6 +93,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 FLOOR_DB = 100.0
+# bf16 outputs against float64: each rounds float32 sums once (8 mantissa
+# bits, ~50 dB); a bf16-stored kernel against its plain version: both round
+# the same float32 sums to nearest even, so they differ only where the two
+# sums straddle a rounding boundary (~88 dB); a truncating store or bf16
+# sums would read 45-55 dB; the `default` tier's floor for its float32 route
+BF16_DB = 40.0
+BF16_PLAIN_DB = 70.0
+DEFAULT_DB = 42.0
 SEED = 20261016
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FMA-pipe flop/s
 PEAK_BYTES = 3.35e12
@@ -98,6 +119,15 @@ def snr_db(ref, got) -> float:
         10 * np.log10(np.sum(np.abs(ref) ** 2) / den))
 
 
+def snr_db_card(ref, got) -> float:
+    """snr_db of two (real, imag) plane pairs, summed in float64 on their
+    device (no host copy of a 2^26-point pair)."""
+    num = sum(r.double().square().sum() for r in ref).item()
+    den = sum((g.double() - r.double()).square().sum()
+              for r, g in zip(ref, got)).item()
+    return float("inf") if den == 0 else 10 * math.log10(num / den)
+
+
 def bound_ms(nbytes: float, flops: float):
     """(ms, "bytes" | "operations"): the least time the card can take to
     move ``nbytes`` through device memory or to do ``flops`` float32
@@ -113,26 +143,30 @@ def fft_flops(points: int, m: int, real: bool) -> float:
     return (2.5 if real else 5.0) * points * math.log2(m)
 
 
-def stage_bound(name: str, b: int, n1: int, n2: int):
-    """bound_ms of what one launch of stage kernel ``name`` on (b, n1, n2)
-    must do: its data planes read once and written once, and the FFT
-    operations of its lines. The twiddle products and the dense leaves'
-    extra MACs are left out: they are this algorithm's, not the
-    function's."""
+def stage_bound(base: str, b: int, n1: int, n2: int, ld: int = 4,
+                st: int = 4):
+    """bound_ms of what one launch of the stage kernel that computes
+    ``base``'s function on (b, n1, n2) must do, loading ``ld``-byte and
+    storing ``st``-byte plane elements: its data planes read once and
+    written once, and the FFT operations of its lines. The twiddle
+    products and the dense leaves' extra MACs are left out: they are this
+    algorithm's, not the function's."""
     pts = b * n1 * n2
-    nbytes = {"stage1": 16 * pts, "stage2": 16 * pts,
-              "stage1_real": 12 * pts,
-              "stage2_half": 8 * pts + 8 * b * (pts // b // 2 + 1),
-              "col_fft": 16 * pts, "row_fft": 16 * pts}[name]
-    m = n1 if name.startswith("stage1") or name == "col_fft" else n2
+    nbytes = {"stage1": 2 * (ld + st) * pts, "stage2": 2 * (ld + st) * pts,
+              "stage1_real": (ld + 2 * st) * pts,
+              "stage2_half": 2 * ld * pts + 2 * st * b * (pts // b // 2 + 1),
+              "col_fft": 16 * pts, "row_fft": 16 * pts}[base]
+    m = n1 if base.startswith("stage1") or base == "col_fft" else n2
     return bound_ms(nbytes, fft_flops(
-        pts, m, name in ("stage1_real", "stage2_half")))
+        pts, m, base in ("stage1_real", "stage2_half")))
 
 
-def transform_bound(real: bool, b: int, n: int):
-    """bound_ms of b transforms of length n: input read once, output
-    written once, 5 n log2 n operations per line (half for the rfft)."""
-    nbytes = b * (4 * n + 8 * (n // 2 + 1)) if real else 16 * b * n
+def transform_bound(real: bool, b: int, n: int, elt: int = 4):
+    """bound_ms of b transforms of length n on planes of ``elt`` bytes per
+    element: input read once, output written once, 5 n log2 n operations
+    per line (half for the rfft)."""
+    nbytes = (b * elt * (n + 2 * (n // 2 + 1)) if real
+              else 4 * elt * b * n)
     return bound_ms(nbytes, fft_flops(b * n, n, real))
 
 
@@ -308,12 +342,82 @@ def main() -> int:
         assert min(sp, so) > FLOOR_DB, (shape, sp, so)
     del ar, ai, xr, xi, yr, yi, pr, pi
 
+    # the dense four-step pair, each stage against its plain version on the
+    # same input; the pair, through fused_four_step_fft, against float64
+    err.update(dense_stage_a=0.0, dense_stage_b=0.0)
+    for b, n in [(1, 1 << 14), (3, 1 << 14), (1, 3 << 14), (1, 1 << 20),
+                 (8, 1 << 20), (1, 1 << 24), (1, 1 << 26)]:
+        n1, n2 = HK._pow2_split(n)
+        ar, ai = planes((b, n1, n2))
+        cr, ci = HK.dense_stage_a(ar, ai)
+        pr, pi = HK.dense_stage_a_plain(ar, ai)
+        yr, yi = HK.dense_stage_b(cr, ci)
+        qr, qi = HK.dense_stage_b_plain(cr, ci)
+        torch.cuda.synchronize()
+        e1 = max((cr - pr).abs().max().item(), (ci - pi).abs().max().item())
+        e2 = max((yr - qr).abs().max().item(), (yi - qi).abs().max().item())
+        err["dense_stage_a"] = max(err["dense_stage_a"], e1)
+        err["dense_stage_b"] = max(err["dense_stage_b"], e2)
+        s1 = snr_db(host(pr, pi), host(cr, ci))
+        s2 = snr_db(host(qr, qi), host(yr, yi))
+        del cr, ci, pr, pi, yr, yi, qr, qi
+        fr, fi = HK.fused_four_step_fft(ar.reshape(b, n), ai.reshape(b, n), n)
+        so = snr_db(np.fft.fft(host(ar, ai).reshape(b, n), axis=-1),
+                    host(fr, fi))
+        log(f"({b}, {n}) split ({n1}, {n2}): dense_stage_a vs plain "
+            f"{s1:.2f} dB (max abs {e1:.3e}), dense_stage_b vs plain "
+            f"{s2:.2f} dB (max abs {e2:.3e}), fused_four_step_fft vs "
+            f"float64 {so:.2f} dB")
+        assert min(s1, s2, so) > FLOOR_DB, (b, n, s1, s2, so)
+        del ar, ai, fr, fi
+
+    # the bf16 I/O forms of the stage kernels against their plain versions
+    # on the same input: float32 outputs above FLOOR_DB, bf16 outputs
+    # (compared in bf16) above BF16_PLAIN_DB; (1, 8192, 8192) is the shape
+    # the `default` tier's 2^26 route gives them (lines of 8192, T = 1)
+    def form_fns(base, xr, xi, stores):
+        """(kernel call, plain call) of stage kernel ``base``'s form that
+        loads the type of ``xr`` and stores ``stores``."""
+        return {
+            "stage1": (lambda: HK.stage1(xr, xi, c_dtype=stores),
+                       lambda: HK.stage1_plain(xr, xi, c_dtype=stores)),
+            "stage1_real": (
+                lambda: HK.stage1_real(xr, c_dtype=stores),
+                lambda: HK.stage1_real_plain(xr, c_dtype=stores)),
+            "stage2": (lambda: HK.stage2(xr, xi, dtype=stores),
+                       lambda: HK.stage2_plain(xr, xi, dtype=stores)),
+            "stage2_half": (
+                lambda: HK.stage2_half(xr, xi, dtype=stores),
+                lambda: HK.stage2_half_plain(xr, xi, dtype=stores))}[base]
+
+    # (base kernel, load dtype, store dtype, launch-count name) of each form
+    forms = [(base, *(HK._LETTER_DTYPE[c] for c in f), f"{base}_{f}")
+             for base, fs in HK._IO_FORMS.items() for f in fs if f != "ff"]
+    for shape in [(8, 1024, 1024), (1, 4096, 4096), (1, 8192, 8192)]:
+        ar, ai = planes(shape)
+        lines = []
+        for base, loads, stores, name in forms:
+            fn, plain_fn = form_fns(base, ar.to(loads), ai.to(loads), stores)
+            (yr, yi), (pr, pi) = fn(), plain_fn()
+            torch.cuda.synchronize()
+            assert yr.dtype == yi.dtype == stores, (name, yr.dtype)
+            e = max((yr.float() - pr.float()).abs().max().item(),
+                    (yi.float() - pi.float()).abs().max().item())
+            err[name] = max(err.get(name, 0.0), e)
+            sv = snr_db_card((pr, pi), (yr, yi))
+            floor = FLOOR_DB if stores == torch.float32 else BF16_PLAIN_DB
+            lines.append(f"{name} {sv:.2f}")
+            assert sv > floor, (shape, name, sv, floor)
+            del yr, yi, pr, pi
+        log(f"{shape}: bf16 forms vs plain (dB): {', '.join(lines)}")
+        del ar, ai
+
     # -- 4. main path through the public entries --------------------------
     log("== phase 4: main paths through the public entries")
     log("-- the complex FFT")
     HK.reset_counts()
 
-    def case(name, cls, fn, ref_fn):
+    def case(name, cls, fn, ref_fn, floor=FLOOR_DB):
         before = dict(HK.classes)
         t = time.perf_counter()
         got = fn()
@@ -324,7 +428,7 @@ def main() -> int:
         log(f"{name}: {s:.2f} dB vs float64 oracle, class "
             f"{cls or 'none'} {'rose' if rose else 'DID NOT RISE'}, "
             f"{ms:.3f} ms host (first call)")
-        assert s > FLOOR_DB and rose, (name, s, rose)
+        assert s > floor and rose, (name, s, floor, rose)
 
     def split_case(shape, cls):
         xr, xi = planes(shape)
@@ -456,22 +560,92 @@ def main() -> int:
     nd_launches = dict(HK.launches)
     nd_classes = dict(HK.classes)
     log(f"N-D path counts: launches {nd_launches}, classes {nd_classes}")
-    assert all(nd_launches[k] > 0 for k in HK.launches), nd_launches
+    assert all(nd_launches[k] > 0 for k in (
+        "stage1", "stage2", "stage1_real", "stage2_half", "col_fft",
+        "row_fft")), nd_launches
     assert all(nd_classes[k] > 0 for k in ("fft2", "fft2_big", "fused_nd")), \
         nd_classes
     launches.update({k: nd_launches[k] for k in ("col_fft", "row_fft")})
     classes.update({k: nd_classes[k] for k in ("fft2", "fft2_big",
                                                "fused_nd")})
+    del x, xh, xr, xi, xc
+
+    log("-- the dense four-step pair, bf16 planes and the `default` tier")
+    HK.reset_counts()
+
+    def typed(pair, dtype):
+        """Host complex128 of output planes that must be of ``dtype``."""
+        assert pair[0].dtype == pair[1].dtype == dtype, (pair[0].dtype, dtype)
+        return host(*pair)
+
+    for shape in [(1 << 20,), (8, 1 << 20)]:
+        xr, xi = planes(shape)
+        x = host(xr, xi)
+        case(f"fused_four_step_fft {shape}", "four_step",
+             lambda: host(*HK.fused_four_step_fft(xr, xi, shape[-1])),
+             lambda: np.fft.fft(x, axis=-1))
+    bf16 = torch.bfloat16
+
+    def bf16_cases(shape, cls, floor=BF16_DB):
+        """fft_split and rfft_split on bf16 planes: bf16 out, against the
+        float64 FFT of the bf16 input."""
+        br, bi = (t.to(bf16) for t in planes(shape))
+        bx = host(br, bi)
+        case(f"fft_split bf16 {shape}", cls,
+             lambda: typed(kt.fft_split(br, bi), bf16),
+             lambda: np.fft.fft(bx, axis=-1), floor)
+        case(f"rfft_split bf16 {shape}", cls + "_real",
+             lambda: typed(kt.rfft_split(br), bf16),
+             lambda: np.fft.rfft(bx.real, axis=-1), floor)
+
+    bf16_cases((1 << 20,), "phased_tiled")
+    bf16_cases((8, 1 << 20), "phased_tiled")
+    before = {k: HK.launches[k] for k in ("stage1", "stage2")}
+    br, bi = (t.to(bf16) for t in planes((1 << 24,)))
+    bx = host(br, bi)
+    case("fft_split bf16 (16777216,), the float32 route", "ml",
+         lambda: typed(kt.fft_split(br, bi), bf16),
+         lambda: np.fft.fft(bx), BF16_DB)
+    assert all(HK.launches[k] > v for k, v in before.items()), HK.launches
+    del br, bi, bx
+    kt.set_precision("default")
+    log(f"precision tier: {kt.get_config().precision}")
+    for shape, cls in [((8, 1 << 20), "phased_tiled"),
+                       ((1 << 24,), "phased_tiled"), ((1 << 26,), "ml")]:
+        xr, xi = planes(shape)
+        x = host(xr, xi)
+        case(f"fft_split default tier {shape}", cls,
+             lambda: typed(kt.fft_split(xr, xi), torch.float32),
+             lambda: np.fft.fft(x, axis=-1), DEFAULT_DB)
+        del xr, xi, x
+    for shape, cls in [((8, 1 << 20), "phased_tiled_real"),
+                       ((1 << 26,), "ml_real")]:
+        xr = real(shape)
+        x = xr.double().cpu().numpy()
+        case(f"rfft_split default tier {shape}", cls,
+             lambda: typed(kt.rfft_split(xr), torch.float32),
+             lambda: np.fft.rfft(x, axis=-1), DEFAULT_DB)
+        del xr, x
+    # bf16 planes above 2^23 on this tier: C stays bf16 (the phased sdt)
+    bf16_cases((1 << 24,), "phased_tiled", DEFAULT_DB)
+    kt.set_precision(None)
+    log(f"precision tier: {kt.get_config().precision}")
+    torch.cuda.synchronize()
+    new = [k for k in HK.launches if k not in launches]
+    launches.update({k: HK.launches[k] for k in new})
+    classes["four_step"] = HK.classes["four_step"]
+    log(f"dense, bf16 and default-tier path counts: launches {HK.launches}, "
+        f"classes {HK.classes}")
     log(f"main path counts: launches {launches}, classes {classes}")
     assert set(launches) == set(HK.launches), launches
     assert set(classes) == set(HK.classes), classes
     assert all(v > 0 for v in launches.values()), launches
     assert all(v > 0 for v in classes.values()), classes
-    del x, xh, xr, xi, xc
 
     # -- 5. gradient --------------------------------------------------
     log("== phase 5: gradients through fft_split and rfft_split at 2^20, "
-        "fft2 at 1024^2 and fftn_split at 128^3")
+        "fft2 at 1024^2, fftn_split at 128^3 and fft_split on bf16 planes "
+        "at 2^20")
     n = 1 << 20
     xr, xi = planes((n,))
     gr, gi = planes((n,))
@@ -520,6 +694,20 @@ def main() -> int:
         f"of the cotangent: {s:.2f} dB")
     assert s > FLOOR_DB, s
     del xr, xi, gr, gi, xc, y, yr, yi
+    # bf16 planes: the backward runs the bf16 forms on bf16 cotangents
+    n = 1 << 20
+    xr, xi = (t.to(torch.bfloat16) for t in planes((n,)))
+    gr, gi = (t.to(torch.bfloat16) for t in planes((n,)))
+    xr.requires_grad_(True)
+    xi.requires_grad_(True)
+    yr, yi = kt.fft_split(xr, xi)
+    (yr * gr + yi * gi).float().sum().backward()
+    assert xr.grad.dtype == xi.grad.dtype == torch.bfloat16
+    s = snr_db(np.fft.ifft(host(gr, gi)) * n, host(xr.grad, xi.grad))
+    log(f"fft_split grad on bf16 planes (2^20) vs unnormalized inverse of "
+        f"the cotangent: {s:.2f} dB")
+    assert s > BF16_DB, s
+    del xr, xi, gr, gi, yr, yi
 
     # -- 6. timing ----------------------------------------------------
     log("== phase 6: timing (CUDA events after 3 warm-up calls)")
@@ -594,6 +782,68 @@ def main() -> int:
         del xr, xi, xc, x, a3r, a3i, a3, paths, rows
         torch.cuda.synchronize()
 
+    # the dense four-step pair against its bound, its plain version and
+    # cuFFT
+    for shape in [(1 << 20,), (8, 1 << 20), (1 << 24,)]:
+        b = shape[0] if len(shape) == 2 else 1
+        n = shape[-1]
+        n1, n2 = HK._pow2_split(n)
+        xr, xi = planes(shape)
+        xc = torch.complex(xr, xi)
+        a3r, a3i = xr.reshape(b, n1, n2), xi.reshape(b, n1, n2)
+        bd, by = transform_bound(False, b, n)
+        log(f"{shape}: fused_four_step_fft bound {bd * 1e3:.2f} us ({by})")
+        report(shape, "dense pair (fused_four_step_fft)",
+               time_ms(lambda: HK.fused_four_step_fft(xr, xi, n)))
+        report(shape, "plain version (dense_stage_a_plain + "
+               "dense_stage_b_plain)", time_ms(
+                   lambda: HK.dense_stage_b_plain(
+                       *HK.dense_stage_a_plain(a3r, a3i))))
+        report(shape, "torch.fft.fft (cuFFT)",
+               time_ms(lambda: torch.fft.fft(xc)))
+        del xr, xi, xc, a3r, a3i
+        torch.cuda.synchronize()
+
+    # the bf16 routes beside the float32 route, in turns (f32, bf16 planes,
+    # default tier, then the reverse), each the median of its two runs
+    def default_tier(fn):
+        def run():
+            kt.set_precision("default")
+            try:
+                return fn()
+            finally:
+                kt.set_precision(None)
+        return run
+
+    for shape in [(8, 1 << 20), (1 << 24,), (1 << 26,)]:
+        b = shape[0] if len(shape) == 2 else 1
+        n = shape[-1]
+        xr, xi = planes(shape)
+        br, bi = xr.to(torch.bfloat16), xi.to(torch.bfloat16)
+        for real_fft, k in ((False, "fft_split"), (True, "rfft_split")):
+            if real_fft:
+                paths = {"float32": lambda: kt.rfft_split(xr),
+                         "bf16 planes": lambda: kt.rfft_split(br),
+                         "default tier, float32 planes": default_tier(
+                             lambda: kt.rfft_split(xr))}
+            else:
+                paths = {"float32": lambda: kt.fft_split(xr, xi),
+                         "bf16 planes": lambda: kt.fft_split(br, bi),
+                         "default tier, float32 planes": default_tier(
+                             lambda: kt.fft_split(xr, xi))}
+            turns = {w: [] for w in paths}
+            order = list(paths)
+            for w in order + order[::-1]:
+                turns[w].append(time_ms(paths[w]))
+            for w, elt in zip(order, (4, 2, 4)):
+                bd, by = transform_bound(real_fft, b, n, elt)
+                report(shape, f"{k}, {w} (median of 2 in turns; bound "
+                       f"{bd * 1e3:.2f} us, {by})",
+                       tuple(statistics.median(t[i] for t in turns[w])
+                             for i in range(3)))
+        del xr, xi, br, bi, paths
+        torch.cuda.synchronize()
+
     for shape, axes in [((1024, 1024), (-2, -1)), ((8, 512, 512), (-2, -1)),
                         ((4096, 4096), (-2, -1)), ((8192, 8192), (-2, -1)),
                         ((128, 128, 128), None)]:
@@ -624,39 +874,75 @@ def main() -> int:
     shape = (1, 1024, 1024)
     ar, ai = planes(shape)
     cr, ci = HK.stage1(ar, ai)
-    kern = {"stage1": time_ms(lambda: HK.stage1(ar, ai)),
-            "stage2": time_ms(lambda: HK.stage2(cr, ci)),
-            "stage1_real": time_ms(lambda: HK.stage1_real(ar)),
-            "stage2_half": time_ms(lambda: HK.stage2_half(cr, ci)),
-            "col_fft": time_ms(lambda: HK.col_fft(ar, ai)),
-            "row_fft": time_ms(lambda: HK.row_fft(ar, ai))}
-    plain = {"stage1": time_ms(lambda: HK.stage1_plain(ar, ai)),
-             "stage2": time_ms(lambda: HK.stage2_plain(cr, ci)),
-             "stage1_real": time_ms(lambda: HK.stage1_real_plain(ar)),
-             "stage2_half": time_ms(lambda: HK.stage2_half_plain(cr, ci)),
-             "col_fft": time_ms(lambda: HK.col_fft_plain(ar, ai)),
-             "row_fft": time_ms(lambda: HK.row_fft_plain(ar, ai))}
-    bound = {k: stage_bound(k, *shape) for k in kern}
+    calls = {"stage1": (lambda: HK.stage1(ar, ai),
+                        lambda: HK.stage1_plain(ar, ai)),
+             "stage2": (lambda: HK.stage2(cr, ci),
+                        lambda: HK.stage2_plain(cr, ci)),
+             "stage1_real": (lambda: HK.stage1_real(ar),
+                             lambda: HK.stage1_real_plain(ar)),
+             "stage2_half": (lambda: HK.stage2_half(cr, ci),
+                             lambda: HK.stage2_half_plain(cr, ci)),
+             "col_fft": (lambda: HK.col_fft(ar, ai),
+                         lambda: HK.col_fft_plain(ar, ai)),
+             "row_fft": (lambda: HK.row_fft(ar, ai),
+                         lambda: HK.row_fft_plain(ar, ai)),
+             "dense_stage_a": (lambda: HK.dense_stage_a(ar, ai),
+                               lambda: HK.dense_stage_a_plain(ar, ai)),
+             "dense_stage_b": (lambda: HK.dense_stage_b(cr, ci),
+                               lambda: HK.dense_stage_b_plain(cr, ci))}
+    # (function, load bytes, store bytes) of each timed kernel: a form
+    # computes its base kernel's function, the dense pair stage1's and
+    # stage2's; the bf16 forms run on the same data, loaded as each form
+    # loads it (stage 1 forms read the input planes, stage 2 forms a C)
+    work = {k: (k, 4, 4) for k in calls}
+    work.update(dense_stage_a=("stage1", 4, 4),
+                dense_stage_b=("stage2", 4, 4))
+    for base, loads, stores, name in forms:
+        xr, xi = (ar, ai) if base.startswith("stage1") else (cr, ci)
+        calls[name] = form_fns(base, xr.to(loads), xi.to(loads), stores)
+        work[name] = (base, loads.itemsize, stores.itemsize)
+    kern = {k: time_ms(fn) for k, (fn, _) in calls.items()}
+    plain = {k: time_ms(fn) for k, (_, fn) in calls.items()}
+    bound = {k: stage_bound(work[k][0], *shape, *work[k][1:]) for k in kern}
     for k in kern:
         log(f"{shape} {k}: kernel single {kern[k][0] * 1e3:.1f} us,"
             f" back-to-back {kern[k][1] * 1e3:.1f} us/call; plain single "
             f"{plain[k][0] * 1e3:.1f} us, back-to-back "
             f"{plain[k][1] * 1e3:.1f} us/call; bound "
             f"{bound[k][0] * 1e3:.2f} us ({bound[k][1]}) [{smi}]")
-    # one axis pass is one library call: torch.fft.fft along that axis of
-    # the complex tensor (built once, outside the timed calls); the four
-    # stage kernels have none (no PyTorch call computes one four-step stage)
+    # library calls, on complex tensors built once outside the timed calls:
+    # one axis pass is torch.fft.fft along that axis, and stage2 is
+    # torch.fft.fft(C, dim=2) (its transposed store is a layout);
+    # dense_stage_b is one complex matmul F2 C^T (F2 is symmetric). stage1,
+    # stage1_real and stage2_half have none: twiddle and FFT, or FFT and
+    # slice, are two calls, as are dense_stage_a's product and twiddle
+    # (its product alone is printed as context). The bf16 forms have none:
+    # torch.fft and torch.matmul take no bf16 complex operands.
     ac = torch.complex(ar, ai)
+    cc = torch.complex(cr, ci)
+    f1 = torch.complex(*(torch.as_tensor(a, device=dev) for a in
+                         HK.tables.dft_matrix(1024)))
     library_ms = {}
-    for k, dim in (("col_fft", 1), ("row_fft", 2)):
-        t = time_ms(lambda: torch.fft.fft(ac, dim=dim))
-        library_ms[k] = t[1]
-        log(f"{shape} {k} library torch.fft.fft(complex, dim={dim}): "
-            f"single {t[0] * 1e3:.1f} us, back-to-back {t[1] * 1e3:.1f} "
-            f"us/call [{smi}]")
+    for k, what, fn in (
+            ("col_fft", "torch.fft.fft(complex, dim=1)",
+             lambda: torch.fft.fft(ac, dim=1)),
+            ("row_fft", "torch.fft.fft(complex, dim=2)",
+             lambda: torch.fft.fft(ac, dim=2)),
+            ("stage2", "torch.fft.fft(complex(C), dim=2)",
+             lambda: torch.fft.fft(cc, dim=2)),
+            ("dense_stage_b", "torch.matmul(F2, complex(C).mT), complex64",
+             lambda: torch.matmul(f1, cc.mT)),
+            (None, "dense_stage_a's product alone, torch.matmul(F1, "
+             "complex(A)), complex64", lambda: torch.matmul(f1, ac))):
+        t = time_ms(fn)
+        if k is not None:
+            library_ms[k] = t[1]
+        log(f"{shape} {k or 'context'} library {what}: single "
+            f"{t[0] * 1e3:.1f} us, back-to-back {t[1] * 1e3:.1f} us/call "
+            f"[{smi}]")
     ms = {k: v[1] for k, v in kern.items()}
     plain_ms = {k: v[1] for k, v in plain.items()}
-    del ar, ai, cr, ci, ac
+    del ar, ai, cr, ci, ac, cc, f1, calls
     # the three axis passes of a 128^3 grid alone: lines of 128, T = 16
     for view, k, dim in (((1, 128, 16384), "col_fft", 1),
                          ((128, 128, 128), "col_fft", 1),
@@ -674,21 +960,31 @@ def main() -> int:
             f"{tl[1] * 1e3:.1f}; bound {bd * 1e3:.2f} us ({by}) [{smi}]")
         del vr, vi, vc
 
-    src = "kofft_tpu_torch/ops/csrc/fft_stages.cu"
+    stages = "kofft_tpu_torch/ops/csrc/fft_stages.cu"
+    dense = "kofft_tpu_torch/ops/csrc/dense_dft.cu"
     tpu = "kofft_tpu/ops/pallas_kernels.py"
     replaces = {
-        "stage1": (547, ["847 (_build_phased kern, phase 1)"]),
-        "stage2": (569, ["847 (_build_phased kern, phases 2-3)"]),
-        "stage1_real": (558, ["847 (_build_phased kern, real=True, "
-                              "phase 1)"]),
-        "stage2_half": (579, ["847 (_build_phased kern, real=True, phases "
-                              "2-3 and the Nyquist bin)"]),
-        "col_fft": (1701, ["1597 (_build_fft2 kern, phase 1)",
-                           "1415 (_build_fused_nd kern, the passes over "
-                           "axes 0 ... d-2)"]),
-        "row_fft": (1708, ["1597 (_build_fft2 kern, phase 2)",
-                           "1415 (_build_fused_nd kern, the last-axis "
-                           "pass)"])}
+        "stage1": (stages, 547, ["847 (_build_phased kern, phase 1)"]),
+        "stage2": (stages, 569, ["847 (_build_phased kern, phases 2-3)"]),
+        "stage1_real": (stages, 558, ["847 (_build_phased kern, real=True, "
+                                      "phase 1)"]),
+        "stage2_half": (stages, 579, ["847 (_build_phased kern, real=True, "
+                                      "phases 2-3 and the Nyquist bin)"]),
+        "col_fft": (stages, 1701, ["1597 (_build_fft2 kern, phase 1)",
+                                   "1415 (_build_fused_nd kern, the passes "
+                                   "over axes 0 ... d-2)"]),
+        "row_fft": (stages, 1708, ["1597 (_build_fft2 kern, phase 2)",
+                                   "1415 (_build_fused_nd kern, the "
+                                   "last-axis pass)"]),
+        "dense_stage_a": (dense, 185, ["235 (its pallas_call in _build)"]),
+        "dense_stage_b": (dense, 199, ["261 (its pallas_call in _build)"])}
+    # the bf16 forms: _build_ml's calls with a bf16 C (cdt) and the phased
+    # kernel's bf16 io / sdt forms
+    call = {"stage1": 613, "stage1_real": 630, "stage2": 649,
+            "stage2_half": 668}
+    for base, _, _, name in forms:
+        replaces[name] = (stages, call[base], [
+            "1104 (_build_phased, io / sdt bfloat16)"])
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src,
          "replaces": f"{tpu}:{line}",
@@ -696,7 +992,9 @@ def main() -> int:
          "launches": launches[k], "max_abs_err": err[k],
          "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bound[k][0],
          "bound_by": bound[k][1], "library_ms": library_ms.get(k)}
-        for k, (line, also) in replaces.items()]}
+        for k, (src, line, also) in replaces.items()]}
+    assert set(replaces) == set(HK.launches), set(HK.launches) ^ set(
+        replaces)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc at first use and load them
 with ctypes.
 
-``csrc/fft_stages.cu`` (with the header it includes) is compiled for
-``sm_90a`` into a shared library with a plain C interface (no PyTorch
-headers, so a build takes seconds). The library goes to
-``build/kofft_tpu_torch/`` at the root of the checkout, named by a hash
-of every source and flag, so a changed source builds anew and an
-unchanged one loads at once. There is no fallback: a failed build raises.
+Every ``csrc/*.cu`` source (``fft_stages.cu`` with the header it
+includes, and ``dense_dft.cu``) is compiled for ``sm_90a`` by its own nvcc
+process, all started together, and the objects are linked into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds). The library goes to ``build/kofft_tpu_torch/`` at the root
+of the checkout, named by a hash of every source and flag, so a changed
+source builds anew and an unchanged one loads at once. There is no
+fallback: a failed build raises.
 """
 
 from __future__ import annotations
@@ -21,27 +23,31 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "fft_stages.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kofft_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the exported functions
 SIGNATURES = {
     "kofft_stage1": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
-                     _P, _P, _P, _P, _I, _I, _I, _P],
+                     _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "kofft_stage1_real": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
-                          _P, _P, _P, _P, _I, _I, _P],
+                          _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "kofft_stage2": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
-                     _I, _I, _P],
+                     _I, _I, _I, _I, _P],
     "kofft_stage2_half": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
-                          _I, _P],
+                          _I, _I, _I, _P],
     "kofft_col_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
                       _I, _I, _P],
     "kofft_row_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
                       _I, _I, _P],
+    "kofft_dense_stage_a": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _P],
+    "kofft_dense_stage_b": [_P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -64,6 +70,10 @@ def _nvcc() -> str:
                        "kofft_tpu_torch are built from source at first use")
 
 
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cu*")):
@@ -73,20 +83,40 @@ def _digest() -> str:
 
 
 def _build() -> Path:
-    out = BUILD_DIR / f"{SOURCE.stem}-{_digest()}.so"
+    out = BUILD_DIR / f"kofft_kernels-{_digest()}.so"
     if out.exists():
         build_info.update(log="(found built)", seconds=0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_info.update(log=proc.stdout + proc.stderr,
-                      seconds=time.perf_counter() - t0)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name} (exit "
-                           f"{proc.returncode}):\n{build_info['log']}")
+    # one nvcc per source, all running at once
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        logs.append(f"-- {src.name}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (exit {proc.returncode})")
+    objs = [str(obj) for _, obj, _ in jobs]
+    tmp = out.with_suffix(f".{tag}.so")
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *objs],
+                              capture_output=True, text=True)
+        logs.append(f"-- link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link (exit {link.returncode})")
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    build_info.update(log="".join(logs), seconds=time.perf_counter() - t0)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                           f"{build_info['log']}")
     os.replace(tmp, out)
     return out
 

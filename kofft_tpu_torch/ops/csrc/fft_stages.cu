@@ -77,6 +77,23 @@
 // - Leaf cost: see line_fft.cuh; the dense leaves, not device memory,
 //   limit the pair. Lines of 128 are one dense 128-point leaf (128 MACs
 //   per point, against 64 for lines of 1024).
+//
+// bfloat16 I/O: stage1, stage1_real, stage2 and stage2_half also load and
+// store bfloat16 planes, the counterparts of _build_ml's cdt='bfloat16' C
+// (:490, :555) and of _build_phased's io='bfloat16' output and sdt C
+// (:750, :1078), with bf16 input planes read as the Pallas kernels read
+// any non-f32 block (:543-545, :835-838). Only the element type of the
+// global loads and stores changes: a load widens to float32
+// (__bfloat162float), a store rounds to nearest even (__float2bfloat16_rn,
+// as torch's .to(torch.bfloat16) and XLA's convert do), and everything in
+// shared memory and registers stays float32. stage2_half's Nyquist bin is
+// computed in float32 like every other bin and rounded once, at its store
+// (the f32 epilogue of :1277-1287). The instances are the I/O forms the
+// routing uses (hopper_kernels._IO_FORMS): stage 1 loads f32 or bf16 and
+// stores C in f32 or bf16, but never f32 -> bf16 (the `default` tier casts
+// its input whenever its C is bf16); stage 2 takes all four. col_fft and
+// row_fft stay float32, as the JAX N-D kernels are.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "line_fft.cuh"
@@ -89,13 +106,31 @@ namespace {
 // registers per thread (3 blocks of 512 per SM) spilled and lost too
 constexpr int kThreads = 512;
 
+using bf16 = __nv_bfloat16;
+
+// global element access: a load widens to float32, a store rounds to the
+// nearest even bf16
+__device__ __forceinline__ float ld(const float* p, long long i) {
+  return p[i];
+}
+__device__ __forceinline__ float ld(const bf16* p, long long i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void st(float* p, long long i, float v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void st(bf16* p, long long i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
 // kReal: ar is one real plane (ai and sgn are not read). kTwiddle = false
 // is col_fft: no twiddle, the line FFTs stored as they are (the twiddle
-// tables are not read)
-template <bool kReal, bool kTwiddle>
+// tables are not read). TIn, TOut: element types of the loaded planes and
+// of the stored C (float or bf16)
+template <bool kReal, bool kTwiddle, typename TIn, typename TOut>
 __global__ void __launch_bounds__(kThreads)
-stage1_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
-              float* __restrict__ cr, float* __restrict__ ci, int n1, int n2,
+stage1_kernel(const TIn* __restrict__ ar, const TIn* __restrict__ ai,
+              TOut* __restrict__ cr, TOut* __restrict__ ci, int n1, int n2,
               int T, LinePlan plan, const float2* __restrict__ tab,
               const float* __restrict__ ebr, const float* __restrict__ ebi,
               const float* __restrict__ ecr, const float* __restrict__ eci,
@@ -108,21 +143,21 @@ stage1_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
   const long long row = blockIdx.x / tiles;
   const int j2_0 = (blockIdx.x - static_cast<int>(row) * tiles) * T;
   const long long base = row * n1 * static_cast<long long>(n2);
-  const float* a_r = ar + base;
+  const TIn* a_r = ar + base;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int j1 = idx / T;
     const int c = idx - j1 * T;
     const long long g = static_cast<long long>(j1) * n2 + j2_0 + c;
     if constexpr (kReal) {
-      reinterpret_cast<float*>(buf0)[idx] = a_r[g];
+      reinterpret_cast<float*>(buf0)[idx] = ld(a_r, g);
     } else {
-      buf0[idx] = make_float2(a_r[g], sgn * ai[base + g]);
+      buf0[idx] = make_float2(ld(a_r, g), sgn * ld(ai, base + g));
     }
   }
   const float2* y =
       kofft::line_fft<kReal>(buf0, buf1, total, plan, tab);
-  float* c_r = cr + base;
-  float* c_i = ci + base;
+  TOut* c_r = cr + base;
+  TOut* c_i = ci + base;
   if constexpr (kTwiddle) {
     const int ncol = n2 / tw_t;
     for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
@@ -139,16 +174,16 @@ stage1_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
           make_float2(wcr * wbr - wci * wbi, wcr * wbi + wci * wbr);
       const float2 v = kofft::cmulf(y[idx], w);
       const long long g = static_cast<long long>(k1) * n2 + j2;
-      c_r[g] = v.x;
-      c_i[g] = v.y;
+      st(c_r, g, v.x);
+      st(c_i, g, v.y);
     }
   } else {
     for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
       const int k1 = idx / T;
       const int c = idx - k1 * T;
       const long long g = static_cast<long long>(k1) * n2 + j2_0 + c;
-      c_r[g] = y[idx].x;
-      c_i[g] = y[idx].y;
+      st(c_r, g, y[idx].x);
+      st(c_i, g, y[idx].y);
     }
   }
 }
@@ -158,10 +193,10 @@ stage1_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
 // read), or in natural order into (b, n1, n2) (row_fft)
 enum Store { kTransposed, kHalf, kNatural };
 
-template <int kStore>
+template <int kStore, typename TIn, typename TOut>
 __global__ void __launch_bounds__(kThreads)
-stage2_kernel(const float* __restrict__ cr, const float* __restrict__ ci,
-              float* __restrict__ yr, float* __restrict__ yi, int n1, int n2,
+stage2_kernel(const TIn* __restrict__ cr, const TIn* __restrict__ ci,
+              TOut* __restrict__ yr, TOut* __restrict__ yi, int n1, int n2,
               int T, LinePlan plan, const float2* __restrict__ tab,
               float sgn) {
   extern __shared__ float2 smem[];
@@ -172,13 +207,13 @@ stage2_kernel(const float* __restrict__ cr, const float* __restrict__ ci,
   const long long row = blockIdx.x / tiles;
   const int k1_0 = (blockIdx.x - static_cast<int>(row) * tiles) * T;
   const long long base = row * n1 * static_cast<long long>(n2);
-  const float* c_r = cr + base + static_cast<long long>(k1_0) * n2;
-  const float* c_i = ci + base + static_cast<long long>(k1_0) * n2;
+  const TIn* c_r = cr + base + static_cast<long long>(k1_0) * n2;
+  const TIn* c_i = ci + base + static_cast<long long>(k1_0) * n2;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int c = idx / n2;
     const int j2 = idx - c * n2;
     const long long g = static_cast<long long>(c) * n2 + j2;
-    buf0[j2 * T + c] = make_float2(c_r[g], c_i[g]);
+    buf0[j2 * T + c] = make_float2(ld(c_r, g), ld(c_i, g));
   }
   const float2* y = kofft::line_fft(buf0, buf1, total, plan, tab);
   if constexpr (kStore == kNatural) {
@@ -187,40 +222,40 @@ stage2_kernel(const float* __restrict__ cr, const float* __restrict__ ci,
     // the loads above do: at T = 16 (lines of 256 or fewer) that is 128
     // bytes, so the lanes of a warp fall on one bank. A padded layout
     // (stride T + 1) or a register transpose is queued.
-    float* o_r = yr + base + static_cast<long long>(k1_0) * n2;
-    float* o_i = yi + base + static_cast<long long>(k1_0) * n2;
+    TOut* o_r = yr + base + static_cast<long long>(k1_0) * n2;
+    TOut* o_i = yi + base + static_cast<long long>(k1_0) * n2;
     for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
       const int c = idx / n2;
       const int k2 = idx - c * n2;
       const float2 v = y[k2 * T + c];
-      o_r[idx] = v.x;
-      o_i[idx] = sgn * v.y;
+      st(o_r, idx, v.x);
+      st(o_i, idx, sgn * v.y);
     }
   } else if constexpr (kStore == kHalf) {
     // flat bins k = k2*n1 + k1 <= n/2: rows k2 < n2/2 and, from the
     // k1 = 0 line, the Nyquist bin
     const long long half = static_cast<long long>(n1) * (n2 / 2);
-    float* o_r = yr + row * (half + 1);
-    float* o_i = yi + row * (half + 1);
+    TOut* o_r = yr + row * (half + 1);
+    TOut* o_i = yi + row * (half + 1);
     const int stored = (n2 / 2 + 1) * T;
     for (int idx = threadIdx.x; idx < stored; idx += blockDim.x) {
       const int k2 = idx / T;
       const int c = idx - k2 * T;
       const long long g = static_cast<long long>(k2) * n1 + k1_0 + c;
       if (g <= half) {
-        o_r[g] = y[idx].x;
-        o_i[g] = y[idx].y;
+        st(o_r, g, y[idx].x);
+        st(o_i, g, y[idx].y);
       }
     }
   } else {
-    float* o_r = yr + base;
-    float* o_i = yi + base;
+    TOut* o_r = yr + base;
+    TOut* o_i = yi + base;
     for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
       const int k2 = idx / T;
       const int c = idx - k2 * T;
       const long long g = static_cast<long long>(k2) * n1 + k1_0 + c;
-      o_r[g] = y[idx].x;
-      o_i[g] = sgn * y[idx].y;
+      st(o_r, g, y[idx].x);
+      st(o_i, g, sgn * y[idx].y);
     }
   }
 }
@@ -271,8 +306,9 @@ int fill_plan(LinePlan* p, const int* steps, int nsteps) {
 
 // Each instance of a launcher keeps its own record of the dynamic shared
 // memory already allowed per device (the attribute is per kernel function).
-template <bool kReal, bool kTwiddle>
-int launch_stage1(const float* ar, const float* ai, float* cr, float* ci,
+template <bool kReal, bool kTwiddle, typename TIn = float,
+          typename TOut = float>
+int launch_stage1(const void* ar, const void* ai, void* cr, void* ci,
                   int b, int n1, int n2, int T, const int* steps, int nsteps,
                   const void* tab, const float* ebr, const float* ebi,
                   const float* ecr, const float* eci, int tw_t, int conj,
@@ -283,19 +319,20 @@ int launch_stage1(const float* ar, const float* ai, float* cr, float* ci,
   if (T < 1 || n2 % T != 0 || n2 % tw_t != 0) return cudaErrorInvalidValue;
   const int smem = static_cast<int>(2 * sizeof(float2) * n1 * T);
   static int allowed[kMaxDevices];
-  r = prepare(reinterpret_cast<const void*>(stage1_kernel<kReal, kTwiddle>),
-              allowed, device, smem);
+  const auto kernel = stage1_kernel<kReal, kTwiddle, TIn, TOut>;
+  r = prepare(reinterpret_cast<const void*>(kernel), allowed, device, smem);
   if (r != cudaSuccess) return r;
   const unsigned grid = static_cast<unsigned>(b) * (n2 / T);
-  stage1_kernel<kReal, kTwiddle>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          ar, ai, cr, ci, n1, n2, T, p, static_cast<const float2*>(tab), ebr,
-          ebi, ecr, eci, tw_t, conj ? -1.f : 1.f);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const TIn*>(ar), static_cast<const TIn*>(ai),
+      static_cast<TOut*>(cr), static_cast<TOut*>(ci), n1, n2, T, p,
+      static_cast<const float2*>(tab), ebr, ebi, ecr, eci, tw_t,
+      conj ? -1.f : 1.f);
   return cudaGetLastError();
 }
 
-template <int kStore>
-int launch_stage2(const float* cr, const float* ci, float* yr, float* yi,
+template <int kStore, typename TIn = float, typename TOut = float>
+int launch_stage2(const void* cr, const void* ci, void* yr, void* yi,
                   int b, int n1, int n2, int T, const int* steps, int nsteps,
                   const void* tab, int conj, int device, void* stream) {
   LinePlan p;
@@ -305,58 +342,82 @@ int launch_stage2(const float* cr, const float* ci, float* yr, float* yi,
     return cudaErrorInvalidValue;
   const int smem = static_cast<int>(2 * sizeof(float2) * n2 * T);
   static int allowed[kMaxDevices];
-  r = prepare(reinterpret_cast<const void*>(stage2_kernel<kStore>), allowed,
-              device, smem);
+  const auto kernel = stage2_kernel<kStore, TIn, TOut>;
+  r = prepare(reinterpret_cast<const void*>(kernel), allowed, device, smem);
   if (r != cudaSuccess) return r;
   const unsigned grid = static_cast<unsigned>(b) * (n1 / T);
-  stage2_kernel<kStore>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          cr, ci, yr, yi, n1, n2, T, p, static_cast<const float2*>(tab),
-          conj ? -1.f : 1.f);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const TIn*>(cr), static_cast<const TIn*>(ci),
+      static_cast<TOut*>(yr), static_cast<TOut*>(yi), n1, n2, T, p,
+      static_cast<const float2*>(tab), conj ? -1.f : 1.f);
   return cudaGetLastError();
+}
+
+// The launchers by I/O form: in_bf16 / out_bf16 select bf16 loaded planes
+// and bf16 stored planes. Stage 1 has no f32 -> bf16 form.
+template <bool kReal, typename... Args>
+int stage1_forms(int in_bf16, int out_bf16, Args... a) {
+  if (!in_bf16 && !out_bf16)
+    return launch_stage1<kReal, true, float, float>(a...);
+  if (in_bf16 && !out_bf16)
+    return launch_stage1<kReal, true, bf16, float>(a...);
+  if (in_bf16 && out_bf16) return launch_stage1<kReal, true, bf16, bf16>(a...);
+  return cudaErrorInvalidValue;
+}
+
+template <int kStore, typename... Args>
+int stage2_forms(int in_bf16, int out_bf16, Args... a) {
+  if (!in_bf16 && !out_bf16) return launch_stage2<kStore, float, float>(a...);
+  if (!in_bf16 && out_bf16) return launch_stage2<kStore, float, bf16>(a...);
+  if (in_bf16 && out_bf16) return launch_stage2<kStore, bf16, bf16>(a...);
+  return launch_stage2<kStore, bf16, float>(a...);
 }
 
 }  // namespace
 
-extern "C" int kofft_stage1(const float* ar, const float* ai, float* cr,
-                            float* ci, int b, int n1, int n2, int T,
+extern "C" int kofft_stage1(const void* ar, const void* ai, void* cr,
+                            void* ci, int b, int n1, int n2, int T,
                             const int* steps, int nsteps, const void* tab,
                             const float* ebr, const float* ebi,
                             const float* ecr, const float* eci, int tw_t,
-                            int conj, int device, void* stream) {
-  return launch_stage1<false, true>(ar, ai, cr, ci, b, n1, n2, T, steps,
-                                    nsteps, tab, ebr, ebi, ecr, eci, tw_t,
-                                    conj, device, stream);
+                            int conj, int in_bf16, int out_bf16, int device,
+                            void* stream) {
+  return stage1_forms<false>(in_bf16, out_bf16, ar, ai, cr, ci, b, n1, n2, T,
+                             steps, nsteps, tab, ebr, ebi, ecr, eci, tw_t,
+                             conj, device, stream);
 }
 
 // ar: one real (b, n1, n2) plane
-extern "C" int kofft_stage1_real(const float* ar, float* cr, float* ci,
-                                 int b, int n1, int n2, int T,
-                                 const int* steps, int nsteps,
-                                 const void* tab, const float* ebr,
-                                 const float* ebi, const float* ecr,
-                                 const float* eci, int tw_t, int device,
-                                 void* stream) {
-  return launch_stage1<true, true>(ar, nullptr, cr, ci, b, n1, n2, T, steps,
-                                   nsteps, tab, ebr, ebi, ecr, eci, tw_t, 0,
-                                   device, stream);
+extern "C" int kofft_stage1_real(const void* ar, void* cr, void* ci, int b,
+                                 int n1, int n2, int T, const int* steps,
+                                 int nsteps, const void* tab,
+                                 const float* ebr, const float* ebi,
+                                 const float* ecr, const float* eci,
+                                 int tw_t, int in_bf16, int out_bf16,
+                                 int device, void* stream) {
+  return stage1_forms<true>(in_bf16, out_bf16, ar, nullptr, cr, ci, b, n1,
+                            n2, T, steps, nsteps, tab, ebr, ebi, ecr, eci,
+                            tw_t, 0, device, stream);
 }
 
-extern "C" int kofft_stage2(const float* cr, const float* ci, float* yr,
-                            float* yi, int b, int n1, int n2, int T,
+extern "C" int kofft_stage2(const void* cr, const void* ci, void* yr,
+                            void* yi, int b, int n1, int n2, int T,
                             const int* steps, int nsteps, const void* tab,
-                            int conj, int device, void* stream) {
-  return launch_stage2<kTransposed>(cr, ci, yr, yi, b, n1, n2, T, steps,
-                                    nsteps, tab, conj, device, stream);
+                            int conj, int in_bf16, int out_bf16, int device,
+                            void* stream) {
+  return stage2_forms<kTransposed>(in_bf16, out_bf16, cr, ci, yr, yi, b, n1,
+                                   n2, T, steps, nsteps, tab, conj, device,
+                                   stream);
 }
 
 // yr, yi: one-sided (b, n1*n2/2 + 1) planes
-extern "C" int kofft_stage2_half(const float* cr, const float* ci, float* yr,
-                                 float* yi, int b, int n1, int n2, int T,
+extern "C" int kofft_stage2_half(const void* cr, const void* ci, void* yr,
+                                 void* yi, int b, int n1, int n2, int T,
                                  const int* steps, int nsteps,
-                                 const void* tab, int device, void* stream) {
-  return launch_stage2<kHalf>(cr, ci, yr, yi, b, n1, n2, T, steps, nsteps,
-                              tab, 0, device, stream);
+                                 const void* tab, int in_bf16, int out_bf16,
+                                 int device, void* stream) {
+  return stage2_forms<kHalf>(in_bf16, out_bf16, cr, ci, yr, yi, b, n1, n2,
+                             T, steps, nsteps, tab, 0, device, stream);
 }
 
 // (b, m, inner) planes -> (b, m, inner), line FFTs of length m along axis

@@ -182,24 +182,26 @@ def engine_fft_planes(xr, xi, n: int, inverse: bool, dtype: str,
     """Backend-dispatched unnormalized DFT on planes (inverse = n * ifft):
     the one engine ladder, used by the public entries and by composite
     transforms (Bluestein's inner FFTs, which receive the backend already
-    resolved here). bfloat16 planes compute in float32 and round back;
+    resolved here). The JAX order (``kofft_tpu.ops.fft``:256-277): the
+    kernels take bfloat16 planes as they are (their bf16 forms), and only
+    engines without a bf16 kernel compute in float32 and round back;
     float64 planes take the plain engines on either device."""
-    if dtype == "bfloat16":
-        yr, yi = engine_fft_planes(xr.float(), xi.float(), n, inverse,
-                                   "float32", backend)
-        return yr.to(xr.dtype), yi.to(xr.dtype)
     b = resolve_backend(backend)
     if b == "auto":
         b = "cufft" if _cufft_zone(xr.shape, n) else "cuda"
-    if b == "cufft":
-        x = merge(xr, xi)
-        y = torch.fft.ifft(x) * n if inverse else torch.fft.fft(x)
-        return y.real.contiguous(), y.imag.contiguous()
     if b == "cuda":
         from .hopper_fft import kernel_fft_planes, kernel_supported
         if kernel_supported(n, dtype):
             return kernel_fft_planes(xr, xi, n, inverse, donate)
         b = "torch"
+    if dtype == "bfloat16":
+        yr, yi = engine_fft_planes(xr.float(), xi.float(), n, inverse,
+                                   "float32", b)
+        return yr.to(xr.dtype), yi.to(xr.dtype)
+    if b == "cufft":
+        x = merge(xr, xi)
+        y = torch.fft.ifft(x) * n if inverse else torch.fft.fft(x)
+        return y.real.contiguous(), y.imag.contiguous()
     return _fft_planes(xr, xi, n, inverse, b, dtype)
 
 

@@ -5,7 +5,9 @@ The DFT is linear with a symmetric matrix, so the backward of the planes
 map is the same transform in the other direction (the unnormalized
 inverse of the cotangent, pallas_fft.py:105-110) and the forward-mode
 derivative is the same transform of the tangents (:95-99). Both run the
-same kernels, so no backward kernel exists or is needed. The real FFT's
+same kernels, so no backward kernel exists or is needed; bfloat16 planes
+pass through unchanged, and their bf16 cotangents and tangents take the
+same bf16 forms. The real FFT's
 backward zero-pads the one-sided cotangent and takes the real plane of
 the unnormalized complex inverse (pallas_fft.py:166-178). The N-D routes
 are one op keyed by the route (``_KernelND``); every per-axis DFT matrix
@@ -25,8 +27,11 @@ from .hopper_kernels import (_pow2_split, fused_fft2_big_planes,
 
 def kernel_supported(n: int, dtype: str) -> bool:
     """Which (n, dtype) the stage kernels serve: smooth n = odd * 2^k
-    (odd <= 23) in [2^14, 2^26] on float32 planes."""
-    return dtype == "float32" and _pow2_split(n) is not None
+    (odd <= 23) in [2^14, 2^26] on float32 or bfloat16 planes
+    (``pallas_supported``, pallas_fft.py:40-47). bf16 planes keep bf16
+    I/O where the JAX package's phased grid serves them and run the
+    float32 kernels otherwise (``fused_multilevel_fft``)."""
+    return dtype in ("float32", "bfloat16") and _pow2_split(n) is not None
 
 
 def _zeros_if_none(t, like):
@@ -68,7 +73,7 @@ def _tracked(xr, xi) -> bool:
 
 
 def kernel_fft_planes(xr, xi, n: int, inverse: bool, donate: bool = False):
-    """Unnormalized DFT (inverse: n * ifft) of (..., n) float32 planes
+    """Unnormalized DFT (inverse: n * ifft) of (..., n) float32 or bf16 planes
     through the stage kernels, differentiable in both modes. With
     ``donate`` (and no gradient to track) the result is written into the
     input planes' storage."""
@@ -119,8 +124,8 @@ class _KernelRFFT(torch.autograd.Function):
 
 def kernel_rfft_planes(x, n: int):
     """One-sided unnormalized DFT (..., n//2 + 1) of a real (..., n)
-    float32 plane through the real stage kernels, differentiable in both
-    modes."""
+    float32 or bf16 plane through the real stage kernels, differentiable in
+    both modes."""
     x = x.contiguous()
     if not _tracked(x, x):
         return fused_multilevel_rfft(x, n)

@@ -2,7 +2,8 @@
 N-D FFT, their host plan, their plain PyTorch versions, and the routing
 that mirrors ``kofft_tpu.ops.pallas_kernels.fused_multilevel_fft``,
 ``fused_multilevel_rfft``, ``fused_fft2_planes``,
-``fused_fft2_big_planes`` and ``fused_ndfft_planes``.
+``fused_fft2_big_planes``, ``fused_ndfft_planes`` and
+``fused_four_step_fft``.
 
 The JAX package runs the Bailey four-step X = F_n2 . ((F_n1 . A) o W)
 through three Pallas forms: the phased one-call kernel in its flat
@@ -30,19 +31,36 @@ last axis, stored in natural order). A 2-D route is ``col_fft`` then
 ``row_fft``. The routes count the JAX classes ``fft2``, ``fft2_big`` and
 ``fused_nd``.
 
+bfloat16 planes: the four stage kernels also run in bf16 I/O forms (bf16
+loads and stores, float32 arithmetic), named by the element types they
+load and store (``_IO_FORMS``): ``stage1_bf`` reads bf16 planes and
+writes a float32 C, ``stage2_fb`` reads a float32 C and writes bf16, and
+so on. The routing sends bf16 planes and the `default` tier's casts to
+them where the JAX package sends them to its bf16 forms of the phased
+kernel and of the two-call pair (``io``, ``sdt``, ``cdt``).
+
+The dense four-step pair (``_build``, whose entry ``fused_four_step_fft``
+only tests call in the JAX package) is two more CUDA kernels
+(``csrc/dense_dft.cu``): ``dense_stage_a`` (C = (F_n1^T A) o W, one
+complex DFT-matrix product per batch row) and ``dense_stage_b`` (X =
+F_n2^T C^T), with the Gauss three-product in float32 FFMA and no line
+recursion; the class count is ``four_step``.
+
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 PyTorch version for a CPU tensor; any other device raises. The plain
 versions (``fft_axis0_plain``, ``stage1_plain``, ``stage2_plain``,
 ``stage1_real_plain``, ``stage2_half_plain``, ``col_fft_plain``,
 ``row_fft_plain``) are the JAX routine's recursion with the Gauss
-three-product of ``_cdot`` at the `highest` tier, in float32 matmuls;
-``fused_nd_plain`` is the fused all-axes kernel's own math, one dense
-Gauss product per axis.
+three-product of ``_cdot`` at the `highest` tier, in float32 matmuls (bf16
+operands widened first, results rounded to the requested type last);
+``fused_nd_plain``, ``dense_stage_a_plain`` and ``dense_stage_b_plain``
+are their kernels' own math, dense Gauss products.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -71,11 +89,30 @@ _SMEM_BYTES = 64 * 1024
 # of shared memory (T = 1), and 16384 would not fit a block's 227 KB
 _LINE_MAX = 8192
 
+_F32 = torch.float32
+_BF16 = torch.bfloat16
+_IO_DTYPES = (_F32, _BF16)
+
+# The I/O forms of the stage kernels that the routing launches, as the
+# element types (f float32, b bfloat16) each loads and stores. The f32 form
+# keeps the kernel's name, the others add "_" and the two letters. Stage 1
+# never loads f32 and stores bf16: the `default` tier casts its input
+# planes whenever it keeps C in bf16.
+_IO_FORMS = {"stage1": ("ff", "bf", "bb"), "stage2": ("ff", "fb", "bb", "bf"),
+             "stage1_real": ("ff", "bf", "bb"),
+             "stage2_half": ("ff", "fb", "bb", "bf")}
+_LETTER_DTYPE = {"f": _F32, "b": _BF16}
+_FORM_NAMES = {(base, _LETTER_DTYPE[f[0]], _LETTER_DTYPE[f[1]]):
+               base if f == "ff" else f"{base}_{f}"
+               for base, forms in _IO_FORMS.items() for f in forms}
+
 launches = {"stage1": 0, "stage2": 0, "stage1_real": 0, "stage2_half": 0,
-            "col_fft": 0, "row_fft": 0}
+            "col_fft": 0, "row_fft": 0, "dense_stage_a": 0,
+            "dense_stage_b": 0}
+launches.update({name: 0 for name in _FORM_NAMES.values()})
 classes = {"phased_flat": 0, "phased_tiled": 0, "ml": 0,
            "phased_flat_real": 0, "phased_tiled_real": 0, "ml_real": 0,
-           "fft2": 0, "fft2_big": 0, "fused_nd": 0}
+           "fft2": 0, "fft2_big": 0, "fused_nd": 0, "four_step": 0}
 
 
 def reset_counts() -> None:
@@ -215,6 +252,18 @@ def _use_phased(n: int, bt: int) -> bool:
     return bt == 1 and n <= cap
 
 
+def _phased_sdt(n: int) -> torch.dtype:
+    """Element type of C on the phased route (``_phased_sdt``,
+    pallas_kernels.py:734, with the device's answer): bfloat16 on the
+    `default` tier above 2^23, where the TPU's f32 scratch would not fit,
+    else float32. The port's C always crosses device memory, so the JAX
+    scratch type (``sdt``) and the two-call pair's C type (``cdt``) both
+    name the type C has between the two launches."""
+    if get_config().precision == "default" and n > (1 << 23):
+        return _BF16
+    return _F32
+
+
 def _phased_rows(n: int, b: int) -> int:
     """Batch rows the JAX phased grid folds per step (2 for even b and
     n <= 2^21). The CUDA stages run one block per (row, tile) and fold
@@ -311,25 +360,28 @@ def _row_lines(cr, ci):
     return yr.reshape(n2, b, n1), yi.reshape(n2, b, n1)
 
 
-def stage1_plain(ar, ai, conj: bool = False):
+def stage1_plain(ar, ai, conj: bool = False, c_dtype=_F32):
     """Plain version of the stage-1 kernel: (b, n1, n2) -> C (b, n1, n2),
-    column FFTs of length n1 then the twiddle W. ``ai=None``: real input."""
+    column FFTs of length n1 then the twiddle W, in float32 from float32
+    or bfloat16 planes, C rounded to ``c_dtype``. ``ai=None``: real
+    input."""
     b, n1, n2 = ar.shape
-    yr, yi = _col_lines(ar, ai, conj)
+    yr, yi = _col_lines(ar.float(), None if ai is None else ai.float(), conj)
     wr, wi = _twiddle_plane(n1, n2, ar.device)
-    return ((yr * wr - yi * wi).contiguous(),
-            (yr * wi + yi * wr).contiguous())
+    return ((yr * wr - yi * wi).contiguous().to(c_dtype),
+            (yr * wi + yi * wr).contiguous().to(c_dtype))
 
 
-def stage2_plain(cr, ci, conj: bool = False):
+def stage2_plain(cr, ci, conj: bool = False, dtype=_F32):
     """Plain version of the stage-2 kernel: C (b, n1, n2) -> (b, n2, n1),
-    row FFTs of length n2 written transposed."""
-    yr, yi = _row_lines(cr, ci)
+    row FFTs of length n2 written transposed, in float32 from a float32 or
+    bfloat16 C, rounded to ``dtype``."""
+    yr, yi = _row_lines(cr.float(), ci.float())
     yr = yr.permute(1, 0, 2).contiguous()
     yi = yi.permute(1, 0, 2).contiguous()
     if conj:
         yi = -yi
-    return yr, yi
+    return yr.to(dtype), yi.to(dtype)
 
 
 def col_fft_plain(ar, ai, conj: bool = False):
@@ -372,22 +424,23 @@ def fused_nd_plain(xr, xi, conj: bool = False):
     return (yr, -yi) if conj else (yr, yi)
 
 
-def stage1_real_plain(ar):
+def stage1_real_plain(ar, c_dtype=_F32):
     """Plain version of the real-input stage-1 kernel: one real
     (b, n1, n2) plane -> C (b, n1, n2), the first leaf with two real
     products."""
-    return stage1_plain(ar, None)
+    return stage1_plain(ar, None, c_dtype=c_dtype)
 
 
-def stage2_half_plain(cr, ci):
+def stage2_half_plain(cr, ci, dtype=_F32):
     """Plain version of the one-sided stage-2 kernel: the flat spectrum of
     ``stage2_plain`` cut to the bins k <= n/2 (rows k2 < n2/2 and the
-    Nyquist bin), as (b, n/2 + 1) planes."""
+    Nyquist bin), as (b, n/2 + 1) planes, every bin computed in float32
+    and rounded once to ``dtype``."""
     b, n1, n2 = cr.shape
     h = n1 * n2 // 2 + 1
     yr, yi = stage2_plain(cr, ci)
-    return (yr.reshape(b, -1)[:, :h].contiguous(),
-            yi.reshape(b, -1)[:, :h].contiguous())
+    return (yr.reshape(b, -1)[:, :h].contiguous().to(dtype),
+            yi.reshape(b, -1)[:, :h].contiguous().to(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -463,19 +516,30 @@ def _line_plan(m: int, t: int, kb_max: int = 8):
     return tables.custom(("lineplan", m, t, kb_max), build)
 
 
-def _check_planes(xr, xi, what: str) -> None:
+def _check_planes(xr, xi, what: str, dtypes: tuple = (_F32,)) -> None:
     # one condition, message built only on failure: this runs on every
     # launch, and formatting eagerly cost ~25 us of host time per call
     if not (xr.dim() == 3 and xr.shape == xi.shape
-            and xr.dtype == torch.float32 and xi.dtype == torch.float32
+            and xr.dtype in dtypes and xi.dtype == xr.dtype
             and xr.device == xi.device and xr.device.type in ("cpu", "cuda")
             and xr.is_contiguous() and xi.is_contiguous()):
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
         raise InvalidValueError(
-            f"{what}: planes must be contiguous float32 (b, n1, n2) "
-            f"tensors of one shape on one cpu or cuda device; got "
+            f"{what}: planes must be contiguous {names} (b, n1, n2) "
+            f"tensors of one type and shape on one cpu or cuda device; got "
             f"{tuple(xr.shape)} {xr.dtype} on {xr.device} (contiguous "
             f"{xr.is_contiguous()}) and {tuple(xi.shape)} {xi.dtype} on "
             f"{xi.device} (contiguous {xi.is_contiguous()})")
+
+
+def _form(base: str, loads, stores) -> str:
+    """The launch-count name of stage kernel ``base``'s form that loads
+    ``loads`` and stores ``stores`` elements (``_IO_FORMS``)."""
+    name = _FORM_NAMES.get((base, loads, stores))
+    if name is None:
+        raise InvalidValueError(
+            f"{base}: no kernel form loads {loads} and stores {stores}")
+    return name
 
 
 _ARGS: dict = {}
@@ -513,41 +577,46 @@ def _stream(dev) -> int:
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
-def stage1(ar, ai, conj: bool = False):
-    """Stage 1: (b, n1, n2) planes -> C (b, n1, n2). CUDA tensors launch
-    the kernel (one count in ``launches``); CPU tensors run
-    ``stage1_plain``."""
-    _check_planes(ar, ai, "stage1")
+def stage1(ar, ai, conj: bool = False, c_dtype=_F32):
+    """Stage 1: (b, n1, n2) float32 or bfloat16 planes -> C (b, n1, n2) of
+    ``c_dtype`` (the forms of ``_IO_FORMS``). CUDA tensors launch the
+    kernel (one count in ``launches`` under the form's name); CPU tensors
+    run ``stage1_plain``."""
+    _check_planes(ar, ai, "stage1", _IO_DTYPES)
+    name = _form("stage1", ar.dtype, c_dtype)
     if ar.device.type == "cpu":
-        return stage1_plain(ar, ai, conj)
+        return stage1_plain(ar, ai, conj, c_dtype)
     from ._cuda_build import check, lib
     b, n1, n2 = ar.shape
     dev = ar.device
     t, steps, nsteps, tab, ebr, ebi, ecr, eci = _static_args(
         "stage1", b, n1, n2, dev)
-    cr = torch.empty_like(ar)
-    ci = torch.empty_like(ai)
+    cr = torch.empty(ar.shape, dtype=c_dtype, device=dev)
+    ci = torch.empty(ar.shape, dtype=c_dtype, device=dev)
     err = lib().kofft_stage1(
         ar.data_ptr(), ai.data_ptr(), cr.data_ptr(), ci.data_ptr(), b, n1,
         n2, t, steps, nsteps, tab, ebr, ebi, ecr, eci, min(_ML_TILE, n1),
-        int(conj), dev.index, _stream(dev))
-    check(err, "stage1 launch")
-    launches["stage1"] += 1
+        int(conj), int(ar.dtype == _BF16), int(c_dtype == _BF16), dev.index,
+        _stream(dev))
+    check(err, f"{name} launch")
+    launches[name] += 1
     return cr, ci
 
 
-def stage2(cr, ci, conj: bool = False, out=None):
-    """Stage 2: C (b, n1, n2) -> (b, n2, n1). ``out`` is an optional pair of
-    contiguous float32 tensors of b*n1*n2 elements that receive the
-    result (the donated input planes). CUDA tensors launch the kernel;
-    CPU tensors run ``stage2_plain``."""
-    _check_planes(cr, ci, "stage2")
+def stage2(cr, ci, conj: bool = False, out=None, dtype=_F32):
+    """Stage 2: a float32 or bfloat16 C (b, n1, n2) -> (b, n2, n1) planes
+    of ``dtype`` (the forms of ``_IO_FORMS``). ``out`` is an optional pair
+    of contiguous tensors of b*n1*n2 elements of ``dtype`` that receive
+    the result (the donated input planes; another type raises). CUDA
+    tensors launch the kernel; CPU tensors run ``stage2_plain``."""
+    _check_planes(cr, ci, "stage2", _IO_DTYPES)
+    name = _form("stage2", cr.dtype, dtype)
     b, n1, n2 = cr.shape
     if out is not None:
         yr, yi = out[0].view(b, n2, n1), out[1].view(b, n2, n1)
-        _check_planes(yr, yi, "stage2 out")
+        _check_planes(yr, yi, "stage2 out", (dtype,))
     if cr.device.type == "cpu":
-        pr, pi = stage2_plain(cr, ci, conj)
+        pr, pi = stage2_plain(cr, ci, conj, dtype)
         if out is None:
             return pr, pi
         yr.copy_(pr)
@@ -556,59 +625,66 @@ def stage2(cr, ci, conj: bool = False, out=None):
     from ._cuda_build import check, lib
     dev = cr.device
     if out is None:
-        yr = torch.empty((b, n2, n1), dtype=cr.dtype, device=dev)
-        yi = torch.empty((b, n2, n1), dtype=cr.dtype, device=dev)
+        yr = torch.empty((b, n2, n1), dtype=dtype, device=dev)
+        yi = torch.empty((b, n2, n1), dtype=dtype, device=dev)
     t, steps, nsteps, tab = _static_args("stage2", b, n1, n2, dev)
     err = lib().kofft_stage2(
         cr.data_ptr(), ci.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1,
-        n2, t, steps, nsteps, tab, int(conj), dev.index, _stream(dev))
-    check(err, "stage2 launch")
-    launches["stage2"] += 1
+        n2, t, steps, nsteps, tab, int(conj), int(cr.dtype == _BF16),
+        int(dtype == _BF16), dev.index, _stream(dev))
+    check(err, f"{name} launch")
+    launches[name] += 1
     return yr, yi
 
 
-def stage1_real(ar):
-    """Real-input stage 1: one real (b, n1, n2) plane -> C (b, n1, n2).
-    CUDA tensors launch the kernel (one count in ``launches``); CPU tensors
-    run ``stage1_real_plain``."""
-    _check_planes(ar, ar, "stage1_real")
+def stage1_real(ar, c_dtype=_F32):
+    """Real-input stage 1: one real float32 or bfloat16 (b, n1, n2) plane
+    -> C (b, n1, n2) of ``c_dtype``. CUDA tensors launch the kernel (one
+    count in ``launches`` under the form's name); CPU tensors run
+    ``stage1_real_plain``."""
+    _check_planes(ar, ar, "stage1_real", _IO_DTYPES)
+    name = _form("stage1_real", ar.dtype, c_dtype)
     if ar.device.type == "cpu":
-        return stage1_real_plain(ar)
+        return stage1_real_plain(ar, c_dtype)
     from ._cuda_build import check, lib
     b, n1, n2 = ar.shape
     dev = ar.device
     t, steps, nsteps, tab, ebr, ebi, ecr, eci = _static_args(
         "stage1", b, n1, n2, dev)
-    cr = torch.empty_like(ar)
-    ci = torch.empty_like(ar)
+    cr = torch.empty(ar.shape, dtype=c_dtype, device=dev)
+    ci = torch.empty(ar.shape, dtype=c_dtype, device=dev)
     err = lib().kofft_stage1_real(
         ar.data_ptr(), cr.data_ptr(), ci.data_ptr(), b, n1, n2, t, steps,
-        nsteps, tab, ebr, ebi, ecr, eci, min(_ML_TILE, n1), dev.index,
+        nsteps, tab, ebr, ebi, ecr, eci, min(_ML_TILE, n1),
+        int(ar.dtype == _BF16), int(c_dtype == _BF16), dev.index,
         _stream(dev))
-    check(err, "stage1_real launch")
-    launches["stage1_real"] += 1
+    check(err, f"{name} launch")
+    launches[name] += 1
     return cr, ci
 
 
-def stage2_half(cr, ci):
-    """One-sided stage 2: C (b, n1, n2) -> (b, n/2 + 1) planes, the flat
-    spectrum's bins k <= n/2 (the Nyquist bin written by the kernel). CUDA
-    tensors launch the kernel; CPU tensors run ``stage2_half_plain``."""
-    _check_planes(cr, ci, "stage2_half")
+def stage2_half(cr, ci, dtype=_F32):
+    """One-sided stage 2: a float32 or bfloat16 C (b, n1, n2) -> (b, n/2 +
+    1) planes of ``dtype``, the flat spectrum's bins k <= n/2 (the Nyquist
+    bin written by the kernel). CUDA tensors launch the kernel; CPU
+    tensors run ``stage2_half_plain``."""
+    _check_planes(cr, ci, "stage2_half", _IO_DTYPES)
+    name = _form("stage2_half", cr.dtype, dtype)
     if cr.device.type == "cpu":
-        return stage2_half_plain(cr, ci)
+        return stage2_half_plain(cr, ci, dtype)
     from ._cuda_build import check, lib
     b, n1, n2 = cr.shape
     dev = cr.device
     h = n1 * n2 // 2 + 1
-    yr = torch.empty((b, h), dtype=cr.dtype, device=dev)
-    yi = torch.empty((b, h), dtype=cr.dtype, device=dev)
+    yr = torch.empty((b, h), dtype=dtype, device=dev)
+    yi = torch.empty((b, h), dtype=dtype, device=dev)
     t, steps, nsteps, tab = _static_args("stage2", b, n1, n2, dev)
     err = lib().kofft_stage2_half(
         cr.data_ptr(), ci.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1,
-        n2, t, steps, nsteps, tab, dev.index, _stream(dev))
-    check(err, "stage2_half launch")
-    launches["stage2_half"] += 1
+        n2, t, steps, nsteps, tab, int(cr.dtype == _BF16),
+        int(dtype == _BF16), dev.index, _stream(dev))
+    check(err, f"{name} launch")
+    launches[name] += 1
     return yr, yi
 
 
@@ -662,41 +738,71 @@ def row_fft(xr, xi, conj: bool = False):
 # entries with the JAX routing
 # ---------------------------------------------------------------------------
 
-def _route(n: int, b: int, flat_ok: bool, real: bool = False) -> str:
-    """The TPU-kernel class of ``kofft_tpu``'s routing; the real forms
-    take a flat cap of 2^23 (pallas_kernels.py:1292) and a ``_real``
-    suffix."""
+def _route(n: int, b: int, flat_ok: bool, dtype, real: bool = False):
+    """(class, input type, C type) of ``kofft_tpu``'s routing for b
+    transforms of n points on planes of ``dtype``
+    (pallas_kernels.py:1160-1243, :1260-1345):
+    - bfloat16 planes on a shape the phased grid serves take its bf16-I/O
+      tiled form, never the flat one: bf16 in and out, C per
+      ``_phased_sdt``. On any other shape the class is None: the caller
+      runs the float32 route and rounds back.
+    - float32 planes: a rank-1 transform up to the flat cap (2^21, 2^23
+      for the real forms) is ``phased_flat``, all float32; other shapes up
+      to the phased cap ``phased_tiled``, larger or batch-folded shapes
+      ``ml``. On the `default` tier those two read bf16 input planes (the
+      asymmetric I/O of :1204-1215, :1322-1325), C is bf16 per
+      ``_phased_sdt`` on the tiled form and always on ``ml`` (``cdt``),
+      and the output stays float32.
+    The real forms' classes carry a ``_real`` suffix."""
     n1, n2 = _pow2_split(n)
-    bt = _ml_batch_tile(b, n1, n2)
+    phased = _use_phased(n, _ml_batch_tile(b, n1, n2))
+    sfx = "_real" if real else ""
+    if dtype == _BF16:
+        if not phased:
+            return None, None, None
+        return "phased_tiled" + sfx, _BF16, _phased_sdt(n)
     cap = _PHASED_FLAT_REAL_MAX_N if real else _PHASED_FLAT_MAX_N
-    if not _use_phased(n, bt):
-        cls = "ml"
-    elif flat_ok and n <= cap:
-        cls = "phased_flat"
-    else:
-        cls = "phased_tiled"
-    return cls + "_real" if real else cls
+    if phased and flat_ok and n <= cap:
+        return "phased_flat" + sfx, _F32, _F32
+    in_dt = _BF16 if get_config().precision == "default" else _F32
+    if phased:
+        return "phased_tiled" + sfx, in_dt, _phased_sdt(n)
+    return "ml" + sfx, in_dt, in_dt
+
+
+def _batch(x):
+    """(leading dims, their product) of (..., n) planes."""
+    batch = tuple(x.shape[:-1])
+    return batch, math.prod(batch)
 
 
 def fused_multilevel_fft(xr, xi, n: int, inverse: bool = False,
                          donate: bool = False):
-    """Unnormalized DFT (inverse: n * ifft) of (..., n) float32 planes
-    through the two stage kernels, routed and counted by the TPU-kernel
-    class ``kofft_tpu``'s ``fused_multilevel_fft`` would use: a rank-1
-    transform up to 2^21 is ``phased_flat``, other shapes up to the phased
-    cap ``phased_tiled``, larger or batch-folded shapes ``ml``.
+    """Unnormalized DFT (inverse: n * ifft) of (..., n) float32 or bfloat16
+    planes through the two stage kernels, routed and counted by the
+    TPU-kernel class ``kofft_tpu``'s ``fused_multilevel_fft`` would use
+    (``_route``), with its element types: bf16 planes keep bf16 I/O or,
+    where the phased grid does not serve them, run the float32 route and
+    round back; the `default` tier casts float32 input planes and C to
+    bf16 where the JAX package does. The output has the planes' type.
     ``donate=True`` writes the result into the input planes' storage
     (stage 2 reads only C), and the inputs must not be used afterwards."""
-    batch = tuple(xr.shape[:-1])
-    b = 1
-    for s in batch:
-        b *= s
+    batch, b = _batch(xr)
+    cls, in_dt, c_dt = _route(n, b, batch == (), xr.dtype)
+    if cls is None:
+        # pallas_kernels.py:1177-1179; the float32 copies are temporaries
+        yr, yi = fused_multilevel_fft(xr.float(), xi.float(), n, inverse,
+                                      donate=True)
+        if donate:
+            return xr.copy_(yr), xi.copy_(yi)
+        return yr.to(xr.dtype), yi.to(xi.dtype)
     n1, n2 = _pow2_split(n)
-    classes[_route(n, b, batch == ())] += 1
-    cr, ci = stage1(xr.reshape(b, n1, n2), xi.reshape(b, n1, n2),
-                    conj=inverse)
+    classes[cls] += 1
+    cr, ci = stage1(xr.reshape(b, n1, n2).to(in_dt),
+                    xi.reshape(b, n1, n2).to(in_dt), conj=inverse,
+                    c_dtype=c_dt)
     yr, yi = stage2(cr, ci, conj=inverse,
-                    out=(xr, xi) if donate else None)
+                    out=(xr, xi) if donate else None, dtype=xr.dtype)
     return yr.reshape(*batch, n), yi.reshape(*batch, n)
 
 
@@ -713,21 +819,132 @@ def phased_tiled_fft(ar, ai, inverse: bool = False, donate: bool = False):
 
 def fused_multilevel_rfft(x, n: int):
     """One-sided unnormalized DFT (..., n//2 + 1) of a real (..., n) float32
-    plane through ``stage1_real`` and ``stage2_half``, routed and counted
-    by the class ``kofft_tpu``'s ``fused_multilevel_rfft`` would use: a
-    rank-1 transform up to 2^23 is ``phased_flat_real``, other shapes up
-    to the phased cap ``phased_tiled_real``, larger or batch-folded shapes
-    ``ml_real``."""
-    batch = tuple(x.shape[:-1])
-    b = 1
-    for s in batch:
-        b *= s
+    or bfloat16 plane through ``stage1_real`` and ``stage2_half``, routed
+    and counted by the class ``kofft_tpu``'s ``fused_multilevel_rfft``
+    would use, with its element types (``_route``): a rank-1 float32
+    transform up to 2^23 is ``phased_flat_real``, other shapes up to the
+    phased cap ``phased_tiled_real``, larger or batch-folded shapes
+    ``ml_real``; bf16 planes that the phased grid does not serve run the
+    float32 route and round back (pallas_kernels.py:1268-1271)."""
+    batch, b = _batch(x)
+    cls, in_dt, c_dt = _route(n, b, batch == (), x.dtype, real=True)
+    if cls is None:
+        yr, yi = fused_multilevel_rfft(x.float(), n)
+        return yr.to(x.dtype), yi.to(x.dtype)
     n1, n2 = _pow2_split(n)
-    classes[_route(n, b, batch == (), real=True)] += 1
-    cr, ci = stage1_real(x.reshape(b, n1, n2))
-    yr, yi = stage2_half(cr, ci)
+    classes[cls] += 1
+    cr, ci = stage1_real(x.reshape(b, n1, n2).to(in_dt), c_dtype=c_dt)
+    yr, yi = stage2_half(cr, ci, dtype=x.dtype)
     h = n // 2 + 1
     return yr.reshape(*batch, h), yi.reshape(*batch, h)
+
+
+# ---------------------------------------------------------------------------
+# the dense four-step pair (_build, pallas_kernels.py:185-292): each stage
+# one complex DFT-matrix product, no line recursion
+# ---------------------------------------------------------------------------
+
+def fused_four_step_supported(n: int) -> bool:
+    """Whether the dense pair serves n: the sizes ``_pow2_split`` splits
+    (``fused_four_step_supported``, pallas_kernels.py:135)."""
+    return _pow2_split(n) is not None
+
+
+def _dense_dft(m: int):
+    """(re, im, re + im) host planes of DFT_m: the ``tables.dft_matrix``
+    pair and its float32 sum, the third operand of the kernel's Gauss
+    product, built once per length."""
+    fr, fi = tables.dft_matrix(m)
+    return fr, fi, tables.custom(("dftsum", m), lambda: fr + fi)
+
+
+def dense_stage_a_plain(ar, ai):
+    """Plain version of the dense stage-a kernel (``_stage_a_kernel``):
+    (b, n1, n2) -> C = (F_n1^T A) o W, the Gauss product in float32
+    matmuls and the full twiddle plane ``tables.twiddle(n1, n2)``."""
+    b, n1, n2 = ar.shape
+    fr, fi = (const(a, ar.device) for a in tables.dft_matrix(n1))
+    wr, wi = (const(a, ar.device) for a in tables.twiddle(n1, n2))
+    br, bi = _cdot(fr, fi, ar, ai)
+    return br * wr - bi * wi, br * wi + bi * wr
+
+
+def dense_stage_b_plain(cr, ci):
+    """Plain version of the dense stage-b kernel (``_stage_b_kernel``):
+    C (b, n1, n2) -> X = F_n2^T C^T, (b, n2, n1)."""
+    fr, fi = (const(a, cr.device) for a in tables.dft_matrix(cr.shape[2]))
+    return _cdot(fr, fi, cr.mT, ci.mT)
+
+
+def _check_dense(x, what: str) -> None:
+    b, n1, n2 = x.shape
+    require(n1 % 64 == 0 and n2 % 64 == 0, InvalidValueError,
+            f"{what}: both plane dims must be multiples of 64 (the "
+            f"kernel's tile); got {tuple(x.shape)}")
+
+
+def dense_stage_a(ar, ai):
+    """Dense stage a: (b, n1, n2) float32 planes -> C (b, n1, n2). CUDA
+    tensors launch the kernel (one count in ``launches``); CPU tensors run
+    ``dense_stage_a_plain``."""
+    _check_planes(ar, ai, "dense_stage_a")
+    _check_dense(ar, "dense_stage_a")
+    if ar.device.type == "cpu":
+        return dense_stage_a_plain(ar, ai)
+    from ._cuda_build import check, lib
+    b, n1, n2 = ar.shape
+    dev = ar.device
+    fr, fi, fs = (const(a, dev) for a in _dense_dft(n1))
+    wr, wi = (const(a, dev) for a in tables.twiddle(n1, n2))
+    cr = torch.empty_like(ar)
+    ci = torch.empty_like(ai)
+    err = lib().kofft_dense_stage_a(
+        ar.data_ptr(), ai.data_ptr(), fr.data_ptr(), fi.data_ptr(),
+        fs.data_ptr(), wr.data_ptr(), wi.data_ptr(), cr.data_ptr(),
+        ci.data_ptr(), b, n1, n2, dev.index, _stream(dev))
+    check(err, "dense_stage_a launch")
+    launches["dense_stage_a"] += 1
+    return cr, ci
+
+
+def dense_stage_b(cr, ci):
+    """Dense stage b: C (b, n1, n2) float32 -> (b, n2, n1), the transposed
+    layout whose row-major flattening is the spectrum. CUDA tensors launch
+    the kernel (one count in ``launches``); CPU tensors run
+    ``dense_stage_b_plain``."""
+    _check_planes(cr, ci, "dense_stage_b")
+    _check_dense(cr, "dense_stage_b")
+    if cr.device.type == "cpu":
+        return dense_stage_b_plain(cr, ci)
+    from ._cuda_build import check, lib
+    b, n1, n2 = cr.shape
+    dev = cr.device
+    fr, fi, fs = (const(a, dev) for a in _dense_dft(n2))
+    yr = torch.empty((b, n2, n1), dtype=cr.dtype, device=dev)
+    yi = torch.empty((b, n2, n1), dtype=cr.dtype, device=dev)
+    err = lib().kofft_dense_stage_b(
+        cr.data_ptr(), ci.data_ptr(), fr.data_ptr(), fi.data_ptr(),
+        fs.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1, n2, dev.index,
+        _stream(dev))
+    check(err, "dense_stage_b launch")
+    launches["dense_stage_b"] += 1
+    return yr, yi
+
+
+def fused_four_step_fft(xr, xi, n: int):
+    """Forward unnormalized DFT of (..., n) float32 planes through the
+    dense pair (``fused_four_step_fft``, pallas_kernels.py:278), batch
+    folded, counted as class ``four_step``: ``dense_stage_a`` then
+    ``dense_stage_b``."""
+    require(fused_four_step_supported(n), InvalidValueError,
+            f"fused_four_step_fft serves smooth n = odd * 2^k (odd <= 23) "
+            f"in [2^14, 2^26] that split into factors >= 128; got {n}")
+    batch, b = _batch(xr)
+    n1, n2 = _pow2_split(n)
+    classes["four_step"] += 1
+    cr, ci = dense_stage_a(xr.reshape(b, n1, n2), xi.reshape(b, n1, n2))
+    yr, yi = dense_stage_b(cr, ci)
+    return yr.reshape(*batch, n), yi.reshape(*batch, n)
 
 
 # ---------------------------------------------------------------------------

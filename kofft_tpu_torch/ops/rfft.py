@@ -13,8 +13,9 @@ ladder follows ``kofft_tpu.ops.rfft._rfft_planes``:
 The inverse rebuilds the Hermitian spectrum with one half-length flip and
 keeps the real plane of the full complex inverse (the complex kernels on
 kernel sizes), which also drops unrealizable DC/Nyquist imaginary parts
-as numpy does. bfloat16 computes in float32 and rounds back. Host input
-goes to ``device`` (default ``"cuda"``, the card).
+as numpy does. bfloat16 input reaches the kernels' bf16 forms on kernel
+sizes and computes in float32 and rounds back elsewhere. Host input goes
+to ``device`` (default ``"cuda"``, the card).
 """
 
 from __future__ import annotations
@@ -32,22 +33,26 @@ __all__ = ["rfft", "irfft", "rfft_split", "irfft_split"]
 
 
 def _rfft_planes(x, n: int, backend: str):
-    """real (..., n) -> one-sided planes (..., n//2+1), unnormalized."""
+    """real (..., n) -> one-sided planes (..., n//2+1), unnormalized. The
+    JAX order (``kofft_tpu.ops.rfft``:53-72): bfloat16 input skips the
+    cufft-zone reroute and reaches the real kernels' bf16 forms; only
+    engines without a bf16 kernel compute in float32 and round back."""
     dtype = dtype_name(x)
-    if dtype == "bfloat16":
-        yr, yi = _rfft_planes(x.float(), n, backend)
-        return yr.to(x.dtype), yi.to(x.dtype)
     b = backend
     if b == "auto":
-        b = "cufft" if _cufft_zone(x.shape, n) else "cuda"
-    if b == "cufft":
-        y = torch.fft.rfft(x)
-        return y.real.contiguous(), y.imag.contiguous()
+        b = ("cufft" if dtype != "bfloat16" and _cufft_zone(x.shape, n)
+             else "cuda")
     if b == "cuda":
         from .hopper_fft import kernel_rfft_planes, kernel_supported
         if kernel_supported(n, dtype):
             return kernel_rfft_planes(x, n)
         b = "torch"
+    if dtype == "bfloat16":
+        yr, yi = _rfft_planes(x.float(), n, b)
+        return yr.to(x.dtype), yi.to(x.dtype)
+    if b == "cufft":
+        y = torch.fft.rfft(x)
+        return y.real.contiguous(), y.imag.contiguous()
     yr, yi = _fft_planes(x, torch.zeros_like(x), n, False, b, dtype)
     return yr[..., : n // 2 + 1], yi[..., : n // 2 + 1]
 

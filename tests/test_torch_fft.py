@@ -276,8 +276,9 @@ def test_forward_ad_through_kernel_path():
 
 
 def test_dtypes():
-    """float64 stays float64 (plain engines); bfloat16 planes compute in
-    float32 and round back."""
+    """float64 stays float64 (plain engines); bfloat16 planes of a size
+    the phased grid serves take the stage kernels' bf16 forms (class
+    phased_tiled, float32 arithmetic, each result rounded to bf16 once)."""
     n = 1 << 14
     x = _cx((n,), 19).astype(np.complex128)
     y = tk.fft(x, **CPU)
@@ -285,7 +286,9 @@ def test_dtypes():
     assert snr_db(np.fft.fft(x), y.numpy()) > 250.0
     br = torch.as_tensor(x.real, dtype=torch.bfloat16)
     bi = torch.as_tensor(x.imag, dtype=torch.bfloat16)
+    HK.reset_counts()
     yr, yi = tk.fft_split(br, bi)
+    assert HK.classes["phased_tiled"] == 1
     assert yr.dtype == torch.bfloat16
     ref = np.fft.fft(br.double().numpy() + 1j * bi.double().numpy())
     assert snr_db(ref, tk.asnumpy(yr) + 1j * tk.asnumpy(yi)) > 40.0

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (the complex and real stage kernels and the N-D
-axis kernels) against their plain PyTorch versions, and the public
-entries, on the card. Every test here carries the ``gpu`` marker and skips without a
+"""The port's CUDA kernels (the complex and real stage kernels with their
+bfloat16 I/O forms, the N-D axis kernels and the dense four-step pair)
+against their plain PyTorch versions, and the public entries, on the
+card. Every test here carries the ``gpu`` marker and skips without a
 CUDA device; whether one exists is decided inside the fixture. Run on the
 card with ``python -m pytest -m gpu --noconftest tests/test_torch_gpu.py``
 (``--noconftest``: the shared conftest imports jax, which the port does
@@ -10,7 +11,12 @@ Tolerances: kernel vs plain >= 110 dB (both are float32 evaluations of the
 same recursion with equal tables; the kernel sums with direct complex
 FMAs, the plain version with the Gauss three-product, so they differ only
 in rounding order); each vs the float64 numpy FFT > 100 dB
-(SNR_FLOOR_DB of tests/test_fft.py), the N-D routes included.
+(SNR_FLOOR_DB of tests/test_fft.py), the N-D routes included. A bf16 form
+that stores bf16 is held against its plain version in bf16 at >= 40 dB
+(both round the same float32 sums once, so they differ by at most one
+bf16 ulp where the sums round differently); bf16 routes >= 40 dB against
+the float64 FFT of their bf16 input, and the `default` tier's float32
+route >= 42 dB (its floor).
 """
 
 import numpy as np
@@ -25,6 +31,12 @@ pytestmark = pytest.mark.gpu
 
 PORT_DB = 110.0
 ORACLE_DB = 100.0
+BF16_DB = 40.0
+# a bf16-stored kernel against its plain version: both round the same
+# float32 sums to nearest even (~88 dB on the card); a truncating store or
+# bf16 sums would read 45-55 dB
+BF16_PLAIN_DB = 70.0
+DEFAULT_DB = 42.0
 
 
 @pytest.fixture
@@ -218,3 +230,128 @@ def test_nd_grad_on_card(cuda):
     (yr * gr + yi * gi).sum().backward()
     want = np.fft.ifftn(_np(gr, gi)) * xr.numel()
     assert snr_db(want, _np(xr.grad, xi.grad)) > ORACLE_DB
+
+
+@pytest.mark.parametrize("b,n", [(1, 1 << 14), (3, 1 << 14), (1, 3 << 14),
+                                 (2, 1 << 16)])
+def test_dense_stages_match_plain(cuda, b, n):
+    n1, n2 = HK._pow2_split(n)
+    ar, ai = _planes((b, n1, n2), cuda, seed=13)
+    before = dict(HK.launches)
+    cr, ci = HK.dense_stage_a(ar, ai)
+    pr, pi = HK.dense_stage_a_plain(ar, ai)
+    yr, yi = HK.dense_stage_b(cr, ci)
+    qr, qi = HK.dense_stage_b_plain(cr, ci)
+    torch.cuda.synchronize()
+    assert snr_db(_np(pr, pi), _np(cr, ci)) >= PORT_DB
+    assert snr_db(_np(qr, qi), _np(yr, yi)) >= PORT_DB
+    assert HK.launches["dense_stage_a"] == before["dense_stage_a"] + 1
+    assert HK.launches["dense_stage_b"] == before["dense_stage_b"] + 1
+    ref = np.fft.fft(_np(ar, ai).reshape(b, n), axis=-1)
+    assert snr_db(ref, _np(yr, yi).reshape(b, n)) > ORACLE_DB
+    HK.reset_counts()
+    fr, fi = HK.fused_four_step_fft(ar.reshape(b, n), ai.reshape(b, n), n)
+    assert HK.classes["four_step"] == 1
+    assert HK.launches["dense_stage_a"] == HK.launches["dense_stage_b"] == 1
+    assert snr_db(ref, _np(fr, fi)) > ORACLE_DB
+
+
+def _form_cases():
+    return [(base, f) for base, forms in HK._IO_FORMS.items()
+            for f in forms if f != "ff"]
+
+
+@pytest.mark.parametrize("base,form", _form_cases())
+def test_bf16_forms_match_plain(cuda, base, form):
+    """Each bf16 I/O form against its plain version on the same input:
+    float32 outputs >= 110 dB, bf16 outputs >= 70 dB in bf16."""
+    loads, stores = (HK._LETTER_DTYPE[c] for c in form)
+    b, n1, n2 = 2, 256, 512
+    ar, ai = _planes((b, n1, n2), cuda, seed=14)
+    ar, ai = ar.to(loads), ai.to(loads)
+    if base == "stage1":
+        got = HK.stage1(ar, ai, c_dtype=stores)
+        want = HK.stage1_plain(ar, ai, c_dtype=stores)
+    elif base == "stage1_real":
+        got = HK.stage1_real(ar, c_dtype=stores)
+        want = HK.stage1_real_plain(ar, c_dtype=stores)
+    elif base == "stage2":
+        got = HK.stage2(ar, ai, dtype=stores)
+        want = HK.stage2_plain(ar, ai, dtype=stores)
+    else:
+        got = HK.stage2_half(ar, ai, dtype=stores)
+        want = HK.stage2_half_plain(ar, ai, dtype=stores)
+    torch.cuda.synchronize()
+    assert got[0].dtype == got[1].dtype == stores
+    floor = PORT_DB if stores == torch.float32 else BF16_PLAIN_DB
+    assert snr_db(_np(*want), _np(*got)) >= floor
+    assert HK.launches[f"{base}_{form}"] >= 1
+
+
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("shape,forms", [
+    ((1 << 16,), ("_bf", "_fb")),
+    ((3, 1 << 16), ("_bf", "_fb")),
+])
+def test_bf16_routes_on_card(cuda, real, shape, forms):
+    """bf16 planes on a phased-served shape launch the bf16 forms and
+    return bf16."""
+    import kofft_tpu_torch as kt
+    xr, xi = _planes(shape, cuda, seed=15)
+    xr, xi = xr.to(torch.bfloat16), xi.to(torch.bfloat16)
+    HK.reset_counts()
+    if real:
+        yr, yi = kt.rfft_split(xr)
+        ref = np.fft.rfft(xr.double().cpu().numpy(), axis=-1)
+        names = ("stage1_real", "stage2_half")
+    else:
+        yr, yi = kt.fft_split(xr, xi)
+        ref = np.fft.fft(_np(xr, xi), axis=-1)
+        names = ("stage1", "stage2")
+    assert yr.dtype == yi.dtype == torch.bfloat16
+    assert HK.classes["phased_tiled_real" if real else "phased_tiled"] == 1
+    for name, form in zip(names, forms):
+        assert HK.launches[name + form] == 1
+    assert snr_db(ref, _np(yr, yi)) > BF16_DB
+
+
+@pytest.mark.parametrize("real", [False, True])
+def test_default_tier_routes_on_card(cuda, real):
+    """The `default` tier reads float32 planes as bf16 and keeps C bf16 on
+    the `ml` pair, with float32 output, >= 42 dB."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch import config
+    shape = (8, 1 << 14)                      # batch-folded: class ml
+    xr, xi = _planes(shape, cuda, seed=16)
+    HK.reset_counts()
+    config.set_precision("default")
+    try:
+        if real:
+            yr, yi = kt.rfft_split(xr)
+        else:
+            yr, yi = kt.fft_split(xr, xi)
+    finally:
+        config.set_precision(None)
+    if real:
+        ref = np.fft.rfft(xr.double().cpu().numpy(), axis=-1)
+        assert HK.launches["stage1_real_bb"] == HK.launches[
+            "stage2_half_bf"] == 1
+    else:
+        ref = np.fft.fft(_np(xr, xi), axis=-1)
+        assert HK.launches["stage1_bb"] == HK.launches["stage2_bf"] == 1
+    assert yr.dtype == torch.float32
+    assert snr_db(ref, _np(yr, yi)) > DEFAULT_DB
+
+
+def test_bf16_grad_on_card(cuda):
+    import kofft_tpu_torch as kt
+    n = 1 << 16
+    xr, xi = (t.to(torch.bfloat16) for t in _planes((n,), cuda, seed=17))
+    gr, gi = (t.to(torch.bfloat16) for t in _planes((n,), cuda, seed=18))
+    xr.requires_grad_(True)
+    xi.requires_grad_(True)
+    yr, yi = kt.fft_split(xr, xi)
+    (yr * gr + yi * gi).float().sum().backward()
+    assert xr.grad.dtype == torch.bfloat16
+    want = np.fft.ifft(_np(gr, gi)) * n
+    assert snr_db(want, _np(xr.grad, xi.grad)) > BF16_DB

@@ -176,7 +176,8 @@ def test_rfftn_split_vs_jax():
 
 def test_dtypes():
     """float64 stays float64; bfloat16 planes compute in float32 and round
-    back."""
+    back (the N-D entries have no bf16 kernel form, as the JAX N-D kernels
+    have none; only the 1-D entries route bf16 to the kernels)."""
     x = _cx((16, 32), 9).astype(np.complex128)
     y = tk.fft2(x, **CPU)
     assert y.dtype == torch.complex128

@@ -167,12 +167,16 @@ def test_errors_match_jax_classes():
 
 
 def test_bfloat16():
-    """bfloat16 computes in float32 and rounds back: the rounding of the
+    """bfloat16 planes reach the real kernels; (2, 2^14) is batch-folded
+    (class ml_real), a shape the phased grid does not serve, so it
+    computes on the float32 route and rounds back: the rounding of the
     output to 8 mantissa bits bounds the SNR near 50 dB (floor 40, as
     tests/test_torch_fft.py::test_dtypes)."""
     n = 1 << 14
     xb = torch.as_tensor(_real((2, n), 32)).to(torch.bfloat16)
+    HK.reset_counts()
     yr, yi = tk.rfft_split(xb)
+    assert HK.classes["ml_real"] == 1
     assert yr.dtype == torch.bfloat16 and tuple(yr.shape) == (2, n // 2 + 1)
     x64 = xb.double().numpy()
     got = _c(tk.asnumpy(yr), tk.asnumpy(yi))
