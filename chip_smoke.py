@@ -18,11 +18,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    numpy FFT, at (8, 2^14), 2^20, 3*2^18, (8, 2^20), 2^24 and 2^26; then
    stage1_real and stage2_half the same way, the pair against the float64
    numpy rfft, at (4, 2^14), 2^20, 3*2^18, (8, 2^20), 2^24 and 2^26;
-   then col_fft and row_fft the same way, the pair against the float64
-   numpy fft2, at (1, 1024, 1024), (8, 512, 512), (1, 4096, 4096) and
-   (1, 8192, 8192), the three axis passes of a 128^3 grid against its
-   fftn, and the fused_nd route (d launches) against fused_nd_plain at
-   128^3 and (512, 256); then dense_stage_a and dense_stage_b, and
+   then col_fft and row_fft the same way, forward and inverse (conj),
+   above 110 dB against their plain versions, the pair against the
+   float64 numpy fft2 / ifft2, at lines of 2 ... 8192 ((4096, 2, 16),
+   (1, 16, 2048), (1, 1024, 1024), (8, 512, 512), (1, 2048, 4096) and
+   (1, 4096, 2048) on both sides of col_fft's column four-step, (1, 4096,
+   4096), (1, 8192, 8192)), the four-step at 2048 (as phase 6 times it),
+   the three axis passes of a 128^3 grid against its fftn, and the
+   fused_nd route (d launches) against fused_nd_plain at 128^3 and (512,
+   256); then dense_stage_a and dense_stage_b, and
    fused_four_step_fft against float64, at 2^14, (3, 2^14), 3*2^14, 2^20,
    (8, 2^20), 2^24 and 2^26; every SNR must exceed 100 dB; last, every
    bf16 I/O form of the four stage kernels against its plain version with
@@ -61,8 +65,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    at 1024^2, (8, 512, 512), 4096^2, 8192^2 and 128^3 with their bound
    (``nd_bound``); every kernel and bf16 form alone at (1, 1024, 1024)
    beside its plain version, and the library call where one computes the
-   same function; and the three axis passes of a 128^3 grid alone
-   (kernel, plain version, torch.fft.fft, bound).
+   same function, each back to back and as device time per call of a CUDA
+   graph of 20 calls (``graph_ms``: no host time; at this size the
+   back-to-back time can be the host's enqueue); the three axis passes of a 128^3 grid alone, col_fft
+   and row_fft at (1, 4096, 4096) and (1, 8192, 8192), and stage1 and
+   stage2 at (1, 8192, 8192) (kernel graph and back-to-back, plain
+   version, torch.fft.fft along the same axis, bound); and col_fft at
+   lines of 2048 as one launch and as the column four-step.
 
 A bound is the least time the card could take for the work: the larger
 of the bytes the function must move (each input read once, each output
@@ -70,10 +79,12 @@ written once) over 3.35 TB/s, and 5 m log2 m float32 operations per
 complex line of length m (half for real input or one-sided output) over
 67 TFLOP/s; an N-D transform does that along each of its axes. The line
 before the last is the kernels' JSON record (launches on the main paths,
-max abs error against the plain version, back-to-back ms of kernel and
-plain version at (1, 1024, 1024), the bound there, and the library
-call's back-to-back ms or null); the last line is {"ok": true, "device":
-{...}}. Without a CUDA device the script exits non-zero before it prints
+max abs error against the plain version, and at (1, 1024, 1024) the bound
+and the device ms per call of kernel, plain version and library call (or
+null): back to back under ``ms``, ``plain_ms`` and ``library_ms``, as
+since the first slice, and replayed from a CUDA graph under
+``graph_ms``, ``plain_graph_ms`` and ``library_graph_ms``); the last line
+is {"ok": true, "device": {...}}. Without a CUDA device the script exits non-zero before it prints
 any result.
 """
 
@@ -93,6 +104,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 FLOOR_DB = 100.0
+# the axis kernels against their plain versions: two float32 evaluations
+# of the DFT of each line (radix passes against the dense-leaf recursion)
+AXIS_DB = 110.0
 # bf16 outputs against float64: each rounds float32 sums once (8 mantissa
 # bits, ~50 dB); a bf16-stored kernel against its plain version: both round
 # the same float32 sums to nearest even, so they differ only where the two
@@ -178,6 +192,71 @@ def nd_bound(shape, axes=None):
     axes = range(len(shape)) if axes is None else axes
     return bound_ms(16 * pts, sum(fft_flops(pts, shape[a], False)
                                   for a in axes))
+
+
+def time_ms(fn, runs=20, warm=3):
+    """(median ms of single calls, device ms per call back-to-back, host
+    ms per call enqueuing those back-to-back calls), by CUDA events after
+    ``warm`` calls."""
+    import torch
+    for _ in range(warm):
+        fn()
+    ts = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        z.record()
+        z.synchronize()
+        ts.append(a.elapsed_time(z))
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    t = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    host = (time.perf_counter() - t) * 1e3 / runs
+    z.record()
+    z.synchronize()
+    return statistics.median(ts), a.elapsed_time(z) / runs, host
+
+
+def graph_runs(points: int) -> int:
+    """Calls per CUDA graph for an input of ``points`` points: 20, or 5
+    above 2^22 points (the captured calls' intermediates stay
+    allocated)."""
+    return 20 if points <= 1 << 22 else 5
+
+
+def graph_ms(fn, runs=20):
+    """Device ms per call with no host time in it: ``runs`` calls captured
+    in one CUDA graph (after three calls on a side stream), the mean of
+    three replays; the allocator's cache is emptied after. Where the
+    host's enqueue is slower than the device (small shapes), the
+    back-to-back time of ``time_ms`` is the host's."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(runs):
+            fn()
+    g.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(3):
+        g.replay()
+    z.record()
+    z.synchronize()
+    del g
+    torch.cuda.empty_cache()
+    return a.elapsed_time(z) / (3 * runs)
 
 
 def main() -> int:
@@ -289,29 +368,51 @@ def main() -> int:
 
     err.update(col_fft=0.0, row_fft=0.0)
 
-    def axis_pass(name, fn, plain_fn, ar, ai):
-        """One col_fft / row_fft launch against its plain version on the
-        same input: (output planes, SNR)."""
-        yr, yi = fn(ar, ai)
-        pr, pi = plain_fn(ar, ai)
+    def axis_pass(name, fn, plain_fn, ar, ai, conj=False):
+        """One col_fft / row_fft call against its plain version on the
+        same input: (output planes, SNR, max abs error)."""
+        yr, yi = fn(ar, ai, conj)
+        pr, pi = plain_fn(ar, ai, conj)
         torch.cuda.synchronize()
         e = max((yr - pr).abs().max().item(), (yi - pi).abs().max().item())
         err[name] = max(err[name], e)
-        return yr, yi, snr_db(host(pr, pi), host(yr, yi)), e
+        return yr, yi, snr_db_card((pr, pi), (yr, yi)), e
 
-    for shape in [(1, 1024, 1024), (8, 512, 512), (1, 4096, 4096),
-                  (1, 8192, 8192)]:
+    # lines of 2 ... 8192 along both axes: col_fft runs one launch up to
+    # HK._COL_SPLIT_ABOVE (2048) and the column four-step above it, so
+    # (1, 2048, 4096) and (1, 4096, 2048) hold both sides of the split;
+    # every shape forward, then inverse (conj on col_fft's load and
+    # row_fft's store: the unnormalized ifft2)
+    for shape in [(4096, 2, 16), (1, 16, 2048), (1, 1024, 1024),
+                  (8, 512, 512), (1, 2048, 4096), (1, 4096, 2048),
+                  (1, 4096, 4096), (1, 8192, 8192)]:
         ar, ai = planes(shape)
-        cr, ci, s1, e1 = axis_pass("col_fft", HK.col_fft, HK.col_fft_plain,
-                                   ar, ai)
-        yr, yi, s2, e2 = axis_pass("row_fft", HK.row_fft, HK.row_fft_plain,
-                                   cr, ci)
-        so = snr_db(np.fft.fft2(host(ar, ai)), host(yr, yi))
-        log(f"{shape}: col_fft vs plain {s1:.2f} dB (max abs {e1:.3e}), "
-            f"row_fft vs plain {s2:.2f} dB (max abs {e2:.3e}), pair vs "
-            f"float64 fft2 {so:.2f} dB")
-        assert min(s1, s2, so) > FLOOR_DB, (shape, s1, s2, so)
-        del ar, ai, cr, ci, yr, yi
+        for conj in (False, True):
+            cr, ci, s1, e1 = axis_pass("col_fft", HK.col_fft,
+                                       HK.col_fft_plain, ar, ai, conj)
+            yr, yi, s2, e2 = axis_pass("row_fft", HK.row_fft,
+                                       HK.row_fft_plain, cr, ci, conj)
+            x = host(ar, ai)
+            ref = (np.fft.ifft2(x) * (shape[1] * shape[2]) if conj
+                   else np.fft.fft2(x))
+            so = snr_db(ref, host(yr, yi))
+            log(f"{shape}{' inverse' if conj else ''}: col_fft vs plain "
+                f"{s1:.2f} dB (max abs {e1:.3e}), row_fft vs plain "
+                f"{s2:.2f} dB (max abs {e2:.3e}), pair vs float64 "
+                f"{'ifft2' if conj else 'fft2'} {so:.2f} dB")
+            assert min(s1, s2) > AXIS_DB and so > FLOOR_DB, (
+                shape, conj, s1, s2, so)
+            del cr, ci, yr, yi, x, ref
+        del ar, ai
+    # the column four-step below its threshold, as phase 6 times it
+    ar, ai = planes((1, 2048, 2048))
+    yr, yi = HK._col_fft_kernel(ar, ai, False, (32, 64))
+    pr, pi = HK.col_fft_plain(ar, ai)
+    sv = snr_db_card((pr, pi), (yr, yi))
+    log(f"(1, 2048, 2048) col_fft as the column four-step (32, 64) vs "
+        f"plain {sv:.2f} dB")
+    assert sv > AXIS_DB, sv
+    del ar, ai, yr, yi, pr, pi
     # the three axis passes of a 128^3 grid: axis 0 and 1 as col_fft views,
     # the last axis as a row_fft view
     ar, ai = planes((128, 128, 128))
@@ -329,7 +430,7 @@ def main() -> int:
     log(f"(128, 128, 128) axis views: passes vs plain "
         f"{', '.join(f'{v:.2f}' for v in snrs)} dB, passes vs float64 fftn "
         f"{so:.2f} dB")
-    assert min(*snrs, so) > FLOOR_DB, (snrs, so)
+    assert min(snrs) > AXIS_DB and so > FLOOR_DB, (snrs, so)
     for shape in [(128, 128, 128), (512, 256)]:
         xr, xi = planes(shape)
         yr, yi = HK.fused_ndfft_planes(xr, xi)
@@ -712,31 +813,6 @@ def main() -> int:
     # -- 6. timing ----------------------------------------------------
     log("== phase 6: timing (CUDA events after 3 warm-up calls)")
 
-    def time_ms(fn, runs=20, warm=3):
-        """(median ms of single calls, device ms per call back-to-back,
-        host ms per call enqueuing those back-to-back calls)"""
-        for _ in range(warm):
-            fn()
-        ts = []
-        for _ in range(runs):
-            a = torch.cuda.Event(enable_timing=True)
-            z = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            z.record()
-            z.synchronize()
-            ts.append(a.elapsed_time(z))
-        a = torch.cuda.Event(enable_timing=True)
-        z = torch.cuda.Event(enable_timing=True)
-        a.record()
-        t = time.perf_counter()
-        for _ in range(runs):
-            fn()
-        host = (time.perf_counter() - t) * 1e3 / runs
-        z.record()
-        z.synchronize()
-        return statistics.median(ts), a.elapsed_time(z) / runs, host
-
     def report(shape, what, t):
         single, streamed, host = t
         log(f"{shape}: {what}: single call {single * 1e3:.1f} us, "
@@ -903,12 +979,16 @@ def main() -> int:
         work[name] = (base, loads.itemsize, stores.itemsize)
     kern = {k: time_ms(fn) for k, (fn, _) in calls.items()}
     plain = {k: time_ms(fn) for k, (_, fn) in calls.items()}
+    kern_g = {k: graph_ms(fn) for k, (fn, _) in calls.items()}
+    plain_g = {k: graph_ms(fn) for k, (_, fn) in calls.items()}
     bound = {k: stage_bound(work[k][0], *shape, *work[k][1:]) for k in kern}
     for k in kern:
         log(f"{shape} {k}: kernel single {kern[k][0] * 1e3:.1f} us,"
-            f" back-to-back {kern[k][1] * 1e3:.1f} us/call; plain single "
+            f" back-to-back {kern[k][1] * 1e3:.1f} us/call, graph "
+            f"{kern_g[k] * 1e3:.1f} us/call; plain single "
             f"{plain[k][0] * 1e3:.1f} us, back-to-back "
-            f"{plain[k][1] * 1e3:.1f} us/call; bound "
+            f"{plain[k][1] * 1e3:.1f} us/call, graph "
+            f"{plain_g[k] * 1e3:.1f} us/call; bound "
             f"{bound[k][0] * 1e3:.2f} us ({bound[k][1]}) [{smi}]")
     # library calls, on complex tensors built once outside the timed calls:
     # one axis pass is torch.fft.fft along that axis, and stage2 is
@@ -922,7 +1002,7 @@ def main() -> int:
     cc = torch.complex(cr, ci)
     f1 = torch.complex(*(torch.as_tensor(a, device=dev) for a in
                          HK.tables.dft_matrix(1024)))
-    library_ms = {}
+    library_ms, library_graph_ms = {}, {}
     for k, what, fn in (
             ("col_fft", "torch.fft.fft(complex, dim=1)",
              lambda: torch.fft.fft(ac, dim=1)),
@@ -935,15 +1015,31 @@ def main() -> int:
             (None, "dense_stage_a's product alone, torch.matmul(F1, "
              "complex(A)), complex64", lambda: torch.matmul(f1, ac))):
         t = time_ms(fn)
+        tg = graph_ms(fn)
         if k is not None:
-            library_ms[k] = t[1]
+            library_ms[k], library_graph_ms[k] = t[1], tg
         log(f"{shape} {k or 'context'} library {what}: single "
-            f"{t[0] * 1e3:.1f} us, back-to-back {t[1] * 1e3:.1f} us/call "
-            f"[{smi}]")
-    ms = {k: v[1] for k, v in kern.items()}
-    plain_ms = {k: v[1] for k, v in plain.items()}
+            f"{t[0] * 1e3:.1f} us, back-to-back {t[1] * 1e3:.1f} us/call, "
+            f"graph {tg * 1e3:.1f} us/call [{smi}]")
     del ar, ai, cr, ci, ac, cc, f1, calls
-    # the three axis passes of a 128^3 grid alone: lines of 128, T = 16
+
+    def axis_row(view, k, fn, plain_fn, xr, xi, lib_what, lib_fn):
+        """One kernel alone at ``view``: graph and back-to-back time of
+        the kernel, graph time of its plain version and of the library
+        call (if any), and the bound. Five calls per graph from 2^24
+        points (the captured calls' intermediates stay allocated)."""
+        runs = graph_runs(math.prod(view))
+        tk = time_ms(lambda: fn(xr, xi))
+        gk = graph_ms(lambda: fn(xr, xi), runs)
+        gp = graph_ms(lambda: plain_fn(xr, xi), runs)
+        lib = "" if lib_fn is None else (
+            f"; {lib_what} graph {graph_ms(lib_fn, runs) * 1e3:.1f}")
+        bd, by = stage_bound(k, *view)
+        log(f"{view} {k}: kernel graph {gk * 1e3:.1f} us/call, back-to-back "
+            f"{tk[1] * 1e3:.1f} (host enqueue {tk[2] * 1e3:.1f}); plain graph "
+            f"{gp * 1e3:.1f}{lib}; bound {bd * 1e3:.2f} us ({by}) [{smi}]")
+
+    # the three axis passes of a 128^3 grid alone: lines of 128
     for view, k, dim in (((1, 128, 16384), "col_fft", 1),
                          ((128, 128, 128), "col_fft", 1),
                          ((1, 16384, 128), "row_fft", 2)):
@@ -951,17 +1047,46 @@ def main() -> int:
         vc = torch.complex(vr, vi)
         fn, plain_fn = {"col_fft": (HK.col_fft, HK.col_fft_plain),
                         "row_fft": (HK.row_fft, HK.row_fft_plain)}[k]
-        tkern = time_ms(lambda: fn(vr, vi))
-        tp = time_ms(lambda: plain_fn(vr, vi))
-        tl = time_ms(lambda: torch.fft.fft(vc, dim=dim))
-        bd, by = stage_bound(k, *view)
-        log(f"{view} {k}: kernel back-to-back {tkern[1] * 1e3:.1f} us/call; "
-            f"plain {tp[1] * 1e3:.1f}; torch.fft.fft(dim={dim}) "
-            f"{tl[1] * 1e3:.1f}; bound {bd * 1e3:.2f} us ({by}) [{smi}]")
+        axis_row(view, k, fn, plain_fn, vr, vi,
+                 f"torch.fft.fft(dim={dim})",
+                 lambda: torch.fft.fft(vc, dim=dim))
         del vr, vi, vc
+    # the axis kernels at the 2-D routes' long lines (col_fft's column
+    # four-step at 4096 and 8192), and the 1-D stage pair at lines of
+    # 8192, each beside its library call along the same axis
+    for view in [(1, 4096, 4096), (1, 8192, 8192)]:
+        vr, vi = planes(view)
+        vc = torch.complex(vr, vi)
+        axis_row(view, "col_fft", HK.col_fft, HK.col_fft_plain, vr, vi,
+                 "torch.fft.fft(dim=1)", lambda: torch.fft.fft(vc, dim=1))
+        axis_row(view, "row_fft", HK.row_fft, HK.row_fft_plain, vr, vi,
+                 "torch.fft.fft(dim=2)", lambda: torch.fft.fft(vc, dim=2))
+        del vc
+        if view[1] == 8192:
+            axis_row(view, "stage1", HK.stage1, HK.stage1_plain, vr, vi,
+                     None, None)
+            cr, ci = HK.stage1(vr, vi)
+            del vr, vi
+            cc = torch.complex(cr, ci)
+            axis_row(view, "stage2", HK.stage2, HK.stage2_plain, cr, ci,
+                     "torch.fft.fft(C, dim=2)",
+                     lambda: torch.fft.fft(cc, dim=2))
+            del cr, ci, cc
+        else:
+            del vr, vi
+    # col_fft at lines of 2048, one launch against the column four-step:
+    # the measurement behind HK._COL_SPLIT_ABOVE
+    vr, vi = planes((1, 2048, 2048))
+    one = graph_ms(lambda: HK._col_fft_kernel(vr, vi, False, None))
+    two = graph_ms(lambda: HK._col_fft_kernel(vr, vi, False, (32, 64)))
+    log(f"(1, 2048, 2048) col_fft: one launch graph {one * 1e3:.1f} us/call, "
+        f"column four-step (32, 64) {two * 1e3:.1f} us/call; split above "
+        f"{HK._COL_SPLIT_ABOVE} [{smi}]")
+    del vr, vi
 
     stages = "kofft_tpu_torch/ops/csrc/fft_stages.cu"
     dense = "kofft_tpu_torch/ops/csrc/dense_dft.cu"
+    axis = "kofft_tpu_torch/ops/csrc/axis_fft.cu"
     tpu = "kofft_tpu/ops/pallas_kernels.py"
     replaces = {
         "stage1": (stages, 547, ["847 (_build_phased kern, phase 1)"]),
@@ -970,12 +1095,12 @@ def main() -> int:
                                       "phase 1)"]),
         "stage2_half": (stages, 579, ["847 (_build_phased kern, real=True, "
                                       "phases 2-3 and the Nyquist bin)"]),
-        "col_fft": (stages, 1701, ["1597 (_build_fft2 kern, phase 1)",
-                                   "1415 (_build_fused_nd kern, the passes "
-                                   "over axes 0 ... d-2)"]),
-        "row_fft": (stages, 1708, ["1597 (_build_fft2 kern, phase 2)",
-                                   "1415 (_build_fused_nd kern, the "
-                                   "last-axis pass)"]),
+        "col_fft": (axis, 1701, ["1597 (_build_fft2 kern, phase 1)",
+                                 "1415 (_build_fused_nd kern, the passes "
+                                 "over axes 0 ... d-2)"]),
+        "row_fft": (axis, 1708, ["1597 (_build_fft2 kern, phase 2)",
+                                 "1415 (_build_fused_nd kern, the "
+                                 "last-axis pass)"]),
         "dense_stage_a": (dense, 185, ["235 (its pallas_call in _build)"]),
         "dense_stage_b": (dense, 199, ["261 (its pallas_call in _build)"])}
     # the bf16 forms: _build_ml's calls with a bf16 C (cdt) and the phased
@@ -990,8 +1115,10 @@ def main() -> int:
          "replaces": f"{tpu}:{line}",
          "also_replaces": [f"{tpu}:{a}" for a in also],
          "launches": launches[k], "max_abs_err": err[k],
-         "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bound[k][0],
-         "bound_by": bound[k][1], "library_ms": library_ms.get(k)}
+         "ms": kern[k][1], "plain_ms": plain[k][1], "bound_ms": bound[k][0],
+         "bound_by": bound[k][1], "library_ms": library_ms.get(k),
+         "graph_ms": kern_g[k], "plain_graph_ms": plain_g[k],
+         "library_graph_ms": library_graph_ms.get(k)}
         for k, (src, line, also) in replaces.items()]}
     assert set(replaces) == set(HK.launches), set(HK.launches) ^ set(
         replaces)

@@ -10,7 +10,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..plan import tables
+
+# device copies of host tables, keyed by the host array's id: dropped with
+# the tables, whose ids a new table could reuse
 _CONST: dict = {}
+
+
+def _drop_device_copies() -> None:
+    # a kernel queued on any stream may still read a copy, and the caching
+    # allocator would hand its memory to the next allocation at once: wait
+    # for every device that holds one first
+    for dev in {t.device for _, t in _CONST.values() if t.is_cuda}:
+        torch.cuda.synchronize(dev)
+    _CONST.clear()
+
+
+tables.on_clear(_drop_device_copies)
 
 
 def dtype_name(t: torch.Tensor) -> str:

@@ -1,9 +1,10 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc at first use and load them
 with ctypes.
 
-Every ``csrc/*.cu`` source (``fft_stages.cu`` with the header it
-includes, and ``dense_dft.cu``) is compiled for ``sm_90a`` by its own nvcc
-process, all started together, and the objects are linked into one
+Every ``csrc/*.cu`` source (``fft_stages.cu`` and ``axis_fft.cu`` with
+the headers they include, and ``dense_dft.cu``) is compiled for
+``sm_90a`` by its own nvcc process, all started together, and the
+objects are linked into one
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds). The library goes to ``build/kofft_tpu_torch/`` at the root
 of the checkout, named by a hash of every source and flag, so a changed
@@ -40,8 +41,8 @@ SIGNATURES = {
                      _I, _I, _I, _I, _P],
     "kofft_stage2_half": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
                           _I, _I, _I, _P],
-    "kofft_col_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
-                      _I, _I, _P],
+    "kofft_col_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
+                      _I, _P, _I, _I, _I, _P],
     "kofft_row_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
                       _I, _I, _P],
     "kofft_dense_stage_a": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -38,24 +38,8 @@
 //   k1 = 0 has in shared memory, so no pass runs after the kernel. The
 //   row stride n/2 + 1 is odd, so the stores stay scalar.
 //
-// The N-D FFT (fft2/fftn) runs two more instances, with no twiddle between
-// its passes (every axis is a DFT of its own):
-// - col_fft replaces sa_kern of _build_fft2_big (:1701), phase 1 of the
-//   one-call 2-D kernel (_build_fft2 kern, :1597-1615) and the non-last
-//   axis passes of the fused all-axes kernel (_build_fused_nd kern, :1415):
-//   stage1_kernel<false, false>, line FFTs of length m along axis 1 of
-//   (b, m, inner) planes, written back in the input layout. Any axis a of
-//   an N-D grid is the (prod(d[:a]), d[a], prod(d[a+1:])) view.
-// - row_fft replaces sb_kern (:1708), phase 2 of the one-call 2-D kernel
-//   (:1617-1639) and the last-axis pass of the fused kernel:
-//   stage2_kernel<kNatural>, line FFTs along the last axis of (b, n1, m)
-//   planes, stored in natural order (b, n1, m), not transposed.
-// The conjugation of an inverse rides on the first pass's load and the
-// last pass's store (the axis DFTs commute), so no pass is added. The TPU
-// kept a 2-D image (one-call kernel) or the whole grid (fused kernel) in
-// VMEM between the passes; here every pass goes through device memory, 16
-// bytes per point, so a 2-D route moves twice and a d-axis route d times
-// the bytes its bound counts (8 MB per pass at 1024^2, within the L2).
+// The N-D FFT's axis kernels (col_fft, row_fft) are in axis_fft.cu, on
+// the register radix line FFT of radix_line.cuh.
 //
 // Where trouble is likely, and what the design does about it:
 // - Shared memory: a block holds two (m, T) float2 buffers (ping-pong),
@@ -68,15 +52,8 @@
 // - Coalescing: stage 1 reads and stage 2 writes T consecutive floats per
 //   row (64-byte segments at T = 16, 4-byte at T = 1 for n = 2^26).
 //   Tiling the transposes through shared memory is later work.
-// - Coalescing of row_fft's natural-order store: line c's result sits at
-//   y[k2*T + c] in shared memory, and the store walks k2 fastest across
-//   the threads (the order of the loads), so a warp writes 128
-//   consecutive bytes of one output row; c fastest would write at strides
-//   of m floats. col_fft reads and writes T consecutive floats per row, as
-//   stage 1 does (4 bytes at T = 1 for lines of 4096 and 8192).
 // - Leaf cost: see line_fft.cuh; the dense leaves, not device memory,
-//   limit the pair. Lines of 128 are one dense 128-point leaf (128 MACs
-//   per point, against 64 for lines of 1024).
+//   limit the pair.
 //
 // bfloat16 I/O: stage1, stage1_real, stage2 and stage2_half also load and
 // store bfloat16 planes, the counterparts of _build_ml's cdt='bfloat16' C
@@ -91,14 +68,16 @@
 // (the f32 epilogue of :1277-1287). The instances are the I/O forms the
 // routing uses (hopper_kernels._IO_FORMS): stage 1 loads f32 or bf16 and
 // stores C in f32 or bf16, but never f32 -> bf16 (the `default` tier casts
-// its input whenever its C is bf16); stage 2 takes all four. col_fft and
-// row_fft stay float32, as the JAX N-D kernels are.
+// its input whenever its C is bf16); stage 2 takes all four.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
 #include "line_fft.cuh"
 
+using kofft::kMaxDevices;
 using kofft::LinePlan;
+using kofft::prepare;
 
 namespace {
 
@@ -123,11 +102,9 @@ __device__ __forceinline__ void st(bf16* p, long long i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
 
-// kReal: ar is one real plane (ai and sgn are not read). kTwiddle = false
-// is col_fft: no twiddle, the line FFTs stored as they are (the twiddle
-// tables are not read). TIn, TOut: element types of the loaded planes and
-// of the stored C (float or bf16)
-template <bool kReal, bool kTwiddle, typename TIn, typename TOut>
+// kReal: ar is one real plane (ai and sgn are not read). TIn, TOut:
+// element types of the loaded planes and of the stored C (float or bf16)
+template <bool kReal, typename TIn, typename TOut>
 __global__ void __launch_bounds__(kThreads)
 stage1_kernel(const TIn* __restrict__ ar, const TIn* __restrict__ ai,
               TOut* __restrict__ cr, TOut* __restrict__ ci, int n1, int n2,
@@ -158,40 +135,30 @@ stage1_kernel(const TIn* __restrict__ ar, const TIn* __restrict__ ai,
       kofft::line_fft<kReal>(buf0, buf1, total, plan, tab);
   TOut* c_r = cr + base;
   TOut* c_i = ci + base;
-  if constexpr (kTwiddle) {
-    const int ncol = n2 / tw_t;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int k1 = idx / T;
-      const int c = idx - k1 * T;
-      const int j2 = j2_0 + c;
-      const int col = j2 / tw_t;
-      const int u = j2 - col * tw_t;
-      const float wcr = ecr[k1 * ncol + col];
-      const float wci = eci[k1 * ncol + col];
-      const float wbr = ebr[k1 * tw_t + u];
-      const float wbi = ebi[k1 * tw_t + u];
-      const float2 w =
-          make_float2(wcr * wbr - wci * wbi, wcr * wbi + wci * wbr);
-      const float2 v = kofft::cmulf(y[idx], w);
-      const long long g = static_cast<long long>(k1) * n2 + j2;
-      st(c_r, g, v.x);
-      st(c_i, g, v.y);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int k1 = idx / T;
-      const int c = idx - k1 * T;
-      const long long g = static_cast<long long>(k1) * n2 + j2_0 + c;
-      st(c_r, g, y[idx].x);
-      st(c_i, g, y[idx].y);
-    }
+  const int ncol = n2 / tw_t;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int k1 = idx / T;
+    const int c = idx - k1 * T;
+    const int j2 = j2_0 + c;
+    const int col = j2 / tw_t;
+    const int u = j2 - col * tw_t;
+    const float wcr = ecr[k1 * ncol + col];
+    const float wci = eci[k1 * ncol + col];
+    const float wbr = ebr[k1 * tw_t + u];
+    const float wbi = ebi[k1 * tw_t + u];
+    const float2 w =
+        make_float2(wcr * wbr - wci * wbi, wcr * wbi + wci * wbr);
+    const float2 v = kofft::cmulf(y[idx], w);
+    const long long g = static_cast<long long>(k1) * n2 + j2;
+    st(c_r, g, v.x);
+    st(c_i, g, v.y);
   }
 }
 
 // How stage2_kernel stores its lines: transposed into (b, n2, n1) (the
-// 1-D spectrum), only the one-sided bins into (b, n/2 + 1) (sgn is not
-// read), or in natural order into (b, n1, n2) (row_fft)
-enum Store { kTransposed, kHalf, kNatural };
+// 1-D spectrum), or only the one-sided bins into (b, n/2 + 1) (sgn is not
+// read)
+enum Store { kTransposed, kHalf };
 
 template <int kStore, typename TIn, typename TOut>
 __global__ void __launch_bounds__(kThreads)
@@ -216,22 +183,7 @@ stage2_kernel(const TIn* __restrict__ cr, const TIn* __restrict__ ci,
     buf0[j2 * T + c] = make_float2(ld(c_r, g), ld(c_i, g));
   }
   const float2* y = kofft::line_fft(buf0, buf1, total, plan, tab);
-  if constexpr (kStore == kNatural) {
-    // k2 fastest across the threads: a warp writes one row's run of
-    // consecutive floats. The shared-memory reads stride by T float2, as
-    // the loads above do: at T = 16 (lines of 256 or fewer) that is 128
-    // bytes, so the lanes of a warp fall on one bank. A padded layout
-    // (stride T + 1) or a register transpose is queued.
-    TOut* o_r = yr + base + static_cast<long long>(k1_0) * n2;
-    TOut* o_i = yi + base + static_cast<long long>(k1_0) * n2;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int c = idx / n2;
-      const int k2 = idx - c * n2;
-      const float2 v = y[k2 * T + c];
-      st(o_r, idx, v.x);
-      st(o_i, idx, sgn * v.y);
-    }
-  } else if constexpr (kStore == kHalf) {
+  if constexpr (kStore == kHalf) {
     // flat bins k = k2*n1 + k1 <= n/2: rows k2 < n2/2 and, from the
     // k1 = 0 line, the Nyquist bin
     const long long half = static_cast<long long>(n1) * (n2 / 2);
@@ -260,29 +212,6 @@ stage2_kernel(const TIn* __restrict__ cr, const TIn* __restrict__ ci,
   }
 }
 
-constexpr int kMaxDevices = 64;
-
-// Selects the device (only if it is not current) and raises the kernel's
-// dynamic shared-memory limit once per device: the attribute persists, and
-// setting it on every launch cost host time on the hot path.
-int prepare(const void* fn, int* allowed, int device, int smem) {
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  int cur = -1;
-  cudaError_t e = cudaGetDevice(&cur);
-  if (e != cudaSuccess) return e;
-  if (cur != device) {
-    e = cudaSetDevice(device);
-    if (e != cudaSuccess) return e;
-  }
-  if (allowed[device] < smem) {
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return e;
-    allowed[device] = smem;
-  }
-  return cudaSuccess;
-}
-
 // steps: host int32 array, 6 entries per step
 // (mm, kb, bb, inner, f_off, tw_off); kb must divide mm, and a kb > 1 step
 // needs an even f_off (16-byte aligned table rows)
@@ -306,8 +235,7 @@ int fill_plan(LinePlan* p, const int* steps, int nsteps) {
 
 // Each instance of a launcher keeps its own record of the dynamic shared
 // memory already allowed per device (the attribute is per kernel function).
-template <bool kReal, bool kTwiddle, typename TIn = float,
-          typename TOut = float>
+template <bool kReal, typename TIn = float, typename TOut = float>
 int launch_stage1(const void* ar, const void* ai, void* cr, void* ci,
                   int b, int n1, int n2, int T, const int* steps, int nsteps,
                   const void* tab, const float* ebr, const float* ebi,
@@ -319,7 +247,7 @@ int launch_stage1(const void* ar, const void* ai, void* cr, void* ci,
   if (T < 1 || n2 % T != 0 || n2 % tw_t != 0) return cudaErrorInvalidValue;
   const int smem = static_cast<int>(2 * sizeof(float2) * n1 * T);
   static int allowed[kMaxDevices];
-  const auto kernel = stage1_kernel<kReal, kTwiddle, TIn, TOut>;
+  const auto kernel = stage1_kernel<kReal, TIn, TOut>;
   r = prepare(reinterpret_cast<const void*>(kernel), allowed, device, smem);
   if (r != cudaSuccess) return r;
   const unsigned grid = static_cast<unsigned>(b) * (n2 / T);
@@ -358,10 +286,10 @@ int launch_stage2(const void* cr, const void* ci, void* yr, void* yi,
 template <bool kReal, typename... Args>
 int stage1_forms(int in_bf16, int out_bf16, Args... a) {
   if (!in_bf16 && !out_bf16)
-    return launch_stage1<kReal, true, float, float>(a...);
+    return launch_stage1<kReal, float, float>(a...);
   if (in_bf16 && !out_bf16)
-    return launch_stage1<kReal, true, bf16, float>(a...);
-  if (in_bf16 && out_bf16) return launch_stage1<kReal, true, bf16, bf16>(a...);
+    return launch_stage1<kReal, bf16, float>(a...);
+  if (in_bf16 && out_bf16) return launch_stage1<kReal, bf16, bf16>(a...);
   return cudaErrorInvalidValue;
 }
 
@@ -418,25 +346,4 @@ extern "C" int kofft_stage2_half(const void* cr, const void* ci, void* yr,
                                  int device, void* stream) {
   return stage2_forms<kHalf>(in_bf16, out_bf16, cr, ci, yr, yi, b, n1, n2,
                              T, steps, nsteps, tab, 0, device, stream);
-}
-
-// (b, m, inner) planes -> (b, m, inner), line FFTs of length m along axis
-// 1; conj negates the imaginary part on load
-extern "C" int kofft_col_fft(const float* ar, const float* ai, float* yr,
-                             float* yi, int b, int m, int inner, int T,
-                             const int* steps, int nsteps, const void* tab,
-                             int conj, int device, void* stream) {
-  return launch_stage1<false, false>(ar, ai, yr, yi, b, m, inner, T, steps,
-                                     nsteps, tab, nullptr, nullptr, nullptr,
-                                     nullptr, 1, conj, device, stream);
-}
-
-// (b, n1, m) planes -> (b, n1, m), line FFTs of length m along the last
-// axis in natural order; conj negates the imaginary part on store
-extern "C" int kofft_row_fft(const float* xr, const float* xi, float* yr,
-                             float* yi, int b, int n1, int m, int T,
-                             const int* steps, int nsteps, const void* tab,
-                             int conj, int device, void* stream) {
-  return launch_stage2<kNatural>(xr, xi, yr, yi, b, n1, m, T, steps, nsteps,
-                                 tab, conj, device, stream);
 }

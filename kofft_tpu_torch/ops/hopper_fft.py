@@ -13,6 +13,12 @@ the unnormalized complex inverse (pallas_fft.py:166-178). The N-D routes
 are one op keyed by the route (``_KernelND``); every per-axis DFT matrix
 is symmetric, so the same argument holds axis by axis
 (pallas_fft.py:227-234).
+
+``torch.func.vmap`` (the counterpart of the primitives' batching rules,
+pallas_fft.py:115-128): each op's ``vmap`` rule moves the mapped dim to
+the front (or expands an unmapped input) and folds it into the batch of
+one call, so the kernels see plain tensors with a real ``data_ptr()``;
+the all-axes route keeps that dim out of its transformed axes.
 """
 
 from __future__ import annotations
@@ -38,6 +44,15 @@ def _zeros_if_none(t, like):
     return torch.zeros_like(like) if t is None else t.contiguous()
 
 
+def _batched(info, in_dims, *xs):
+    """The inputs of a vmapped call with the mapped dim in front: moved
+    there, or an unmapped input expanded to the batch."""
+    return tuple(
+        x.unsqueeze(0).expand(info.batch_size, *x.shape).contiguous()
+        if d is None else x.movedim(d, 0).contiguous()
+        for x, d in zip(xs, in_dims))
+
+
 class _KernelFFT(torch.autograd.Function):
     @staticmethod
     def forward(xr, xi, n, inverse):
@@ -61,11 +76,19 @@ class _KernelFFT(torch.autograd.Function):
         ti = _zeros_if_none(ti, ctx.like)
         return fused_multilevel_fft(tr, ti, ctx.n, ctx.inverse)
 
+    @staticmethod
+    def vmap(info, in_dims, xr, xi, n, inverse):
+        xr, xi = _batched(info, in_dims[:2], xr, xi)
+        return _KernelFFT.apply(xr, xi, n, inverse), (0, 0)
+
 
 def _tracked(xr, xi) -> bool:
-    """Whether reverse or forward-mode autograd has to see the op. Untracked
-    calls skip ``autograd.Function.apply``, whose argument binding costs
-    tens of microseconds of host time on the host-bound 2^20 path."""
+    """Whether autograd or a ``torch.func`` transform (vmap, grad, jvp)
+    has to see the op. Untracked calls skip ``autograd.Function.apply``,
+    whose argument binding costs tens of microseconds of host time on the
+    host-bound 2^20 path."""
+    if torch._C._are_functorch_transforms_active():
+        return True
     if torch.is_grad_enabled() and (xr.requires_grad or xi.requires_grad):
         return True
     return (fwAD.unpack_dual(xr).tangent is not None
@@ -121,6 +144,11 @@ class _KernelRFFT(torch.autograd.Function):
         # x is the only tensor input, so its tangent is never None here
         return fused_multilevel_rfft(t.contiguous(), ctx.n)
 
+    @staticmethod
+    def vmap(info, in_dims, x, n):
+        (x,) = _batched(info, in_dims[:1], x)
+        return _KernelRFFT.apply(x, n), (0, 0)
+
 
 def kernel_rfft_planes(x, n: int):
     """One-sided unnormalized DFT (..., n//2 + 1) of a real (..., n)
@@ -132,42 +160,54 @@ def kernel_rfft_planes(x, n: int):
     return _KernelRFFT.apply(x, n)
 
 
-# the N-D routes by class: the counterparts of the linear primitives
-# _dft2_p, _dft2big_p and _dftn_p (pallas_fft.py:201-390)
-_ND_ROUTES = {"fft2": fused_fft2_planes, "fft2_big": fused_fft2_big_planes,
-              "fused_nd": fused_ndfft_planes}
+def _nd_route(route, xr, xi, inverse, lead=0):
+    """The N-D route by class: the counterparts of the linear primitives
+    _dft2_p, _dft2big_p and _dftn_p (pallas_fft.py:201-390). Only the
+    all-axes route takes ``lead`` (batch dims that vmap rules add): the
+    2-D routes transform the last two dims and fold every leading dim."""
+    if route == "fused_nd":
+        return fused_ndfft_planes(xr, xi, inverse, lead)
+    fn = fused_fft2_planes if route == "fft2" else fused_fft2_big_planes
+    return fn(xr, xi, inverse)
 
 
 class _KernelND(torch.autograd.Function):
+    """The N-D route ``route`` over the planes' dims after the first
+    ``lead`` (see ``_nd_route``)."""
+
     @staticmethod
-    def forward(xr, xi, route, inverse):
-        return _ND_ROUTES[route](xr, xi, inverse)
+    def forward(xr, xi, route, inverse, lead):
+        return _nd_route(route, xr, xi, inverse, lead)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.route, ctx.inverse = inputs[2], inputs[3]
+        ctx.route, ctx.inverse, ctx.lead = inputs[2:]
         ctx.like = inputs[0].detach()
 
     @staticmethod
     def backward(ctx, gr, gi):
         yr, yi = _KernelND.apply(_zeros_if_none(gr, ctx.like),
                                  _zeros_if_none(gi, ctx.like), ctx.route,
-                                 not ctx.inverse)
-        return yr, yi, None, None
+                                 not ctx.inverse, ctx.lead)
+        return yr, yi, None, None, None
 
     @staticmethod
-    def jvp(ctx, tr, ti, _route, _inverse):
-        return _ND_ROUTES[ctx.route](_zeros_if_none(tr, ctx.like),
-                                     _zeros_if_none(ti, ctx.like),
-                                     ctx.inverse)
+    def jvp(ctx, tr, ti, _route, _inverse, _lead):
+        return _nd_route(ctx.route, _zeros_if_none(tr, ctx.like),
+                         _zeros_if_none(ti, ctx.like), ctx.inverse, ctx.lead)
+
+    @staticmethod
+    def vmap(info, in_dims, xr, xi, route, inverse, lead):
+        xr, xi = _batched(info, in_dims[:2], xr, xi)
+        return _KernelND.apply(xr, xi, route, inverse, lead + 1), (0, 0)
 
 
 def kernel_nd_planes(xr, xi, route: str, inverse: bool):
     """Unnormalized N-D DFT (inverse: N * ifftn) of float32 planes through
     the N-D route ``route`` ("fft2", "fft2_big" or "fused_nd"),
-    differentiable in both modes."""
+    differentiable in both modes and under ``torch.func.vmap``."""
     xr = xr.contiguous()
     xi = xi.contiguous()
     if not _tracked(xr, xi):
-        return _ND_ROUTES[route](xr, xi, inverse)
-    return _KernelND.apply(xr, xi, route, bool(inverse))
+        return _nd_route(route, xr, xi, inverse)
+    return _KernelND.apply(xr, xi, route, bool(inverse), 0)

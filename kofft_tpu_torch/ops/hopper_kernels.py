@@ -23,10 +23,12 @@ included), counted by the classes of the JAX real forms.
 
 The N-D FFT's three Pallas kernels (the one-call 2-D kernel, the two-call
 2-D pair and the fused all-axes kernel) compute DFTs along axes with no
-twiddle between the passes. On Hopper they are two more instances of the
-same kernels: ``col_fft`` (line FFTs along axis 1 of (b, m, inner)
-planes, stored in the input layout) and ``row_fft`` (line FFTs along the
-last axis, stored in natural order). A 2-D route is ``col_fft`` then
+twiddle between the passes. On Hopper they are two kernels of their own
+(``csrc/axis_fft.cu``) on a register radix line FFT
+(``csrc/radix_line.cuh``): ``col_fft`` (line FFTs along axis 1 of (b, m,
+inner) planes, stored in the input layout; above 2048 points a column
+four-step of two launches) and ``row_fft`` (line FFTs along the last
+axis, stored in natural order). A 2-D route is ``col_fft`` then
 ``row_fft``; the all-axes route is ``col_fft`` per leading axis, then
 ``row_fft``. The routes count the JAX classes ``fft2``, ``fft2_big`` and
 ``fused_nd``.
@@ -85,8 +87,7 @@ _PHASED_FLAT_REAL_MAX_N = 1 << 23  # the same for the real form
 # overlap: 8 x 2^20 measured 940 -> 704 us against 128 KB (H100, 700 W)
 _SMEM_BYTES = 64 * 1024
 
-# the longest line col_fft and row_fft take: one line of 8192 fills 128 KB
-# of shared memory (T = 1), and 16384 would not fit a block's 227 KB
+# the longest line col_fft and row_fft take (the N-D zones' longest axis)
 _LINE_MAX = 8192
 
 _F32 = torch.float32
@@ -516,6 +517,164 @@ def _line_plan(m: int, t: int, kb_max: int = 8):
     return tables.custom(("lineplan", m, t, kb_max), build)
 
 
+# ---------------------------------------------------------------------------
+# the axis kernels' host plan: the radix passes of csrc/radix_line.cuh and
+# the tiles of csrc/axis_fft.cu
+# ---------------------------------------------------------------------------
+
+_AXIS_THREADS = 256       # threads per axis block where the tile allows
+_AXIS_MAX_THREADS = 1024  # a block's most (col_fft's (2048, 8) tile)
+_COL_MIN_TILE = 8         # columns per col_fft tile: >= 32-byte row runs
+_SMEM_MAX = 227 * 1024    # shared memory one Hopper block may have
+# col_fft runs longer lines as a column four-step of two launches: one
+# (m, 8) tile of 4096 lines would need 256 KB
+_COL_SPLIT_ABOVE = 2048
+
+
+def _radices(m: int) -> list:
+    """The radix passes of a pow2 line m: ceil(log2(m) / 4) passes of 16, 8,
+    4 or 2 points, the bits spread evenly, largest first (128 = 16*8, 1024 =
+    16*8*8, 8192 = 16*8*8*8)."""
+    p = m.bit_length() - 1
+    n = -(-p // 4)
+    return [1 << (p // n + (i < p % n)) for i in range(n)]
+
+
+def _axis_tile(kind: str, m: int, count: int) -> tuple:
+    """(T, E) of an axis launch: T lines per block (``row``: whole lines of
+    the last axis; ``col``: consecutive columns of the (b, m, inner) view,
+    at least 8 so that every row access covers 32 bytes) and E points per
+    thread (16, or m below 16). A block has T*m/E threads: 256 where the
+    tile allows (several blocks per SM), more for col_fft's (m, 8) tiles
+    from lines of 512 (1024 threads at 2048). ``count`` (lines, or
+    columns) caps T at the next power of two."""
+    e = min(m, 16)
+    t = max(1 if kind == "row" else _COL_MIN_TILE, _AXIS_THREADS * e // m)
+    t = min(t, 1 << max(0, count - 1).bit_length())
+    require(t * m // e <= _AXIS_MAX_THREADS and _axis_smem(m, t) <= _SMEM_MAX,
+            InvalidValueError, f"{kind}_fft: no tile of lines of {m}")
+    return t, e
+
+
+def _axis_smem(m: int, t: int) -> int:
+    """Shared memory of an axis block: one (re, im) exchange buffer of T
+    lines, none for a single pass (m <= 16)."""
+    return 8 * m * t if len(_radices(m)) > 1 else 0
+
+
+def _axis_lanes(kind: str, m: int, t: int, e: int):
+    """(line c, thread in line) of every thread of an axis block: ``row``
+    puts a line's m/E threads together, ``col`` the T columns fastest."""
+    tid = np.arange(t * m // e)
+    tpl = m // e
+    if kind == "row":
+        return tid // tpl, tid % tpl
+    return tid % t, tid // t
+
+
+def _axis_addr(kind: str, m: int, t: int, c, k):
+    """Logical shared-memory word of point k of block line c (before the
+    swizzle): line-major for ``row``, (m, T) with the column fastest for
+    ``col``."""
+    return c * m + k if kind == "row" else k * t + c
+
+
+def _swizzle(a, sw):
+    """The exchange's physical word of logical word a under the swizzle
+    sw = (x1, y1, x2, y2): a ^ (((h >> x1) << y1) ^ ((h >> x2) << y2)) & 31
+    with h = a >> 5, a permutation inside each row of 32 words
+    (radix_line.cuh); y = 5 turns a term off."""
+    x1, y1, x2, y2 = sw
+    h = a >> 5
+    return a ^ ((((h >> x1) << y1) ^ ((h >> x2) << y2)) & 31)
+
+
+def _exchange_addrs(kind: str, m: int, t: int, e: int, radix: int, ns: int):
+    """Logical words written by pass (radix, ns) and read by the next pass,
+    each (threads, E), in the order radix_line.cuh issues them."""
+    c, ti = _axis_lanes(kind, m, t, e)
+    tpl = m // e
+    wk = []
+    for q in range(e // radix):
+        j = ti + q * tpl
+        for r in range(radix):
+            wk.append((j // ns) * ns * radix + j % ns + r * ns)
+    rk = [ti + s * tpl for s in range(e)]
+    return (np.stack([_axis_addr(kind, m, t, c, k) for k in wk], axis=1),
+            np.stack([_axis_addr(kind, m, t, c, k) for k in rk], axis=1))
+
+
+def _pick_swizzle(kind: str, m: int, t: int, e: int, radix: int, ns: int):
+    """The swizzle (x1, y1, x2, y2) of the exchange after pass (radix, ns)
+    with the fewest bank conflicts over its writes and the next pass's
+    reads, one term where one suffices. Every address is an XOR of
+    disjoint bit fields (lane, instruction, warp), and the swizzle is
+    linear over GF(2), so the first warp's first write and read show the
+    conflicts of all of them (tests/test_torch_axis.py checks whole
+    blocks)."""
+    w, r = _exchange_addrs(kind, m, t, e, radix, ns)
+    lanes = np.stack([w[:32, 0], r[:32, 0]])
+    hi = max(0, (m * t).bit_length() - 6)
+    cands = np.array([(x1, y1, x2, y2) for x2 in range(hi + 1)
+                      for y2 in (5, 0, 1, 2, 3, 4) for x1 in range(hi + 1)
+                      for y1 in range(5) if y2 == 5 or x2 > x1])
+    banks = _swizzle(lanes[None], tuple(cands.T[:, :, None, None])) & 31
+    hits = np.zeros(banks.shape[:2] + (32,), np.int64)
+    idx = np.indices(banks.shape)
+    np.add.at(hits, (idx[0], idx[1], banks), 1)
+    cost = hits.max(axis=2).sum(axis=1)
+    return tuple(int(v) for v in cands[int(np.argmin(cost))])
+
+
+def _axis_plan(kind: str, m: int, t: int, e: int):
+    """The radix plan of an axis launch: an int32 array of (R, Ns, tw_off,
+    x1, y1, x2, y2) per pass (the RadixPlan of radix_line.cuh) and the
+    float2-interleaved float32 twiddle table the offsets point into. Pass p
+    with Ns > 1 reads w[jj*(R-1) + r-1] = exp(-2 pi i jj r / (Ns R)),
+    built in float64 with the phase jj*r reduced mod Ns*R in integers."""
+    def build():
+        steps, chunks, off, ns = [], [], 0, 1
+        rs = _radices(m)
+        for p, radix in enumerate(rs):
+            sw = (0, 5, 0, 5)
+            if p + 1 < len(rs):
+                sw = _pick_swizzle(kind, m, t, e, radix, ns)
+            steps += [radix, ns, off, *sw]
+            if ns > 1:
+                ph = np.mod(np.outer(np.arange(ns, dtype=np.int64),
+                                     np.arange(1, radix, dtype=np.int64)),
+                            ns * radix)
+                ang = (-2.0 * np.pi / (ns * radix)) * ph.astype(np.float64)
+                chunks.append(np.stack([np.cos(ang).ravel(),
+                                        np.sin(ang).ravel()], axis=1).ravel())
+                off += ns * (radix - 1)
+            ns *= radix
+        tab = (np.concatenate(chunks) if chunks else np.zeros(2))
+        return np.asarray(steps, np.int32), tab.astype(np.float32)
+
+    return tables.custom(("axisplan", kind, m, t, e), build)
+
+
+def _col_split(m: int):
+    """(m1, m2) of col_fft's column four-step above _COL_SPLIT_ABOVE, else
+    None: m = m1*m2, m1 = 2^floor(log2(m)/2) (4096 = 64*64, 8192 =
+    64*128)."""
+    if m <= _COL_SPLIT_ABOVE:
+        return None
+    m1 = 1 << ((m.bit_length() - 1) // 2)
+    return m1, m // m1
+
+
+def _split_twiddle(m1: int, m2: int):
+    """The column four-step's twiddle w_m^(k1*j2), (m1, m2) float2-
+    interleaved float32 (the ``tables.twiddle`` pair)."""
+    def build():
+        re, im = tables.twiddle(m1, m2)
+        return np.stack([re.ravel(), im.ravel()], axis=1).ravel()
+
+    return tables.custom(("splittw", m1, m2), build)
+
+
 def _check_planes(xr, xi, what: str, dtypes: tuple = (_F32,)) -> None:
     # one condition, message built only on failure: this runs on every
     # launch, and formatting eagerly cost ~25 us of host time per call
@@ -542,21 +701,35 @@ def _form(base: str, loads, stores) -> str:
     return name
 
 
+# launch arguments by shape: raw host pointers into the table cache's
+# plans and device pointers of its copies, dropped with them
 _ARGS: dict = {}
+tables.on_clear(_ARGS.clear)
 
 
 def _static_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
     """The launch arguments that depend only on the kernel kind ("stage1",
-    "stage2", "col" or "row"), the (b, n1, n2) shape and the device: (T,
-    steps pointer, step count, table pointers...), built once. "stage1"
-    and "col" run lines of n1 along axis 1, "stage2" and "row" lines of
-    n2 along the last axis; only "stage1" has twiddle tables. The host
-    side of a launch is on the 2^20 critical path (the transform was
-    host-bound there), so nothing is rebuilt per call."""
+    "stage2", "col" or "row"), the (b, n1, n2) shape and the device, built
+    once. "stage1" and "stage2" (lines of n1 along axis 1, lines of n2
+    along the last axis): (T, steps pointer, step count, table
+    pointers...), only "stage1" with twiddle tables. "col" (lines of n1
+    along axis 1, tiles of n2 columns) and "row" (lines of n2, b*n1 of
+    them): (T, E, plan pointer, pass count, table pointer) of
+    ``_axis_tile`` and ``_axis_plan``. The host side of a launch is on the
+    2^20 critical path (the transform was host-bound there), so nothing is
+    rebuilt per call."""
     key = (kind, b, n1, n2, dev.index)
     hit = _ARGS.get(key)
-    if hit is None:
-        m, other = (n1, n2) if kind in ("stage1", "col") else (n2, n1)
+    if hit is None and kind in ("col", "row"):
+        m, count = (n1, n2) if kind == "col" else (n2, b * n1)
+        t, e = _axis_tile(kind, m, count)
+        steps, tab = _axis_plan(kind, m, t, e)
+        # the cached host and device tables keep every pointer alive
+        hit = (t, e, steps.ctypes.data, len(steps) // 7,
+               const(tab, dev).data_ptr())
+        _ARGS[key] = hit
+    elif hit is None:
+        m, other = (n1, n2) if kind == "stage1" else (n2, n1)
         t = _kernel_tile(m)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         steps, tab = _line_plan(m, t, _grid_kb(b * (other // t), sms))
@@ -688,25 +861,63 @@ def stage2_half(cr, ci, dtype=_F32):
     return yr, yi
 
 
+def _col_launch(ar, ai, yr, yi, conj: bool, tw=None, tw_div: int = 1,
+                swap: int = 1) -> None:
+    """One launch of the col_fft kernel on (b, m, inner) planes into yr,
+    yi; ``tw`` (a device pointer), ``tw_div`` and ``swap`` are the column
+    four-step's fused twiddle and digit-swapped store (axis_fft.cu)."""
+    from ._cuda_build import check, lib
+    b, m, inner = ar.shape
+    dev = ar.device
+    t, e, steps, npass, tab = _static_args("col", b, m, inner, dev)
+    err = lib().kofft_col_fft(
+        ar.data_ptr(), ai.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, m,
+        inner, t, e, steps, npass, tab, int(conj), tw, tw_div, swap,
+        dev.index, _stream(dev))
+    check(err, "col_fft launch")
+
+
+def _col_fft_kernel(ar, ai, conj: bool, split):
+    """col_fft on CUDA planes: one launch for ``split=None``, else the
+    column four-step m = m1*m2 of ``split = (m1, m2)``: lines of m1 over
+    the (b, m1, m2*inner) view with w_m^(k1*j2) fused into the store, then
+    lines of m2 over the (b*m1, m2, inner) view stored to row k2*m1 + k1.
+    """
+    b, m, inner = ar.shape
+    yr = torch.empty_like(ar)
+    yi = torch.empty_like(ai)
+    if split is None:
+        _col_launch(ar, ai, yr, yi, conj)
+        return yr, yi
+    m1, m2 = split
+    key = ("splittw", m1, m2, ar.device.index)
+    tw = _ARGS.get(key)
+    if tw is None:
+        tw = const(_split_twiddle(m1, m2), ar.device).data_ptr()
+        _ARGS[key] = tw
+    _col_launch(ar.view(b, m1, m2 * inner), ai.view(b, m1, m2 * inner),
+                yr.view(b, m1, m2 * inner), yi.view(b, m1, m2 * inner), conj,
+                tw, inner)
+    zr = torch.empty_like(ar)
+    zi = torch.empty_like(ai)
+    _col_launch(yr.view(b * m1, m2, inner), yi.view(b * m1, m2, inner),
+                zr, zi, False, swap=m1)
+    return zr, zi
+
+
 def col_fft(ar, ai, conj: bool = False):
     """Line FFTs of length m along axis 1 of (b, m, inner) planes, written
     in the input layout (the column pass of the N-D routes); ``conj``
-    negates the imaginary part on load. CUDA tensors launch the kernel
-    (one count in ``launches``); CPU tensors run ``col_fft_plain``."""
+    negates the imaginary part on load. CUDA tensors launch the kernel:
+    once, or above ``_COL_SPLIT_ABOVE`` twice as a column four-step
+    (``_col_split``); either way the call counts once in ``launches``.
+    CPU tensors run ``col_fft_plain``."""
     _check_planes(ar, ai, "col_fft")
     b, m, inner = ar.shape
     _check_line(m, "col_fft")
     if ar.device.type == "cpu":
         return col_fft_plain(ar, ai, conj)
-    from ._cuda_build import check, lib
-    dev = ar.device
-    t, steps, nsteps, tab = _static_args("col", b, m, inner, dev)
-    yr = torch.empty_like(ar)
-    yi = torch.empty_like(ai)
-    err = lib().kofft_col_fft(
-        ar.data_ptr(), ai.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, m,
-        inner, t, steps, nsteps, tab, int(conj), dev.index, _stream(dev))
-    check(err, "col_fft launch")
+    yr, yi = _col_fft_kernel(ar, ai, conj, _col_split(m))
     launches["col_fft"] += 1
     return yr, yi
 
@@ -725,10 +936,10 @@ def row_fft(xr, xi, conj: bool = False):
     dev = xr.device
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
-    t, steps, nsteps, tab = _static_args("row", b, n1, m, dev)
+    t, e, steps, npass, tab = _static_args("row", b, n1, m, dev)
     err = lib().kofft_row_fft(
-        xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1, m,
-        t, steps, nsteps, tab, int(conj), dev.index, _stream(dev))
+        xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), b * n1,
+        m, t, e, steps, npass, tab, int(conj), dev.index, _stream(dev))
     check(err, "row_fft launch")
     launches["row_fft"] += 1
     return yr, yi
@@ -1043,25 +1254,27 @@ def fused_fft2_big_planes(xr, xi, inverse: bool = False):
     return _fft2_route(xr, xi, inverse, "fft2_big")
 
 
-def fused_ndfft_planes(xr, xi, inverse: bool = False):
+def fused_ndfft_planes(xr, xi, inverse: bool = False, lead: int = 0):
     """Unnormalized DFT over every axis of contiguous float32 planes with
-    d >= 2 dims (inverse: N * ifftn): the counterpart of the fused
-    all-axes kernel's entry (class ``fused_nd``). Axis a < d-1 is
-    ``col_fft`` on the (prod(d[:a]), d[a], prod(d[a+1:])) view, then the
-    last axis is ``row_fft``: d launches, the conjugation on the first
-    load and the last store (the axis DFTs commute)."""
+    d >= 2 dims after the first ``lead`` (batch dims, from vmap rules)
+    (inverse: N * ifftn): the counterpart of the fused all-axes kernel's
+    entry (class ``fused_nd``). Axis a < d-1 is ``col_fft`` on the
+    (prod(d[:a]), d[a], prod(d[a+1:])) view, then the last axis is
+    ``row_fft``: d launches, the conjugation on the first load and the
+    last store (the axis DFTs commute)."""
     shape = tuple(xr.shape)
-    require(len(shape) >= 2, InvalidValueError,
-            f"fused_ndfft_planes needs >= 2 dims, got {shape}")
+    require(len(shape) - lead >= 2, InvalidValueError,
+            f"fused_ndfft_planes needs >= 2 dims after {lead} batch dims, "
+            f"got {shape}")
     classes["fused_nd"] += 1
     total = xr.numel()
     yr, yi = xr, xi
-    lead = 1
-    for a, m in enumerate(shape[:-1]):
-        inner = total // (lead * m)
-        yr, yi = col_fft(yr.reshape(lead, m, inner),
-                         yi.reshape(lead, m, inner), conj=inverse and a == 0)
-        lead *= m
-    yr, yi = row_fft(yr.reshape(1, lead, shape[-1]),
-                     yi.reshape(1, lead, shape[-1]), conj=inverse)
+    rows = math.prod(shape[:lead])
+    for a, m in enumerate(shape[lead:-1]):
+        inner = total // (rows * m)
+        yr, yi = col_fft(yr.reshape(rows, m, inner),
+                         yi.reshape(rows, m, inner), conj=inverse and a == 0)
+        rows *= m
+    yr, yi = row_fft(yr.reshape(1, rows, shape[-1]),
+                     yi.reshape(1, rows, shape[-1]), conj=inverse)
     return yr.reshape(shape), yi.reshape(shape)

@@ -135,17 +135,37 @@ def build_factor_tree(n: int, cutoff: Optional[int] = None) -> FactorTree:
                         build_factor_tree(n2, c))
 
 
+def tree_leaf_sizes(tree: FactorTree) -> set[int]:
+    """The DFT leaf sizes of a factor tree."""
+    if isinstance(tree, DftLeaf):
+        return {tree.n}
+    return tree_leaf_sizes(tree.left) | tree_leaf_sizes(tree.right)
+
+
+def tree_twiddle_keys(tree: FactorTree) -> set[tuple[int, int]]:
+    """The (n1, n2) twiddle keys of a factor tree's four-step nodes."""
+    if isinstance(tree, DftLeaf):
+        return set()
+    return ({(tree.n1, tree.n2)}
+            | tree_twiddle_keys(tree.left)
+            | tree_twiddle_keys(tree.right))
+
+
 # --------------------------------------------------------------------------
 # table cache
 # --------------------------------------------------------------------------
 
 class _TableCache:
     """Process-wide cache of host numpy tables in their final dtype, keyed
-    by (kind, params, dtype). Thread-safe."""
+    by (kind, params, dtype). Thread-safe. Caches built on these tables
+    (device copies, raw pointers into them) register a hook with
+    ``on_clear`` that :meth:`clear` calls, so that none outlives its
+    table."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._store: dict[tuple, tuple] = {}
+        self._hooks: list = []
 
     def _get(self, key: tuple, builder):
         with self._lock:
@@ -182,6 +202,23 @@ class _TableCache:
         """Cache arbitrary derived constants (Bluestein kernels, factored
         twiddles, kernel line plans...)."""
         return self._get(key, builder)
+
+    def on_clear(self, hook) -> None:
+        """Call ``hook()`` whenever the cache is cleared."""
+        with self._lock:
+            self._hooks.append(hook)
+
+    def clear(self) -> None:
+        """Drop every table, and through the hooks every cache built on
+        them."""
+        with self._lock:
+            self._store.clear()
+            for hook in self._hooks:
+                hook()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._store)
 
 
 tables = _TableCache()

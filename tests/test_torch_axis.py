@@ -1,0 +1,309 @@
+"""The host plan of the N-D axis kernels (csrc/axis_fft.cu on the register
+radix line FFT of csrc/radix_line.cuh), emulated in numpy as the kernels
+index it: the radix list, the twiddle tables and their offsets, the
+Stockham index maps of every pass with the swizzled shared-memory
+exchange, each thread's loads and stores in device memory, and col_fft's
+column four-step with its fused twiddle and digit-swapped store. The
+kernels themselves run only on the card (tests/test_torch_gpu.py).
+
+Tolerance: the emulation runs in float64 on the float32 tables, so it
+differs from the float64 FFT only by the tables' rounding: > 140 dB.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from kofft_tpu_torch.ops import hopper_kernels as HK  # noqa: E402
+from kofft_tpu_torch.ops.dft import snr_db  # noqa: E402
+
+EMU_DB = 140.0
+CSRC = Path(HK.__file__).resolve().parent / "csrc"
+
+
+def _c64(tab):
+    return tab[0::2].astype(np.float64) + 1j * tab[1::2]
+
+
+def _run_block(kind, m, t, e, v):
+    """radix_line.cuh's line_fft on one block: v (threads, E) holds point
+    ti + s*tpl of each thread's line; returns the same after the passes."""
+    steps, tab = HK._axis_plan(kind, m, t, e)
+    tab = _c64(tab)
+    c, ti = HK._axis_lanes(kind, m, t, e)
+    tpl = m // e
+    sm = np.full(m * t, np.nan, complex)
+    steps = steps.reshape(-1, 7)
+    for p, (radix, ns, off, *sw) in enumerate(steps):
+        sw = tuple(sw)
+        q_n = e // radix
+        for q in range(q_n):
+            j = ti + q * tpl
+            u = np.stack([v[:, q + r * q_n] for r in range(radix)], 1)
+            if ns > 1:
+                for r in range(1, radix):
+                    u[:, r] *= tab[off + (j % ns) * (radix - 1) + r - 1]
+            u = np.fft.fft(u, axis=1)
+            for r in range(radix):
+                v[:, q + r * q_n] = u[:, r]
+        if p == len(steps) - 1:
+            return v
+        for q in range(q_n):
+            j = ti + q * tpl
+            k0 = (j // ns) * ns * radix + j % ns
+            for r in range(radix):
+                a = HK._axis_addr(kind, m, t, c, k0 + r * ns)
+                sm[HK._swizzle(a, sw)] = v[:, q + r * q_n]
+        for s in range(e):
+            a = HK._axis_addr(kind, m, t, c, ti + s * tpl)
+            v[:, s] = sm[HK._swizzle(a, sw)]
+        sm[:] = np.nan
+
+
+def _emu_row(x):
+    """row_fft_kernel over (lines, m): T lines per block."""
+    lines, m = x.shape
+    t, e = HK._axis_tile("row", m, lines)
+    c, ti = HK._axis_lanes("row", m, t, e)
+    tpl = m // e
+    y = np.full((lines, m), np.nan, complex)
+    for blk in range(-(-lines // t)):
+        line = blk * t + c
+        live = line < lines
+        safe = np.where(live, line, 0)
+        v = np.stack([np.where(live, x[safe, ti + s * tpl], 0)
+                      for s in range(e)], 1)
+        v = _run_block("row", m, t, e, v)
+        for s in range(e):
+            y[line[live], (ti + s * tpl)[live]] = v[live, s]
+    return y
+
+
+def _emu_col_launch(a, out, tw=None, tw_div=1, swap=1):
+    """One col_fft_kernel launch over the (rows, m, inner) view ``a``,
+    storing into the flat ``out`` as the kernel does (optional fused
+    twiddle, digit-swapped rows)."""
+    rows, m, inner = a.shape
+    t, e = HK._axis_tile("col", m, inner)
+    c, ti = HK._axis_lanes("col", m, t, e)
+    tpl = m // e
+    flat = a.reshape(-1)
+    tiles = -(-inner // t)
+    for blk in range(rows * tiles):
+        row, col = blk // tiles, (blk % tiles) * t + c
+        live = col < inner
+        g = row * m * inner + ti * inner + np.where(live, col, 0)
+        v = np.stack([np.where(live, flat[g + s * tpl * inner], 0)
+                      for s in range(e)], 1)
+        v = _run_block("col", m, t, e, v)
+        o = ((row // swap) * swap * m * inner + (row % swap) * inner
+             + ti * swap * inner + col)
+        for s in range(e):
+            val = v[:, s]
+            if tw is not None:
+                val = val * tw[(ti + s * tpl) * (inner // tw_div)
+                               + col // tw_div]
+            out[(o + s * tpl * swap * inner)[live]] = val[live]
+
+
+def _emu_col(a, split):
+    """col_fft on (b, m, inner): one launch, or the column four-step of
+    ``split = (m1, m2)``."""
+    b, m, inner = a.shape
+    out = np.full(a.size, np.nan, complex)
+    if split is None:
+        _emu_col_launch(a, out)
+        return out.reshape(a.shape)
+    m1, m2 = split
+    tw = _c64(HK._split_twiddle(m1, m2))
+    _emu_col_launch(a.reshape(b, m1, m2 * inner), out, tw, inner)
+    z = np.full(a.size, np.nan, complex)
+    _emu_col_launch(out.reshape(b * m1, m2, inner), z, swap=m1)
+    return z.reshape(a.shape)
+
+
+def _data(shape, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape).astype(np.float32)
+            + 1j * rng.standard_normal(shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("m,radices", [
+    (2, [2]), (4, [4]), (8, [8]), (16, [16]), (32, [8, 4]), (64, [8, 8]),
+    (128, [16, 8]), (256, [16, 16]), (512, [8, 8, 8]), (1024, [16, 8, 8]),
+    (2048, [16, 16, 8]), (4096, [16, 16, 16]), (8192, [16, 8, 8, 8])])
+def test_radix_list(m, radices):
+    assert HK._radices(m) == radices
+    assert int(np.prod(radices)) == m
+
+
+@pytest.mark.parametrize("kind", ["row", "col"])
+@pytest.mark.parametrize("m", [2, 16, 128, 1024, 2048])
+def test_plan_offsets_and_tables(kind, m):
+    """Each pass's Ns is the product of the radices before it, and pass p
+    reads its (Ns, R-1) table w^(jj*r), exp(-2 pi i / (Ns R)), at its
+    offset, the tables packed back to back."""
+    t, e = HK._axis_tile(kind, m, 1 << 16)
+    steps, tab = HK._axis_plan(kind, m, t, e)
+    steps = steps.reshape(-1, 7)
+    tab = _c64(tab)
+    ns, off = 1, 0
+    for radix, ns_p, off_p, *_ in steps:
+        assert ns_p == ns and radix <= e
+        if ns > 1:
+            assert off_p == off
+            jj, r = np.meshgrid(np.arange(ns), np.arange(1, radix),
+                                indexing="ij")
+            want = np.exp(-2j * np.pi * jj * r / (ns * radix)).ravel()
+            got = tab[off:off + ns * (radix - 1)]
+            assert np.abs(got - want).max() < 1e-7
+            off += ns * (radix - 1)
+        ns *= radix
+    assert ns == m and tab.size == max(off, 1)
+
+
+@pytest.mark.parametrize("lines", [1, 3, 64])
+@pytest.mark.parametrize("m", [2, 4, 8, 16, 128, 1024, 2048, 4096, 8192])
+def test_row_emulation_is_the_line_fft(m, lines):
+    if m * lines > (1 << 17):
+        lines = (1 << 17) // m
+    x = _data((lines, m), m + lines)
+    got = _emu_row(x)
+    assert snr_db(np.fft.fft(x, axis=1), got) > EMU_DB
+
+
+@pytest.mark.parametrize("b,inner", [(1, 1), (2, 5), (1, 64)])
+@pytest.mark.parametrize("m", [2, 4, 8, 16, 128, 1024, 2048, 4096, 8192])
+def test_col_emulation_is_the_line_fft(m, b, inner):
+    """col_fft as it launches: one kernel up to 2048, the column four-step
+    above (4096 = 64*64, 8192 = 64*128)."""
+    if m * inner * b > (1 << 16):
+        inner = max(1, (1 << 16) // (m * b))
+    a = _data((b, m, inner), m + inner)
+    split = HK._col_split(m)
+    assert (split is None) == (m <= 2048)
+    got = _emu_col(a, split)
+    assert snr_db(np.fft.fft(a, axis=1), got) > EMU_DB
+
+
+@pytest.mark.parametrize("m,split", [(2048, (32, 64)), (4096, (64, 64)),
+                                     (8192, (64, 128)), (1024, (32, 32))])
+def test_column_four_step(m, split):
+    """The split with its fused twiddle w_m^(k1*j2) and the store of
+    (k1, k2) to row k2*m1 + k1, also at the split that chip_smoke.py times
+    against one launch at 2048."""
+    if HK._col_split(m) is not None:
+        assert HK._col_split(m) == split
+    a = _data((2, m, 8), m)
+    got = _emu_col(a, split)
+    assert snr_db(np.fft.fft(a, axis=1), got) > EMU_DB
+
+
+def _route_axis_launches():
+    """(kind, m, count) of every axis launch the N-D routes make, over
+    their zones' shapes (one batch row; a batch multiplies only the grid)."""
+    out = set()
+
+    def col(m, inner):
+        split = HK._col_split(m)
+        if split is None:
+            out.add(("col", m, inner))
+        else:
+            m1, m2 = split
+            out.add(("col", m1, m2 * inner))
+            out.add(("col", m2, inner))
+
+    p2 = [1 << k for k in range(7, 14)]
+    for n1 in p2:
+        for n2 in p2:
+            if n1 * n2 <= 1 << 26:
+                col(n1, n2)
+                out.add(("row", n2, n1))
+    for shape in [(a, b) for a in (128, 256, 512) for b in (128, 256, 512)] \
+            + [(a, b, c) for a in (128, 256, 512) for b in (128, 256, 512)
+               for c in (128, 256, 512)]:
+        if HK.fused_nd_zone(shape, tuple(range(len(shape)))):
+            for i, m in enumerate(shape[:-1]):
+                col(m, int(np.prod(shape[i + 1:])))
+            out.add(("row", shape[-1], int(np.prod(shape[:-1]))))
+    return sorted(out)
+
+
+def test_route_tiles_coalesce_and_fit():
+    """Every col_fft launch of the routes reads >= 8 columns (>= 32-byte
+    row runs) and every axis launch fits a block's 227 KB and 1024
+    threads."""
+    launches = _route_axis_launches()
+    assert ("col", 64, 128 * 8192) in launches       # 8192^2, first half
+    for kind, m, count in launches:
+        t, e = HK._axis_tile(kind, m, count)
+        if kind == "col":
+            assert t >= 8, (m, count, t)
+        assert HK._axis_smem(m, t) <= 227 * 1024
+        assert t * m // e <= 1024 and e == min(m, 16)
+
+
+def _wavefronts(addr) -> int:
+    """Shared-memory wavefronts of the accesses (threads, instructions):
+    per warp and instruction, the most distinct words in one bank."""
+    n, i = addr.shape
+    pad = -n % 32
+    a = np.concatenate([addr, np.repeat(addr[-1:], pad, axis=0)])
+    a = np.sort(a.reshape(-1, 32, i).transpose(0, 2, 1).reshape(-1, 32), 1)
+    new = np.ones(a.shape, bool)
+    new[:, 1:] = a[:, 1:] != a[:, :-1]
+    rows = np.repeat(np.arange(a.shape[0]), 32)[new.ravel()]
+    hits = np.zeros((a.shape[0], 32), np.int64)
+    np.add.at(hits, (rows, (a & 31).ravel()[new.ravel()]), 1)
+    return int(hits.max(axis=1).sum())
+
+
+@pytest.mark.parametrize("kind,m,count", _route_axis_launches()[::3]
+                         + [("col", 2048, 1 << 20), ("row", 32, 1 << 10),
+                            ("row", 64, 1 << 10)])
+def test_exchange_has_no_bank_conflicts(kind, m, count):
+    """Whole blocks: every warp-wide write and read of every exchange is
+    one wavefront under the chosen swizzle."""
+    t, e = HK._axis_tile(kind, m, count)
+    steps = HK._axis_plan(kind, m, t, e)[0].reshape(-1, 7)
+    for radix, ns, _, *sw in steps[:-1]:
+        w, r = HK._exchange_addrs(kind, m, t, e, radix, ns)
+        warps = -(-w.shape[0] // 32)
+        for acc in (w, r):
+            phys = HK._swizzle(acc, tuple(sw))
+            assert _wavefronts(phys) == warps * acc.shape[1]
+            # a permutation of the buffer: no two points share a word
+            assert np.unique(phys).size == phys.size
+
+
+def test_butterfly_constants():
+    """radix_line.cuh's hard-coded butterfly constants are the float64
+    values rounded to float32, and its radix-2 split of dft<8> and
+    dft<16> with them (-i where k = R/4) is the DFT."""
+    src = (CSRC / "radix_line.cuh").read_text()
+    consts = {name: np.float32(float(v)) for name, v in re.findall(
+        r"constexpr float (\w+) = ([0-9.]+)f;", src)}
+    assert consts == {"c8": np.float32(np.cos(np.pi / 4)),
+                      "c16": np.float32(np.cos(np.pi / 8)),
+                      "s16": np.float32(np.sin(np.pi / 8))}
+    c8, c16, s16 = (float(consts[k]) for k in ("c8", "c16", "s16"))
+    w = {8: {1: c8 - 1j * c8, 3: -c8 - 1j * c8},
+         16: {1: c16 - 1j * s16, 2: c8 - 1j * c8, 3: s16 - 1j * c16,
+              5: -s16 - 1j * c16, 6: -c8 - 1j * c8, 7: -c16 - 1j * s16}}
+
+    def dft(u):
+        n = len(u)
+        if n <= 4:
+            return np.fft.fft(u)
+        e, o = dft(u[0::2]), dft(u[1::2])
+        t = np.array([o[k] * (1 if k == 0 else -1j if k == n // 4
+                              else w[n][k]) for k in range(n // 2)])
+        return np.concatenate([e + t, e - t])
+
+    for n in (8, 16):
+        u = _data((n,), n)
+        assert snr_db(np.fft.fft(u), dft(u)) > EMU_DB

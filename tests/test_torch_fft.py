@@ -323,3 +323,46 @@ def test_host_input_defaults_to_the_card(entry):
         pytest.skip("a card is present: host data computes there")
     with pytest.raises(RuntimeError, match="device="):
         _HOST_CALLS[entry](np.zeros(8, np.float32))
+
+
+def test_vmap_runs_through_the_kernel_ops(monkeypatch):
+    """torch.func.vmap over fft_split, rfft_split and fftn_split (an fft2
+    shape and a fused_nd shape) on CPU tensors: each call reaches its
+    kernel op's vmap rule, which folds the mapped dim into the batch; each
+    slice matches numpy (> 100 dB, SNR_FLOOR_DB of tests/test_fft.py)."""
+    import torch
+    from kofft_tpu_torch.ops import hopper_fft as HF
+    seen = []
+    for cls in (HF._KernelFFT, HF._KernelRFFT, HF._KernelND):
+        rule = cls.vmap
+
+        def spy(info, in_dims, *args, _rule=rule, _name=cls.__name__):
+            seen.append(_name)
+            return _rule(info, in_dims, *args)
+
+        monkeypatch.setattr(cls, "vmap", staticmethod(spy))
+    rng = np.random.default_rng(23)
+    n = 1 << 14
+    xr, xi = (torch.as_tensor(a) for a in
+              rng.standard_normal((2, 3, n)).astype(np.float32))
+    x = xr.double().numpy() + 1j * xi.double().numpy()
+    yr, yi = torch.func.vmap(tk.fft_split)(xr, xi)
+    got = yr.double().numpy() + 1j * yi.double().numpy()
+    for k in range(3):
+        assert snr_db(np.fft.fft(x[k]), got[k]) > 100.0
+    yr, yi = torch.func.vmap(tk.rfft_split)(xr)
+    got = yr.double().numpy() + 1j * yi.double().numpy()
+    for k in range(3):
+        assert snr_db(np.fft.rfft(x[k].real), got[k]) > 100.0
+    assert seen == ["_KernelFFT", "_KernelRFFT"]
+    for shape, cls in [((512, 512), "fft2"), ((512, 256), "fused_nd")]:
+        gr, gi = (torch.as_tensor(a) for a in
+                  rng.standard_normal((2, 2) + shape).astype(np.float32))
+        g = gr.double().numpy() + 1j * gi.double().numpy()
+        HK.reset_counts()
+        yr, yi = torch.func.vmap(tk.fftn_split)(gr, gi)
+        assert HK.classes[cls] == 1
+        got = yr.double().numpy() + 1j * yi.double().numpy()
+        for k in range(2):
+            assert snr_db(np.fft.fftn(g[k]), got[k]) > 100.0
+    assert seen[2:] == ["_KernelND", "_KernelND"]

@@ -167,7 +167,8 @@ def test_rejects_bad_planes(cuda):
 
 @pytest.mark.parametrize("shape", [(1, 1024, 1024), (8, 512, 512),
                                    (2, 128, 256), (1, 8192, 128),
-                                   (1, 128, 8192)])
+                                   (1, 128, 8192), (1, 2048, 256),
+                                   (1, 4096, 128)])
 @pytest.mark.parametrize("conj", [False, True])
 def test_axis_kernels_match_plain(cuda, shape, conj):
     ar, ai = _planes(shape, cuda, seed=8)
@@ -355,3 +356,46 @@ def test_bf16_grad_on_card(cuda):
     assert xr.grad.dtype == torch.bfloat16
     want = np.fft.ifft(_np(gr, gi)) * n
     assert snr_db(want, _np(xr.grad, xi.grad)) > BF16_DB
+
+
+def test_vmap_over_kernel_paths(cuda):
+    """torch.func.vmap over the entries runs the kernels through the ops'
+    vmap rules and matches a loop over the slices."""
+    import kofft_tpu_torch as kt
+    xr, xi = _planes((3, 1 << 14), cuda, seed=19)
+    HK.reset_counts()
+    yr, yi = torch.func.vmap(kt.fft_split)(xr, xi)
+    assert HK.launches["stage1"] == 1
+    for k in range(3):
+        lr, li = kt.fft_split(xr[k], xi[k])
+        assert snr_db(_np(lr, li), _np(yr[k], yi[k])) > ORACLE_DB
+    yr, yi = torch.func.vmap(kt.rfft_split)(xr)
+    assert HK.launches["stage1_real"] == 1
+    for k in range(3):
+        lr, li = kt.rfft_split(xr[k])
+        assert snr_db(_np(lr, li), _np(yr[k], yi[k])) > ORACLE_DB
+    for shape in [(1024, 1024), (128, 128, 128)]:
+        xr, xi = _planes((2,) + shape, cuda, seed=20)
+        yr, yi = torch.func.vmap(kt.fftn_split)(xr, xi)
+        for k in range(2):
+            lr, li = kt.fftn_split(xr[k], xi[k])
+            assert snr_db(_np(lr, li), _np(yr[k], yi[k])) > ORACLE_DB
+            assert snr_db(np.fft.fftn(_np(xr[k], xi[k])),
+                          _np(yr[k], yi[k])) > ORACLE_DB
+
+
+def test_tables_clear_then_transform(cuda):
+    """tables.clear() drops the host tables, their device copies and the
+    cached launch arguments; the next transforms rebuild them and give
+    the same result."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.plan import tables
+    xr, xi = _planes((1 << 16,), cuda, seed=21)
+    gr, gi = _planes((128, 128, 128), cuda, seed=22)
+    before = (kt.fft_split(xr, xi), kt.fftn_split(gr, gi))
+    tables.clear()
+    assert len(tables) == 0
+    after = (kt.fft_split(xr, xi), kt.fftn_split(gr, gi))
+    assert len(tables) > 0
+    for (ar, ai), (br, bi) in zip(before, after):
+        assert torch.equal(ar, br) and torch.equal(ai, bi)

@@ -147,3 +147,43 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_tree_helpers_as_kofft_tpu():
+    """The factor-tree helpers of tests/test_plan_config.py against the
+    port: a prime is one leaf, and the helpers list leaves and twiddle
+    keys as kofft_tpu's do."""
+    from kofft_tpu import plan as jplan
+    from kofft_tpu_torch.plan import (DftLeaf, tree_leaf_sizes,
+                                      tree_twiddle_keys)
+    assert balanced_split(7919) == (1, 7919)
+    leaf = build_factor_tree(7919)
+    assert isinstance(leaf, DftLeaf) and leaf.n == 7919
+    t = build_factor_tree(1024, cutoff=32)
+    assert tree_leaf_sizes(t) <= {2, 4, 8, 16, 32}
+    for n1, n2 in tree_twiddle_keys(t):
+        assert n1 * n2 in (1024, 32, 64)
+    jt = jplan.build_factor_tree(1024, cutoff=32)
+    assert tree_leaf_sizes(t) == jplan.tree_leaf_sizes(jt)
+    assert tree_twiddle_keys(t) == jplan.tree_twiddle_keys(jt)
+
+
+def test_table_cache_clear_and_len():
+    """clear() and len() as kofft_tpu.plan's, and clear() also drops the
+    device copies (ops._complex._CONST) and the cached launch arguments
+    (hopper_kernels._ARGS), which hold pointers into the tables."""
+    import torch
+    from kofft_tpu_torch.ops import _complex
+    tables.dft_matrix(8, "float32")
+    _complex.const(tables.dft_matrix(8, "float32")[0], "cpu")
+    HK._ARGS["probe"] = (0,)
+    assert len(tables) > 0 and _complex._CONST
+    tables.clear()
+    assert len(tables) == 0
+    assert not _complex._CONST and "probe" not in HK._ARGS
+    fr, fi = tables.dft_matrix(8, "float32")
+    assert fr.shape == (8, 8) and len(tables) == 1
+    # the transforms rebuild what they need
+    x = torch.ones(1 << 14)
+    yr, _ = HK.fused_multilevel_fft(x, torch.zeros_like(x), 1 << 14)
+    assert float(yr[0]) == 1 << 14
