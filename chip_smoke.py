@@ -14,10 +14,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    source, all at once (timed), and the ptxas register / spill lines are
    printed;
 3. kernels vs plain: stage1 and stage2 against their plain PyTorch
-   versions on the same CUDA tensors, and the pair against a float64
-   numpy FFT, at (8, 2^14), 2^20, 3*2^18, (8, 2^20), 2^24 and 2^26; then
-   stage1_real and stage2_half the same way, the pair against the float64
-   numpy rfft, at (4, 2^14), 2^20, 3*2^18, (8, 2^20), 2^24 and 2^26;
+   versions on the same CUDA tensors (above 110 dB), forward and inverse
+   (conj), and the pair against a float64 numpy FFT / inverse FFT, at
+   (8, 2^14), 2^20, the smooth 3*2^18, 9*2^14 and 23*2^14 (stage 1 on
+   the dense chain), (8, 2^20), 2^22, 2^23 (stage 2's cluster), 2^24,
+   2^25 and 2^26 (stage 1's column four-step); then stage1_real and
+   stage2_half the same way, the pair against the float64 numpy rfft, at
+   (4, 2^14) and the same sizes;
    then col_fft and row_fft the same way, forward and inverse (conj),
    above 110 dB against their plain versions, the pair against the
    float64 numpy fft2 / ifft2, at lines of 2 ... 8192 ((4096, 2, 16),
@@ -28,10 +31,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    fused_nd route (d launches) against fused_nd_plain at 128^3 and (512,
    256); then dense_stage_a and dense_stage_b, and
    fused_four_step_fft against float64, at 2^14, (3, 2^14), 3*2^14, 2^20,
-   (8, 2^20), 2^24 and 2^26; every SNR must exceed 100 dB; last, every
-   bf16 I/O form of the four stage kernels against its plain version with
-   the same types at (8, 1024, 1024), (1, 4096, 4096) and (1, 8192, 8192)
-   (the `default` tier's 2^26 shape), above 70 dB where it stores bf16;
+   (8, 2^20), 2^24 and 2^26; every SNR against float64 must exceed 100
+   dB; last, every bf16 I/O form of the four stage kernels against its
+   plain version with the same types at (8, 1024, 1024), (1, 2048, 2048),
+   (1, 2048, 4096), (1, 4096, 4096), (1, 4096, 8192) and (1, 8192, 8192)
+   (the `default` tier's 2^26 shape), above 110 dB where it stores
+   float32 and 70 dB where it stores bf16;
 4. main paths: the public entries (complex, then real, then N-D, then
    the dense pair, bf16 planes and the `default` tier) with every count
    set to 0 just before each path; each case checks its output against a
@@ -67,9 +72,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    beside its plain version, and the library call where one computes the
    same function, each back to back and as device time per call of a CUDA
    graph of 20 calls (``graph_ms``: no host time; at this size the
-   back-to-back time can be the host's enqueue); the three axis passes of a 128^3 grid alone, col_fft
-   and row_fft at (1, 4096, 4096) and (1, 8192, 8192), and stage1 and
-   stage2 at (1, 8192, 8192) (kernel graph and back-to-back, plain
+   back-to-back time can be the host's enqueue); the three axis passes
+   of a 128^3 grid alone, col_fft and row_fft at (1, 4096, 4096) and
+   (1, 8192, 8192), and stage1 and stage2 at (1, 2048, 2048), (1, 4096,
+   4096) and (1, 8192, 8192) (kernel graph and back-to-back, plain
    version, torch.fft.fft along the same axis, bound); and col_fft at
    lines of 2048 as one launch and as the column four-step.
 
@@ -315,56 +321,71 @@ def main() -> int:
 
     # -- 3. kernels vs plain --------------------------------------------
     log("== phase 3: kernels vs plain on the card")
+
+    def max_abs(got, want):
+        return max((g.float() - w.float()).abs().max().item()
+                   for g, w in zip(got, want))
+
+    # the stage kernels at every route shape class: one-launch stage 1 up
+    # to 2^22 (2048-point columns), the column four-step from 2^24, the
+    # stage-2 cluster from 2^23 (4096-point lines), smooth n1 (the dense
+    # chain) at 3*2^18, 9*2^14 and 23*2^14; forward and inverse (conj on
+    # stage 1's load and stage 2's store)
+    stage_sizes = [(8, 1 << 14), (1, 1 << 20), (1, 3 << 18), (1, 9 << 14),
+                   (1, 23 << 14), (8, 1 << 20), (1, 1 << 22), (1, 1 << 23),
+                   (1, 1 << 24), (1, 1 << 25), (1, 1 << 26)]
     err = {"stage1": 0.0, "stage2": 0.0}
-    for b, n in [(8, 1 << 14), (1, 1 << 20), (1, 3 << 18), (8, 1 << 20),
-                 (1, 1 << 24), (1, 1 << 26)]:
+    for b, n in stage_sizes:
         n1, n2 = HK._pow2_split(n)
         ar, ai = planes((b, n1, n2))
-        cr, ci = HK.stage1(ar, ai)
-        pr, pi = HK.stage1_plain(ar, ai)
-        yr, yi = HK.stage2(cr, ci)
-        qr, qi = HK.stage2_plain(cr, ci)
-        torch.cuda.synchronize()
-        e1 = max((cr - pr).abs().max().item(), (ci - pi).abs().max().item())
-        e2 = max((yr - qr).abs().max().item(), (yi - qi).abs().max().item())
-        err["stage1"] = max(err["stage1"], e1)
-        err["stage2"] = max(err["stage2"], e2)
-        s1 = snr_db(host(pr, pi), host(cr, ci))
-        s2 = snr_db(host(qr, qi), host(yr, yi))
-        ref = np.fft.fft(host(ar, ai).reshape(b, n), axis=-1)
-        so = snr_db(ref, host(yr, yi).reshape(b, n))
-        log(f"({b}, {n}) split ({n1}, {n2}): stage1 vs plain {s1:.2f} dB "
-            f"(max abs {e1:.3e}), stage2 vs plain {s2:.2f} dB "
-            f"(max abs {e2:.3e}), kernels vs float64 oracle {so:.2f} dB")
-        assert min(s1, s2, so) > FLOOR_DB, (b, n, s1, s2, so)
-        del ar, ai, cr, ci, pr, pi, yr, yi, qr, qi
+        x = host(ar, ai).reshape(b, n)
+        for conj in (False, True):
+            c = HK.stage1(ar, ai, conj)
+            pc = HK.stage1_plain(ar, ai, conj)
+            y = HK.stage2(*c, conj)
+            py = HK.stage2_plain(*c, conj)
+            torch.cuda.synchronize()
+            e1, e2 = max_abs(c, pc), max_abs(y, py)
+            err["stage1"] = max(err["stage1"], e1)
+            err["stage2"] = max(err["stage2"], e2)
+            s1, s2 = snr_db_card(pc, c), snr_db_card(py, y)
+            del c, pc, py
+            ref = (np.fft.ifft(x, axis=-1) * n if conj
+                   else np.fft.fft(x, axis=-1))
+            so = snr_db(ref, host(*y).reshape(b, n))
+            log(f"({b}, {n}) split ({n1}, {n2}){' inverse' if conj else ''}"
+                f": stage1 vs plain {s1:.2f} dB (max abs {e1:.3e}), stage2 "
+                f"vs plain {s2:.2f} dB (max abs {e2:.3e}), kernels vs "
+                f"float64 oracle {so:.2f} dB")
+            assert min(s1, s2) > AXIS_DB and so > FLOOR_DB, (
+                b, n, conj, s1, s2, so)
+            del y, ref
+        del ar, ai, x
 
     err.update(stage1_real=0.0, stage2_half=0.0)
-    for b, n in [(4, 1 << 14), (1, 1 << 20), (1, 3 << 18), (8, 1 << 20),
-                 (1, 1 << 24), (1, 1 << 26)]:
+    for b, n in [(4, 1 << 14)] + stage_sizes[1:]:
         n1, n2 = HK._pow2_split(n)
         ar = real((b, n1, n2))
-        cr, ci = HK.stage1_real(ar)
-        pr, pi = HK.stage1_real_plain(ar)
-        yr, yi = HK.stage2_half(cr, ci)
-        qr, qi = HK.stage2_half_plain(cr, ci)
+        c = HK.stage1_real(ar)
+        pc = HK.stage1_real_plain(ar)
+        y = HK.stage2_half(*c)
+        py = HK.stage2_half_plain(*c)
         torch.cuda.synchronize()
-        e1 = max((cr - pr).abs().max().item(), (ci - pi).abs().max().item())
-        e2 = max((yr - qr).abs().max().item(), (yi - qi).abs().max().item())
+        e1, e2 = max_abs(c, pc), max_abs(y, py)
         err["stage1_real"] = max(err["stage1_real"], e1)
         err["stage2_half"] = max(err["stage2_half"], e2)
-        s1 = snr_db(host(pr, pi), host(cr, ci))
-        s2 = snr_db(host(qr, qi), host(yr, yi))
+        s1, s2 = snr_db_card(pc, c), snr_db_card(py, y)
         ref = np.fft.rfft(ar.double().cpu().numpy().reshape(b, n), axis=-1)
-        got = host(yr, yi)
+        got = host(*y)
         so = snr_db(ref, got)
         sq = snr_db(ref[:, -1], got[:, -1])
         log(f"({b}, {n}) split ({n1}, {n2}): stage1_real vs plain "
             f"{s1:.2f} dB (max abs {e1:.3e}), stage2_half vs plain "
             f"{s2:.2f} dB (max abs {e2:.3e}), real pair vs float64 rfft "
             f"{so:.2f} dB (Nyquist bin {sq:.2f} dB)")
-        assert min(s1, s2, so, sq) > FLOOR_DB, (b, n, s1, s2, so, sq)
-        del ar, cr, ci, pr, pi, yr, yi, qr, qi, ref, got
+        assert min(s1, s2) > AXIS_DB and min(so, sq) > FLOOR_DB, (
+            b, n, s1, s2, so, sq)
+        del ar, c, pc, y, py, ref, got
 
     err.update(col_fft=0.0, row_fft=0.0)
 
@@ -473,9 +494,11 @@ def main() -> int:
         del ar, ai, fr, fi
 
     # the bf16 I/O forms of the stage kernels against their plain versions
-    # on the same input: float32 outputs above FLOOR_DB, bf16 outputs
-    # (compared in bf16) above BF16_PLAIN_DB; (1, 8192, 8192) is the shape
-    # the `default` tier's 2^26 route gives them (lines of 8192, T = 1)
+    # on the same input: float32 outputs above AXIS_DB, bf16 outputs
+    # (compared in bf16) above BF16_PLAIN_DB; at one-launch columns and
+    # whole-block rows, at 2048 x 4096 (a stage-2 cluster), and on both
+    # sides of the column four-step at 4096 x 8192 and 8192 x 8192 (the
+    # shape the `default` tier's 2^26 route gives them)
     def form_fns(base, xr, xi, stores):
         """(kernel call, plain call) of stage kernel ``base``'s form that
         loads the type of ``xr`` and stores ``stores``."""
@@ -494,7 +517,8 @@ def main() -> int:
     # (base kernel, load dtype, store dtype, launch-count name) of each form
     forms = [(base, *(HK._LETTER_DTYPE[c] for c in f), f"{base}_{f}")
              for base, fs in HK._IO_FORMS.items() for f in fs if f != "ff"]
-    for shape in [(8, 1024, 1024), (1, 4096, 4096), (1, 8192, 8192)]:
+    for shape in [(8, 1024, 1024), (1, 2048, 2048), (1, 2048, 4096),
+                  (1, 4096, 4096), (1, 4096, 8192), (1, 8192, 8192)]:
         ar, ai = planes(shape)
         lines = []
         for base, loads, stores, name in forms:
@@ -506,7 +530,7 @@ def main() -> int:
                     (yi.float() - pi.float()).abs().max().item())
             err[name] = max(err.get(name, 0.0), e)
             sv = snr_db_card((pr, pi), (yr, yi))
-            floor = FLOOR_DB if stores == torch.float32 else BF16_PLAIN_DB
+            floor = AXIS_DB if stores == torch.float32 else BF16_PLAIN_DB
             lines.append(f"{name} {sv:.2f}")
             assert sv > floor, (shape, name, sv, floor)
             del yr, yi, pr, pi
@@ -1052,28 +1076,29 @@ def main() -> int:
                  lambda: torch.fft.fft(vc, dim=dim))
         del vr, vi, vc
     # the axis kernels at the 2-D routes' long lines (col_fft's column
-    # four-step at 4096 and 8192), and the 1-D stage pair at lines of
-    # 8192, each beside its library call along the same axis
-    for view in [(1, 4096, 4096), (1, 8192, 8192)]:
+    # four-step at 4096 and 8192), and the 1-D stage pair at lines of 2048
+    # (one-launch stage 1, whole-block stage 2), 4096 and 8192 (stage 1's
+    # column four-step, stage 2's cluster), each beside its library call
+    # along the same axis
+    for view in [(1, 2048, 2048), (1, 4096, 4096), (1, 8192, 8192)]:
         vr, vi = planes(view)
-        vc = torch.complex(vr, vi)
-        axis_row(view, "col_fft", HK.col_fft, HK.col_fft_plain, vr, vi,
-                 "torch.fft.fft(dim=1)", lambda: torch.fft.fft(vc, dim=1))
-        axis_row(view, "row_fft", HK.row_fft, HK.row_fft_plain, vr, vi,
-                 "torch.fft.fft(dim=2)", lambda: torch.fft.fft(vc, dim=2))
-        del vc
-        if view[1] == 8192:
-            axis_row(view, "stage1", HK.stage1, HK.stage1_plain, vr, vi,
-                     None, None)
-            cr, ci = HK.stage1(vr, vi)
-            del vr, vi
-            cc = torch.complex(cr, ci)
-            axis_row(view, "stage2", HK.stage2, HK.stage2_plain, cr, ci,
-                     "torch.fft.fft(C, dim=2)",
-                     lambda: torch.fft.fft(cc, dim=2))
-            del cr, ci, cc
-        else:
-            del vr, vi
+        if view[1] > 2048:
+            vc = torch.complex(vr, vi)
+            axis_row(view, "col_fft", HK.col_fft, HK.col_fft_plain, vr, vi,
+                     "torch.fft.fft(dim=1)",
+                     lambda: torch.fft.fft(vc, dim=1))
+            axis_row(view, "row_fft", HK.row_fft, HK.row_fft_plain, vr, vi,
+                     "torch.fft.fft(dim=2)",
+                     lambda: torch.fft.fft(vc, dim=2))
+            del vc
+        axis_row(view, "stage1", HK.stage1, HK.stage1_plain, vr, vi,
+                 None, None)
+        cr, ci = HK.stage1(vr, vi)
+        del vr, vi
+        cc = torch.complex(cr, ci)
+        axis_row(view, "stage2", HK.stage2, HK.stage2_plain, cr, ci,
+                 "torch.fft.fft(C, dim=2)", lambda: torch.fft.fft(cc, dim=2))
+        del cr, ci, cc
     # col_fft at lines of 2048, one launch against the column four-step:
     # the measurement behind HK._COL_SPLIT_ABOVE
     vr, vi = planes((1, 2048, 2048))

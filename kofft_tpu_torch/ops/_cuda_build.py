@@ -1,15 +1,15 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc at first use and load them
 with ctypes.
 
-Every ``csrc/*.cu`` source (``fft_stages.cu`` and ``axis_fft.cu`` with
-the headers they include, and ``dense_dft.cu``) is compiled for
-``sm_90a`` by its own nvcc process, all started together, and the
-objects are linked into one
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds). The library goes to ``build/kofft_tpu_torch/`` at the root
-of the checkout, named by a hash of every source and flag, so a changed
-source builds anew and an unchanged one loads at once. There is no
-fallback: a failed build raises.
+Every ``csrc/*.cu`` source (``fft_stages.cu``, ``smooth_stage.cu``,
+``axis_fft.cu`` and ``dense_dft.cu``, with the headers they include) is
+compiled for ``sm_90a`` by its own nvcc process, all started together,
+and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds). The library
+goes to ``build/kofft_tpu_torch/`` at the root of the checkout, named by
+a hash of every source and flag, so a changed source builds anew and an
+unchanged one loads at once. There is no fallback: a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -33,14 +33,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the exported functions
 SIGNATURES = {
-    "kofft_stage1": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
-                     _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "kofft_stage1_real": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
-                          _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "kofft_stage2": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
-                     _I, _I, _I, _I, _P],
-    "kofft_stage2_half": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
-                          _I, _I, _I, _P],
+    "kofft_stage1": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I,
+                     _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    "kofft_stage1_smooth": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
+                            _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "kofft_stage2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
+                     _I, _I, _I, _I, _I, _P],
     "kofft_col_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
                       _I, _P, _I, _I, _I, _P],
     "kofft_row_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,

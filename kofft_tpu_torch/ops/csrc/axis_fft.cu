@@ -58,6 +58,7 @@
 
 using kofft::kMaxDevices;
 using kofft::prepare;
+using kofft::radix::fill_plan;
 using kofft::radix::RadixPlan;
 
 namespace {
@@ -145,31 +146,6 @@ col_fft_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
     yr[o + s * ostep] = y.x;
     yi[o + s * ostep] = y.y;
   }
-}
-
-// steps: host int32 array, 7 entries per pass (R, Ns, tw_off, x1, y1, x2,
-// y2), hopper_kernels._axis_plan. The radices must multiply to m, none
-// above E, each Ns the product of the radices before it.
-int fill_plan(RadixPlan* p, const int* steps, int npass, int m, int E) {
-  if (npass < 1 || npass > kofft::radix::kMaxPasses) {
-    return cudaErrorInvalidValue;
-  }
-  p->npass = npass;
-  int ns = 1;
-  for (int s = 0; s < npass; ++s) {
-    const int* q = steps + 7 * s;
-    const int r = q[0];
-    if ((r != 2 && r != 4 && r != 8 && r != 16) || r > E || q[1] != ns ||
-        q[2] < 0) {
-      return cudaErrorInvalidValue;
-    }
-    p->radix[s] = r;
-    p->ns[s] = ns;
-    p->tw_off[s] = q[2];
-    for (int i = 0; i < 4; ++i) p->sw[s][i] = q[3 + i];
-    ns *= r;
-  }
-  return ns == m ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // The block shape the plan implies; returns 0 if it is not one the

@@ -1,158 +1,204 @@
 // The two stages of the Bailey four-step FFT, X = F_n2 . ((F_n1 . A) o W),
-// for a batch of (n1, n2) float32 planes, with a plain C interface bound
-// by ctypes (kofft_tpu_torch/ops/_cuda_build.py).
+// for a batch of (n1, n2) planes on the register radix line FFT
+// (radix_line.cuh), with a plain C interface bound by ctypes
+// (kofft_tpu_torch/ops/_cuda_build.py). n = n1 * n2 from
+// hopper_kernels._pow2_split: n2 is a power of two of 128 ... 8192, n1 one
+// of 128 ... 8192 or a smooth o * 2^a (see below).
 //
-// stage1 replaces s1_kernel (kofft_tpu/ops/pallas_kernels.py:547) and
-// phase 1 of the phased kernel (_build_phased kern, :847-913): one block
-// per (batch row, tile of T columns) loads the (n1, T) column tile of the
-// (b, n1, n2) input into shared memory, runs T line FFTs of length n1,
-// multiplies by W[k1, j2] = col[k1, j2 / t] * base[k1, j2 mod t] from
-// _twiddle_factors' tables (t = 128), and writes C, (b, n1, n2).
+// stage1_kernel replaces s1_kernel and s1r_kernel
+// (kofft_tpu/ops/pallas_kernels.py:547, :558, called at :613, :630) and
+// phase 1 of the phased kernel (_build_phased kern, :847 -> :1104): line
+// FFTs of length n1 along axis 1 of the (b, n1, n2) input, then
+// C = Y o W with W[k1, j2] = col[k1, j2 / t] * base[k1, j2 mod t]
+// (_twiddle_factors' factored tables, t = 128, float2-interleaved: one
+// 8-byte load per factor; the product is the one the JAX function forms,
+// pallas_kernels.py:447). A block holds an (n1, T) column tile of T >= 8
+// consecutive columns j2, the column fastest across the threads, so every
+// row access covers >= 32 bytes ((1024, 8): 512 threads, 64 KB; (2048, 8):
+// 1024 threads, 128 KB). The inverse conjugates on load; the real form
+// (stage1_real) reads one real plane and sets the imaginary part to zero
+// in registers. Above 2048 an (n1, 8) tile does not fit a block, and
+// stage 1 is a column four-step of two launches of this kernel, n1 =
+// m1 * m2 (hopper_kernels._col_split): lines of m1 over the (b, m1,
+// m2 * n2) view with the split twiddle w_n1^(k1a * j1b) fused into the
+// store (tw, tw_div), then lines of m2 over the (b * m1, m2, n2) view,
+// stored digit-swapped to row k1 = k1b * m1 + k1a (swap = m1) with W
+// fused into the same store; the wrapper counts the two as one launch.
 //
-// stage2 replaces s2_kernel (:569) and phases 2-3 of the phased kernel
-// (:915-1013): one block per (batch row, tile of T rows of C) runs T line
-// FFTs of length n2 along the rows and writes Y[b, k2, k1] into
-// (b, n2, n1), whose row-major flattening is the natural-order spectrum
-// (the phased flat form's output, with no extra pass).
+// stage2_kernel replaces s2_kernel and s2h_kernel (:569, :579, called at
+// :649, :668), phases 2-3 of the phased kernel and its real form's Nyquist
+// epilogue (:1347-1356): line FFTs of length n2 along the rows of C,
+// written transposed to Y[b, k2, k1] in (b, n2, n1), whose flat order is
+// the natural-order spectrum, or (kHalf) only the flat bins k = k2 * n1 +
+// k1 <= n/2, the rows k2 < n2/2 and the Nyquist bin X[n/2] from the k1 = 0
+// line, into one-sided (b, n/2 + 1) planes. A tile is T >= 8 consecutive
+// whole lines k1 (T = 8 from lines of 512; T = 16 measured slower at
+// lines of 512 and 1024). Each thread loads its points
+// straight into registers (coalesced runs of one row), the radix passes
+// run, and the transposed store goes through the exchange buffer: each
+// thread writes its natural-order points k2 of line c to word c * slice +
+// k2 (a warp writes one 128-byte row), the block synchronises, and each
+// warp reads back 32 / T rows k2 of T consecutive k1 each and stores them
+// as >= 32-byte runs. Lines up to 2048 points: one block holds the tile
+// ((1024, 8): 512 threads, 64 KB). Lines of 4096 and 8192: T lines of
+// 8192 would need 512 KB, so a thread-block cluster of C = T / Tc CTAs
+// holds the tile, each CTA Tc whole lines (4 x (4096, 2), 8 x (8192, 1):
+// 512 threads and 64 KB each), and each CTA stores a slice of n2 / C
+// output rows. After the passes the cluster synchronises (every CTA is
+// done with its exchange buffer), each thread writes its points into the
+// buffer of the CTA that stores their rows (distributed shared memory,
+// one 128-byte row per warp store; CTA q starts with CTA q's slice, so
+// the CTAs write to different CTAs at each step), the cluster
+// synchronises again, and each CTA stores its slice from its own buffer
+// (no CTA touches another's memory after the second sync, so each may
+// exit). Both choices were measured: a distributed-shared-memory store
+// of 32 words 32 bytes apart, or all CTAs writing to one CTA at a time,
+// each made the cluster several times slower. The inverse conjugates on
+// store. kHalf stores scalars at the odd row stride n/2 + 1,
+// in runs of T.
 //
-// The TPU kept C in VMEM (phased) or HBM (two-call pair); here C always
-// goes through device memory between the two launches. At 2^20 it is 8 MB
-// and stays in the 50 MB L2. Blocks are independent; nothing is carried
-// between them.
+// What bounds them: bytes. A stage must read and write its planes once,
+// 16 bytes per point in float32 (12 for stage1_real, 8 + 8 * (n/2 + 1) / n
+// for stage2_half), 5.01 us at 3.35 TB/s for 2^20 points; the FFT's 5 m
+// log2 m flop per line is under a fifth of that at 67 TFLOP/s. What the
+// design does about the three causes that held the earlier dense-chain
+// stage kernels (line_fft.cuh) at 2.5-15 % of that bound:
+// 1. Leaf work: radix-16/8/4/2 butterflies in registers, ~30-45
+//    floating-point instructions per point for lines of 128 ... 8192
+//    where the dense leaves took 64-192 complex MACs, and one exchange
+//    per pass boundary instead of a ping-pong round trip with table reads
+//    per step.
+// 2. Coalescing: stage 1 reads and stores T >= 8 consecutive columns per
+//    row at every n1 (the dense chain fell to T = 1, 4-byte runs, from
+//    lines of 4096); stage 2 loads whole rows and tiles its transposed
+//    store through shared memory (one block) or distributed shared memory
+//    (a cluster), so each warp stores >= 32-byte runs (T = 4 at 1024 and
+//    T = 1 at 8192 before). Every shared-memory exchange, the transposed
+//    one included, goes through a swizzle the host picks so that each
+//    warp-wide access is one wavefront (hopper_kernels._best_swizzle).
+//    bf16 planes move 16-byte runs at T = 8.
+// 3. The twiddle epilogue: two 8-byte loads of float2 factors per point
+//    (the dense chain made four 4-byte loads from four planes); the base
+//    factors of a warp are T-float2 runs, the column factor one broadcast.
 //
-// Inverse: conj = 1 negates the imaginary part on load in stage 1 and on
-// store in stage 2 (the conjugation identity of pallas_fft.py:75-80), so
-// the inverse costs no extra pass.
+// Shapes that keep the dense chain: a smooth n1 = o * 2^a (odd o = 3 ...
+// 23: 3*2^18, 9*2^14, 23*2^14, ...) is not a power of two, so its stage 1
+// is the dense-leaf kernel of smooth_stage.cu; stage 2 lines are always
+// powers of two.
 //
-// The real FFT (rfft) runs two more instances of the same kernels:
-// - stage1_real replaces s1r_kernel (:558) and phase 1 of the phased
-//   real form (real=True, :847): it reads ONE real (b, n1, n2) plane into
-//   shared memory as floats, and the first leaf step of the line FFT does
-//   2 FFMAs per MAC instead of 4 (line_fft.cuh). 4 bytes in, 8 out per
-//   point.
-// - stage2_half replaces s2h_kernel (:579), phases 2-3 of the phased real
-//   form and the Nyquist epilogue (:1347-1356): it runs the full row FFTs
-//   and stores only the flat bins k = k2*n1 + k1 <= n/2 straight into
-//   one-sided (b, n/2 + 1) planes. That set is the rows k2 < n2/2 plus the
-//   Nyquist bin X[n/2] (k2 = n2/2, k1 = 0), which the block holding line
-//   k1 = 0 has in shared memory, so no pass runs after the kernel. The
-//   row stride n/2 + 1 is odd, so the stores stay scalar.
+// bfloat16 I/O: every kernel also loads and stores bfloat16 planes (the
+// forms of hopper_kernels._IO_FORMS, the counterparts of _build_ml's
+// cdt='bfloat16' C (:490, :555) and of _build_phased's io='bfloat16'
+// output and sdt C (:750, :1078)); only the element type of the global
+// loads and stores changes (elem_io.cuh). The split's intermediate is
+// float32, so its second launch also runs as float32 -> bfloat16.
 //
-// The N-D FFT's axis kernels (col_fft, row_fft) are in axis_fft.cu, on
-// the register radix line FFT of radix_line.cuh.
-//
-// Where trouble is likely, and what the design does about it:
-// - Shared memory: a block holds two (m, T) float2 buffers (ping-pong),
-//   16*m*T bytes. The host picks T (16 down to 1) so that this stays
-//   <= 64 KB where it can (up to three blocks per SM): T = 4 at m = 1024,
-//   T = 1 from m = 4096 (128 KB for one line of 8192). Everything above
-//   48 KB needs cudaFuncAttributeMaxDynamicSharedMemorySize, raised once
-//   per device before the first launch that needs it; every error is
-//   returned to the caller.
-// - Coalescing: stage 1 reads and stage 2 writes T consecutive floats per
-//   row (64-byte segments at T = 16, 4-byte at T = 1 for n = 2^26).
-//   Tiling the transposes through shared memory is later work.
-// - Leaf cost: see line_fft.cuh; the dense leaves, not device memory,
-//   limit the pair.
-//
-// bfloat16 I/O: stage1, stage1_real, stage2 and stage2_half also load and
-// store bfloat16 planes, the counterparts of _build_ml's cdt='bfloat16' C
-// (:490, :555) and of _build_phased's io='bfloat16' output and sdt C
-// (:750, :1078), with bf16 input planes read as the Pallas kernels read
-// any non-f32 block (:543-545, :835-838). Only the element type of the
-// global loads and stores changes: a load widens to float32
-// (__bfloat162float), a store rounds to nearest even (__float2bfloat16_rn,
-// as torch's .to(torch.bfloat16) and XLA's convert do), and everything in
-// shared memory and registers stays float32. stage2_half's Nyquist bin is
-// computed in float32 like every other bin and rounded once, at its store
-// (the f32 epilogue of :1277-1287). The instances are the I/O forms the
-// routing uses (hopper_kernels._IO_FORMS): stage 1 loads f32 or bf16 and
-// stores C in f32 or bf16, but never f32 -> bf16 (the `default` tier casts
-// its input whenever its C is bf16); stage 2 takes all four.
-#include <cuda_bf16.h>
+// Shared memory above 48 KB needs cudaFuncAttributeMaxDynamicSharedMemorySize,
+// raised once per device and instance; a cluster launch first checks that
+// the cluster fits (cudaOccupancyMaxActiveClusters > 0). Every error is
+// returned to the caller, which raises.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "elem_io.cuh"
 #include "launch.cuh"
-#include "line_fft.cuh"
+#include "radix_line.cuh"
 
+namespace cg = cooperative_groups;
+using kofft::bf16;
 using kofft::kMaxDevices;
-using kofft::LinePlan;
+using kofft::ld;
 using kofft::prepare;
+using kofft::st;
+using kofft::radix::cmul;
+using kofft::radix::fill_plan;
+using kofft::radix::RadixPlan;
+using kofft::radix::Swizzle;
+using kofft::radix::swizzle;
 
 namespace {
 
-// 512 threads: 256 measured slower at every shape (H100, 700 W); more
-// registers per thread (3 blocks of 512 per SM) spilled and lost too
-constexpr int kThreads = 512;
+// points per thread: every stage line has >= 128 points
+constexpr int kE = 16;
+// the largest block (stage 1's and stage 2's tiles of 2048-point lines);
+// it caps the instances that may launch it at 64 registers
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxCluster = 8;
+// every CTA of a stage-2 cluster has 512 threads (hopper_kernels
+// ._stage2_tile); two per SM keep them at 64 registers (one per SM, with
+// the ~80 registers ptxas takes otherwise, measured slower)
+constexpr int kClusterThreads = 512;
 
-using bf16 = __nv_bfloat16;
-
-// global element access: a load widens to float32, a store rounds to the
-// nearest even bf16
-__device__ __forceinline__ float ld(const float* p, long long i) {
-  return p[i];
-}
-__device__ __forceinline__ float ld(const bf16* p, long long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void st(float* p, long long i, float v) {
-  p[i] = v;
-}
-__device__ __forceinline__ void st(bf16* p, long long i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
-// kReal: ar is one real plane (ai and sgn are not read). TIn, TOut:
-// element types of the loaded planes and of the stored C (float or bf16)
+// tw != nullptr: multiply point k of column col by tw[k * (inner / tw_div)
+// + col / tw_div] (the split's first launch). swap: row `row` of the
+// (rows, m, inner) view stores point k to row k * swap + row % swap of
+// block row / swap (1: the input layout). wb != nullptr: multiply the
+// point stored at row k1 (of its batch row) and column col by
+// W[k1, col] = wc[k1, col / tw_t] * wb[k1, col mod tw_t].
 template <bool kReal, typename TIn, typename TOut>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 stage1_kernel(const TIn* __restrict__ ar, const TIn* __restrict__ ai,
-              TOut* __restrict__ cr, TOut* __restrict__ ci, int n1, int n2,
-              int T, LinePlan plan, const float2* __restrict__ tab,
-              const float* __restrict__ ebr, const float* __restrict__ ebi,
-              const float* __restrict__ ecr, const float* __restrict__ eci,
-              int tw_t, float sgn) {
-  extern __shared__ float2 smem[];
-  const int total = n1 * T;
-  float2* buf0 = smem;
-  float2* buf1 = smem + total;
-  const int tiles = n2 / T;
-  const long long row = blockIdx.x / tiles;
-  const int j2_0 = (blockIdx.x - static_cast<int>(row) * tiles) * T;
-  const long long base = row * n1 * static_cast<long long>(n2);
-  const TIn* a_r = ar + base;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int j1 = idx / T;
-    const int c = idx - j1 * T;
-    const long long g = static_cast<long long>(j1) * n2 + j2_0 + c;
+              TOut* __restrict__ yr, TOut* __restrict__ yi, int m, int inner,
+              int T, RadixPlan plan, const float2* __restrict__ tab,
+              float sgn, const float2* __restrict__ tw, int tw_div, int swap,
+              const float2* __restrict__ wb, const float2* __restrict__ wc,
+              int tw_t) {
+  extern __shared__ float smem[];
+  const int tiles = inner / T;
+  const int row = blockIdx.x / tiles;
+  const int c = threadIdx.x % T;
+  const int ti = threadIdx.x / T;
+  const int col = (blockIdx.x - row * tiles) * T + c;
+  const int tpl = m / kE;
+  const long long step = static_cast<long long>(tpl) * inner;
+  const long long g = static_cast<long long>(row) * m * inner +
+                      static_cast<long long>(ti) * inner + col;
+  float2 v[kE];
+#pragma unroll
+  for (int s = 0; s < kE; ++s) {
     if constexpr (kReal) {
-      reinterpret_cast<float*>(buf0)[idx] = ld(a_r, g);
+      v[s] = make_float2(ld(ar, g + s * step), 0.f);
     } else {
-      buf0[idx] = make_float2(ld(a_r, g), sgn * ld(ai, base + g));
+      v[s] = make_float2(ld(ar, g + s * step), sgn * ld(ai, g + s * step));
     }
   }
-  const float2* y =
-      kofft::line_fft<kReal>(buf0, buf1, total, plan, tab);
-  TOut* c_r = cr + base;
-  TOut* c_i = ci + base;
-  const int ncol = n2 / tw_t;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int k1 = idx / T;
-    const int c = idx - k1 * T;
-    const int j2 = j2_0 + c;
-    const int col = j2 / tw_t;
-    const int u = j2 - col * tw_t;
-    const float wcr = ecr[k1 * ncol + col];
-    const float wci = eci[k1 * ncol + col];
-    const float wbr = ebr[k1 * tw_t + u];
-    const float wbi = ebi[k1 * tw_t + u];
-    const float2 w =
-        make_float2(wcr * wbr - wci * wbi, wcr * wbi + wci * wbr);
-    const float2 v = kofft::cmulf(y[idx], w);
-    const long long g = static_cast<long long>(k1) * n2 + j2;
-    st(c_r, g, v.x);
-    st(c_i, g, v.y);
+  kofft::radix::line_fft<kE>(v, ti, tpl, plan, tab, smem, smem + T * m, c,
+                             T);
+  const int rs = row % swap;
+  const long long o =
+      static_cast<long long>(row / swap) * swap * m * inner +
+      static_cast<long long>(rs) * inner +
+      static_cast<long long>(ti) * swap * inner + col;
+  const long long ostep = step * swap;
+  const int tw_cols = inner / tw_div;
+  const int j2 = col / tw_div;
+  const int ncol = inner / tw_t;
+  const int wj = col / tw_t;
+  const int wu = col - wj * tw_t;
+#pragma unroll
+  for (int s = 0; s < kE; ++s) {
+    const int k = ti + s * tpl;
+    float2 y = v[s];
+    if (tw != nullptr) {
+      y = cmul(y, __ldg(tw + static_cast<long long>(k) * tw_cols + j2));
+    }
+    if (wb != nullptr) {
+      const long long k1 = static_cast<long long>(k) * swap + rs;
+      const float2 f = __ldg(wc + k1 * ncol + wj);
+      const float2 b = __ldg(wb + k1 * tw_t + wu);
+      y = cmul(y, make_float2(f.x * b.x - f.y * b.y, f.x * b.y + f.y * b.x));
+    }
+    st(yr, o + s * ostep, y.x);
+    st(yi, o + s * ostep, y.y);
   }
+}
+
+// f(s) for s = kFirst ... kE - 1, 0 ... kFirst - 1, unrolled, so that
+// f may index a register array with s
+template <int kFirst, typename F>
+__device__ __forceinline__ void each_from(const F& f) {
+#pragma unroll
+  for (int j = 0; j < kE; ++j) f((j + kFirst) % kE);
 }
 
 // How stage2_kernel stores its lines: transposed into (b, n2, n1) (the
@@ -160,137 +206,225 @@ stage1_kernel(const TIn* __restrict__ ar, const TIn* __restrict__ ai,
 // read)
 enum Store { kTransposed, kHalf };
 
-template <int kStore, typename TIn, typename TOut>
-__global__ void __launch_bounds__(kThreads)
+// A tile of T consecutive lines k1 of C, Tc of them per CTA; kCluster: the
+// tile spans a cluster of T / Tc CTAs (1-D, so blockIdx.x % (T / Tc) is
+// the CTA's rank in it). T is a power of two; the last pass's swizzle in
+// the plan is the transposed exchange's.
+template <int kStore, bool kCluster, typename TIn, typename TOut>
+__global__ void __launch_bounds__(kCluster ? kClusterThreads : kMaxThreads,
+                                  kCluster ? 2 : 1)
 stage2_kernel(const TIn* __restrict__ cr, const TIn* __restrict__ ci,
-              TOut* __restrict__ yr, TOut* __restrict__ yi, int n1, int n2,
-              int T, LinePlan plan, const float2* __restrict__ tab,
+              TOut* __restrict__ yr, TOut* __restrict__ yi, int n1, int m,
+              int T, int tc, RadixPlan plan, const float2* __restrict__ tab,
               float sgn) {
-  extern __shared__ float2 smem[];
-  const int total = n2 * T;
-  float2* buf0 = smem;
-  float2* buf1 = smem + total;
+  extern __shared__ float smem[];
+  float* sre = smem;
+  float* sim = smem + tc * m;
+  const int csize = T / tc;
+  const int rank = kCluster ? static_cast<int>(blockIdx.x % csize) : 0;
+  const int tile = blockIdx.x / csize;
   const int tiles = n1 / T;
-  const long long row = blockIdx.x / tiles;
-  const int k1_0 = (blockIdx.x - static_cast<int>(row) * tiles) * T;
-  const long long base = row * n1 * static_cast<long long>(n2);
-  const TIn* c_r = cr + base + static_cast<long long>(k1_0) * n2;
-  const TIn* c_i = ci + base + static_cast<long long>(k1_0) * n2;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int c = idx / n2;
-    const int j2 = idx - c * n2;
-    const long long g = static_cast<long long>(c) * n2 + j2;
-    buf0[j2 * T + c] = make_float2(ld(c_r, g), ld(c_i, g));
+  const long long row = tile / tiles;
+  const int k1_0 = (tile - static_cast<int>(row) * tiles) * T;
+  const int tpl = m / kE;
+  const int cl = threadIdx.x / tpl;
+  const int ti = threadIdx.x - cl * tpl;
+  const int c = rank * tc + cl;
+  const long long base = row * n1 * static_cast<long long>(m);
+  const long long g = base + static_cast<long long>(k1_0 + c) * m + ti;
+  float2 v[kE];
+#pragma unroll
+  for (int s = 0; s < kE; ++s) {
+    v[s] = make_float2(ld(cr, g + s * tpl), ld(ci, g + s * tpl));
   }
-  const float2* y = kofft::line_fft(buf0, buf1, total, plan, tab);
-  if constexpr (kStore == kHalf) {
-    // flat bins k = k2*n1 + k1 <= n/2: rows k2 < n2/2 and, from the
-    // k1 = 0 line, the Nyquist bin
-    const long long half = static_cast<long long>(n1) * (n2 / 2);
-    TOut* o_r = yr + row * (half + 1);
-    TOut* o_i = yi + row * (half + 1);
-    const int stored = (n2 / 2 + 1) * T;
-    for (int idx = threadIdx.x; idx < stored; idx += blockDim.x) {
-      const int k2 = idx / T;
-      const int c = idx - k2 * T;
-      const long long g = static_cast<long long>(k2) * n1 + k1_0 + c;
-      if (g <= half) {
-        st(o_r, g, y[idx].x);
-        st(o_i, g, y[idx].y);
-      }
+  kofft::radix::line_fft<kE>(v, ti, tpl, plan, tab, sre, sim, cl * m, 1);
+  const int last = plan.npass - 1;
+  const Swizzle sw{plan.sw[last][0], plan.sw[last][1], plan.sw[last][2],
+                   plan.sw[last][3]};
+  // the transposed exchange: point k2 of tile line c goes to word
+  // c * slice + k2 mod slice of CTA k2 / slice (the block itself without a
+  // cluster, slice = m), so that a warp writes one 128-byte row; the radix
+  // passes left the buffer free (their last exchange ended with a barrier)
+  const int slice = m / csize;
+  if constexpr (kCluster) {
+    // point s goes to CTA s * csize / kE (slice is a multiple of tpl); CTA
+    // q starts at s = q * kE / csize, so at each step the CTAs of the
+    // cluster write to csize different CTAs, not all to one
+    cg::cluster_group cluster = cg::this_cluster();
+    const auto push = [&](int s) {
+      const int k2 = ti + s * tpl;
+      const int r = k2 / slice;
+      const int a = swizzle(c * slice + k2 - r * slice, sw);
+      cluster.map_shared_rank(sre, r)[a] = v[s].x;
+      cluster.map_shared_rank(sim, r)[a] = v[s].y;
+    };
+    cluster.sync();
+    switch (rank * (kE / csize)) {
+      case 0: each_from<0>(push); break;
+      case 2: each_from<2>(push); break;
+      case 4: each_from<4>(push); break;
+      case 6: each_from<6>(push); break;
+      case 8: each_from<8>(push); break;
+      case 10: each_from<10>(push); break;
+      case 12: each_from<12>(push); break;
+      default: each_from<14>(push);
     }
+    cluster.sync();
   } else {
-    TOut* o_r = yr + base;
-    TOut* o_i = yi + base;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int k2 = idx / T;
-      const int c = idx - k2 * T;
-      const long long g = static_cast<long long>(k2) * n1 + k1_0 + c;
-      st(o_r, g, y[idx].x);
-      st(o_i, g, sgn * y[idx].y);
+#pragma unroll
+    for (int s = 0; s < kE; ++s) {
+      const int a = swizzle(c * m + ti + s * tpl, sw);
+      sre[a] = v[s].x;
+      sim[a] = v[s].y;
+    }
+    __syncthreads();
+  }
+  // read idx is output row k2 = rank * slice + idx / T, column k1_0 +
+  // idx mod T (word (idx mod T) * slice + idx / T): a warp stores 32 / T
+  // runs of T consecutive k1
+  const int tsh = __ffs(T) - 1;
+  const long long half = static_cast<long long>(n1) * (m / 2);
+#pragma unroll
+  for (int s = 0; s < kE; ++s) {
+    const int idx = threadIdx.x + s * blockDim.x;
+    const int a = swizzle((idx & (T - 1)) * slice + (idx >> tsh), sw);
+    const long long k =
+        static_cast<long long>(rank * slice + (idx >> tsh)) * n1 + k1_0 +
+        (idx & (T - 1));
+    if constexpr (kStore == kHalf) {
+      if (k <= half) {
+        st(yr, row * (half + 1) + k, sre[a]);
+        st(yi, row * (half + 1) + k, sim[a]);
+      }
+    } else {
+      st(yr, base + k, sre[a]);
+      st(yi, base + k, sgn * sim[a]);
     }
   }
 }
 
-// steps: host int32 array, 6 entries per step
-// (mm, kb, bb, inner, f_off, tw_off); kb must divide mm, and a kb > 1 step
-// needs an even f_off (16-byte aligned table rows)
-int fill_plan(LinePlan* p, const int* steps, int nsteps) {
-  if (nsteps < 1 || nsteps > kofft::kMaxSteps) return cudaErrorInvalidValue;
-  p->nsteps = nsteps;
-  for (int s = 0; s < nsteps; ++s) {
-    const int* q = steps + 6 * s;
-    p->mm[s] = q[0];
-    p->kb[s] = q[1];
-    p->bb[s] = q[2];
-    p->inner[s] = q[3];
-    p->f_off[s] = q[4];
-    p->tw_off[s] = q[5];
-    const bool kb_ok = q[1] == 1 || ((q[1] == 4 || q[1] == 8) &&
-                                     q[0] % q[1] == 0 && q[4] % 2 == 0);
-    if (!kb_ok) return cudaErrorInvalidValue;
-  }
-  return cudaSuccess;
-}
-
-// Each instance of a launcher keeps its own record of the dynamic shared
-// memory already allowed per device (the attribute is per kernel function).
-template <bool kReal, typename TIn = float, typename TOut = float>
-int launch_stage1(const void* ar, const void* ai, void* cr, void* ci,
-                  int b, int n1, int n2, int T, const int* steps, int nsteps,
-                  const void* tab, const float* ebr, const float* ebi,
-                  const float* ecr, const float* eci, int tw_t, int conj,
+// Each launcher instance keeps its own record of the dynamic shared memory
+// already allowed per device (the attribute is per kernel function).
+template <bool kReal, typename TIn, typename TOut>
+int launch_stage1(const void* ar, const void* ai, void* yr, void* yi,
+                  int rows, int m, int inner, int T, const RadixPlan& p,
+                  const void* tab, int conj, const void* tw, int tw_div,
+                  int swap, const void* wb, const void* wc, int tw_t,
                   int device, void* stream) {
-  LinePlan p;
-  int r = fill_plan(&p, steps, nsteps);
-  if (r != cudaSuccess) return r;
-  if (T < 1 || n2 % T != 0 || n2 % tw_t != 0) return cudaErrorInvalidValue;
-  const int smem = static_cast<int>(2 * sizeof(float2) * n1 * T);
+  const long long threads = static_cast<long long>(T) * (m / kE);
+  const long long grid =
+      static_cast<long long>(rows) * (inner / (T > 0 ? T : 1));
+  if (T < 1 || m % kE != 0 || inner % T != 0 || threads > kMaxThreads ||
+      rows < 1 || swap < 1 || rows % swap != 0 ||
+      (tw != nullptr && (tw_div < 1 || inner % tw_div != 0)) ||
+      (wb != nullptr && (wc == nullptr || tw_t < 1 || inner % tw_t != 0)) ||
+      grid > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  const int smem = static_cast<int>(2 * sizeof(float) * m * T);
   static int allowed[kMaxDevices];
   const auto kernel = stage1_kernel<kReal, TIn, TOut>;
-  r = prepare(reinterpret_cast<const void*>(kernel), allowed, device, smem);
+  const int r =
+      prepare(reinterpret_cast<const void*>(kernel), allowed, device, smem);
   if (r != cudaSuccess) return r;
-  const unsigned grid = static_cast<unsigned>(b) * (n2 / T);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(grid), static_cast<unsigned>(threads), smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const TIn*>(ar), static_cast<const TIn*>(ai),
-      static_cast<TOut*>(cr), static_cast<TOut*>(ci), n1, n2, T, p,
-      static_cast<const float2*>(tab), ebr, ebi, ecr, eci, tw_t,
-      conj ? -1.f : 1.f);
+      static_cast<TOut*>(yr), static_cast<TOut*>(yi), m, inner, T, p,
+      static_cast<const float2*>(tab), conj ? -1.f : 1.f,
+      static_cast<const float2*>(tw), tw == nullptr ? 1 : tw_div, swap,
+      static_cast<const float2*>(wb), static_cast<const float2*>(wc),
+      wb == nullptr ? 1 : tw_t);
   return cudaGetLastError();
 }
 
-template <int kStore, typename TIn = float, typename TOut = float>
-int launch_stage2(const void* cr, const void* ci, void* yr, void* yi,
-                  int b, int n1, int n2, int T, const int* steps, int nsteps,
-                  const void* tab, int conj, int device, void* stream) {
-  LinePlan p;
-  int r = fill_plan(&p, steps, nsteps);
-  if (r != cudaSuccess) return r;
-  if (T < 1 || n1 % T != 0 || (kStore == kHalf && n2 % 2 != 0))
-    return cudaErrorInvalidValue;
-  const int smem = static_cast<int>(2 * sizeof(float2) * n2 * T);
+template <int kStore, bool kCluster, typename TIn, typename TOut>
+int launch_stage2_kernel(const void* cr, const void* ci, void* yr, void* yi,
+                         int b, int n1, int m, int T, int tc,
+                         const RadixPlan& p, const void* tab, int conj,
+                         int device, void* stream) {
+  const int csize = T / tc;
+  const int threads = tc * (m / kE);
+  if (kCluster && threads != kClusterThreads) return cudaErrorInvalidValue;
+  const long long grid = static_cast<long long>(b) * (n1 / T) * csize;
+  const int smem = static_cast<int>(2 * sizeof(float) * m * tc);
   static int allowed[kMaxDevices];
-  const auto kernel = stage2_kernel<kStore, TIn, TOut>;
-  r = prepare(reinterpret_cast<const void*>(kernel), allowed, device, smem);
+  // bit c: a cluster of c CTAs was checked to fit, per device
+  static int fits[kMaxDevices];
+  const auto kernel = stage2_kernel<kStore, kCluster, TIn, TOut>;
+  int r = prepare(reinterpret_cast<const void*>(kernel), allowed, device,
+                  smem);
   if (r != cudaSuccess) return r;
-  const unsigned grid = static_cast<unsigned>(b) * (n1 / T);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const TIn*>(cr), static_cast<const TIn*>(ci),
-      static_cast<TOut*>(yr), static_cast<TOut*>(yi), n1, n2, T, p,
-      static_cast<const float2*>(tab), conj ? -1.f : 1.f);
-  return cudaGetLastError();
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const TIn* a_r = static_cast<const TIn*>(cr);
+  const TIn* a_i = static_cast<const TIn*>(ci);
+  TOut* o_r = static_cast<TOut*>(yr);
+  TOut* o_i = static_cast<TOut*>(yi);
+  const float2* t = static_cast<const float2*>(tab);
+  const float sgn = conj ? -1.f : 1.f;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (!kCluster) {
+    kernel<<<static_cast<unsigned>(grid), threads, smem, s>>>(
+        a_r, a_i, o_r, o_i, n1, m, T, tc, p, t, sgn);
+    return cudaGetLastError();
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(grid));
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = csize;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if (!(fits[device] >> csize & 1)) {
+      int clusters = 0;
+      r = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+      if (r != cudaSuccess) return r;
+      if (clusters < 1) return cudaErrorInvalidConfiguration;
+      fits[device] |= 1 << csize;
+    }
+    r = cudaLaunchKernelEx(&cfg, kernel, a_r, a_i, o_r, o_i, n1, m, T, tc, p,
+                           t, sgn);
+    if (r != cudaSuccess) return r;
+    return cudaGetLastError();
+  }
 }
 
-// The launchers by I/O form: in_bf16 / out_bf16 select bf16 loaded planes
-// and bf16 stored planes. Stage 1 has no f32 -> bf16 form.
+template <int kStore, typename TIn, typename TOut>
+int launch_stage2(const void* cr, const void* ci, void* yr, void* yi, int b,
+                  int n1, int m, int T, int tc, const RadixPlan& p,
+                  const void* tab, int conj, int device, void* stream) {
+  if (T < 1 || (T & (T - 1)) != 0 || tc < 1 || T % tc != 0 ||
+      T / tc > kMaxCluster || n1 % T != 0 || m % kE != 0 ||
+      m % (T / tc) != 0 || tc * (m / kE) > kMaxThreads ||
+      b < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if (T == tc) {
+    return launch_stage2_kernel<kStore, false, TIn, TOut>(
+        cr, ci, yr, yi, b, n1, m, T, tc, p, tab, conj, device, stream);
+  }
+  return launch_stage2_kernel<kStore, true, TIn, TOut>(
+      cr, ci, yr, yi, b, n1, m, T, tc, p, tab, conj, device, stream);
+}
+
+// The instances by I/O form: in_bf16 / out_bf16 select bf16 loaded planes
+// and bf16 stored planes (stage 1 from a real plane has no f32 -> bf16
+// form)
 template <bool kReal, typename... Args>
 int stage1_forms(int in_bf16, int out_bf16, Args... a) {
-  if (!in_bf16 && !out_bf16)
-    return launch_stage1<kReal, float, float>(a...);
-  if (in_bf16 && !out_bf16)
-    return launch_stage1<kReal, bf16, float>(a...);
+  if (!in_bf16 && !out_bf16) return launch_stage1<kReal, float, float>(a...);
+  if (in_bf16 && !out_bf16) return launch_stage1<kReal, bf16, float>(a...);
   if (in_bf16 && out_bf16) return launch_stage1<kReal, bf16, bf16>(a...);
-  return cudaErrorInvalidValue;
+  if constexpr (kReal) {
+    return cudaErrorInvalidValue;
+  } else {
+    return launch_stage1<false, float, bf16>(a...);
+  }
 }
 
 template <int kStore, typename... Args>
@@ -303,47 +437,50 @@ int stage2_forms(int in_bf16, int out_bf16, Args... a) {
 
 }  // namespace
 
-extern "C" int kofft_stage1(const void* ar, const void* ai, void* cr,
-                            void* ci, int b, int n1, int n2, int T,
-                            const int* steps, int nsteps, const void* tab,
-                            const float* ebr, const float* ebi,
-                            const float* ecr, const float* eci, int tw_t,
-                            int conj, int in_bf16, int out_bf16, int device,
+// One launch of stage1_kernel over the (rows, m, inner) view: line FFTs of
+// length m along axis 1 (real = 1: one real plane ar, ai is not read; conj
+// negates the imaginary part on load), stored with the optional split
+// twiddle (tw, tw_div), digit swap (swap) and four-step twiddle (wb, wc,
+// tw_t; hopper_kernels._stage1_twiddle). T columns per block, steps /
+// npass / tab from hopper_kernels._axis_plan. The I/O forms: f32 -> f32,
+// bf16 -> f32 and bf16 -> bf16, and complex f32 -> bf16 for the split's
+// second launch.
+extern "C" int kofft_stage1(const void* ar, const void* ai, void* yr,
+                            void* yi, int rows, int m, int inner, int T,
+                            const int* steps, int npass, const void* tab,
+                            int conj, const void* tw, int tw_div, int swap,
+                            const void* wb, const void* wc, int tw_t,
+                            int real, int in_bf16, int out_bf16, int device,
                             void* stream) {
-  return stage1_forms<false>(in_bf16, out_bf16, ar, ai, cr, ci, b, n1, n2, T,
-                             steps, nsteps, tab, ebr, ebi, ecr, eci, tw_t,
-                             conj, device, stream);
+  RadixPlan p;
+  const int r = fill_plan(&p, steps, npass, m, kE);
+  if (r != cudaSuccess) return r;
+  if (real) {
+    return stage1_forms<true>(in_bf16, out_bf16, ar, ai, yr, yi, rows, m,
+                              inner, T, p, tab, 0, tw, tw_div, swap, wb, wc,
+                              tw_t, device, stream);
+  }
+  return stage1_forms<false>(in_bf16, out_bf16, ar, ai, yr, yi, rows, m,
+                             inner, T, p, tab, conj, tw, tw_div, swap, wb,
+                             wc, tw_t, device, stream);
 }
 
-// ar: one real (b, n1, n2) plane
-extern "C" int kofft_stage1_real(const void* ar, void* cr, void* ci, int b,
-                                 int n1, int n2, int T, const int* steps,
-                                 int nsteps, const void* tab,
-                                 const float* ebr, const float* ebi,
-                                 const float* ecr, const float* eci,
-                                 int tw_t, int in_bf16, int out_bf16,
-                                 int device, void* stream) {
-  return stage1_forms<true>(in_bf16, out_bf16, ar, nullptr, cr, ci, b, n1,
-                            n2, T, steps, nsteps, tab, ebr, ebi, ecr, eci,
-                            tw_t, 0, device, stream);
-}
-
+// C (b, n1, n2) -> (b, n2, n1), or (half = 1) the one-sided (b, n/2 + 1)
+// planes; conj negates the imaginary part on store (not with half). T
+// lines per tile, tc per CTA (a cluster of T / tc CTAs when tc < T);
+// steps / npass / tab from hopper_kernels._stage2_plan.
 extern "C" int kofft_stage2(const void* cr, const void* ci, void* yr,
-                            void* yi, int b, int n1, int n2, int T,
-                            const int* steps, int nsteps, const void* tab,
-                            int conj, int in_bf16, int out_bf16, int device,
-                            void* stream) {
+                            void* yi, int b, int n1, int n2, int T, int tc,
+                            const int* steps, int npass, const void* tab,
+                            int conj, int half, int in_bf16, int out_bf16,
+                            int device, void* stream) {
+  RadixPlan p;
+  const int r = fill_plan(&p, steps, npass, n2, kE);
+  if (r != cudaSuccess) return r;
+  if (half) {
+    return stage2_forms<kHalf>(in_bf16, out_bf16, cr, ci, yr, yi, b, n1, n2,
+                               T, tc, p, tab, 0, device, stream);
+  }
   return stage2_forms<kTransposed>(in_bf16, out_bf16, cr, ci, yr, yi, b, n1,
-                                   n2, T, steps, nsteps, tab, conj, device,
-                                   stream);
-}
-
-// yr, yi: one-sided (b, n1*n2/2 + 1) planes
-extern "C" int kofft_stage2_half(const void* cr, const void* ci, void* yr,
-                                 void* yi, int b, int n1, int n2, int T,
-                                 const int* steps, int nsteps,
-                                 const void* tab, int in_bf16, int out_bf16,
-                                 int device, void* stream) {
-  return stage2_forms<kHalf>(in_bf16, out_bf16, cr, ci, yr, yi, b, n1, n2,
-                             T, steps, nsteps, tab, 0, device, stream);
+                                   n2, T, tc, p, tab, conj, device, stream);
 }

@@ -1,36 +1,20 @@
-// Block-wide line FFT in shared memory: the Hopper counterpart of
-// _fft_axis0_traced (kofft_tpu/ops/pallas_kernels.py:378-412).
+// Block-wide line FFT in shared memory by dense DFT leaves, the recursion
+// of _fft_axis0_traced (kofft_tpu/ops/pallas_kernels.py:378-412). Only
+// stage 1 of a smooth n1 = o * 2^a runs it (smooth_stage.cu): the register
+// radix line (radix_line.cuh) serves every power-of-two line.
 //
 // A block holds T lines of length m as an (m, T) array of float2 in shared
-// memory: element (j, c) at j*T + c, line index major, line c minor. The
-// transform is the recursive four-step of the JAX routine, m = a*b,
-// j = ja*b + jb, output k = ka + a*kb in natural order, with dense
-// DFT-matrix leaves of size <= 128 (_ML_LEAF). Every recursion level works
-// on the whole buffer, so the host flattens the recursion into a chain of
-// steps (LinePlan). Step s views its source as (mm, R), R = total / mm,
-// and computes y[k, r] = sum_j F[j, k] x[j, r] with the (mm, mm) leaf DFT.
-// A step with bb > 1 is the leaf of the leading factor a = mm of a split
-// m' = a*b (b = bb): R = b*inner, r = jb*inner + c, and the step fuses the
-// inter-level twiddle tw[ka, jb] = w_{m'}^{ka*jb} and the (a, b) -> (b, a)
-// digit swap into its store. The last step (bb == 1) is the plain leaf.
-// On every size the stage kernels serve, the leading factor of each split
-// is itself a leaf (the host asserts it), so this chain is the whole
-// recursion.
-//
-// Real input (rfft stage 1, _fft_axis0_traced with xi=None): the source
-// of the first step holds (m, T) floats, not float2, and that step does
-// 2 FFMAs per MAC instead of 4 (y = F_re x + i F_im x). No zero imaginary
-// part is stored or read.
-//
-// Cost: a dense leaf costs mm complex MACs per point, so a line of 1024
-// (32 x 32) costs 64 MACs per point and a line of 8192 (64 x 128) 192.
-// Each thread computes KB outputs k of one column r (register blocking,
-// KB = 8, 4 or 1 as the host plan picks per step): the shared-memory
-// operand x[j, r] is read once for KB MACs, and the table row F[j, k0..]
-// is the same address across the warp (a broadcast), read two entries
-// per 16-byte load. The pair is bound by the load/store unit and the
-// FFMA pipe, not by HBM. Radix butterflies or tensor-core leaves are the
-// later fix.
+// memory: element (j, c) at j*T + c. The recursion m = a*b, j = ja*b + jb,
+// output k = ka + a*kb, with dense DFT-matrix leaves of size <= 128
+// (_ML_LEAF), is flattened by the host into a chain of steps (LinePlan):
+// step s views its source as (mm, R), R = total / mm, computes y[k, r] =
+// sum_j F[j, k] x[j, r], and, for the leading factor of a split (bb > 1),
+// fuses the twiddle w_{m'}^{ka*jb} and the (a, b) -> (b, a) digit swap into
+// its store. Real input: the first step reads (m, T) floats and does 2
+// FFMAs per MAC. Each thread computes KB = 8, 4 or 1 outputs of one column
+// (register blocking), reading the table two entries per 16-byte load.
+// A leaf costs mm complex MACs per point (a smooth line of 768 = 3 * 256
+// splits into leaves of 16 and 48: 64 MACs per point).
 #pragma once
 
 #include <cuda_runtime.h>

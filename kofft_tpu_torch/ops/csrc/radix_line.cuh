@@ -235,5 +235,31 @@ __device__ __forceinline__ void line_fft(float2 (&v)[E], int ti, int tpl,
   }
 }
 
+// steps: host int32 array, 7 entries per pass (R, Ns, tw_off, x1, y1, x2,
+// y2), hopper_kernels._axis_plan. The radices must multiply to m, none
+// above E, each Ns the product of the radices before it. The last pass's
+// swizzle is that of an exchange after the line FFT, where a kernel has
+// one (stage 2's transposed store).
+inline int fill_plan(RadixPlan* p, const int* steps, int npass, int m,
+                     int E) {
+  if (npass < 1 || npass > kMaxPasses) return cudaErrorInvalidValue;
+  p->npass = npass;
+  int ns = 1;
+  for (int s = 0; s < npass; ++s) {
+    const int* q = steps + 7 * s;
+    const int r = q[0];
+    if ((r != 2 && r != 4 && r != 8 && r != 16) || r > E || q[1] != ns ||
+        q[2] < 0) {
+      return cudaErrorInvalidValue;
+    }
+    p->radix[s] = r;
+    p->ns[s] = ns;
+    p->tw_off[s] = q[2];
+    for (int i = 0; i < 4; ++i) p->sw[s][i] = q[3 + i];
+    ns *= r;
+  }
+  return ns == m ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 }  // namespace radix
 }  // namespace kofft

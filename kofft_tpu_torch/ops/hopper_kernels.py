@@ -10,16 +10,20 @@ through three Pallas forms: the phased one-call kernel in its flat
 (single transform) and tiled-grid (batched) forms, and the two-call pair
 ``_build_ml``. They compute the same thing and differ only in where the
 TPU kept the inter-stage matrix C and in layouts Mosaic forced on them.
-On Hopper they are two CUDA kernels (``csrc/fft_stages.cu``), ``stage1``
-(column FFTs of length n1, then the twiddle) and ``stage2`` (row FFTs of
-length n2, written transposed), both built on one block-wide line FFT
-(``csrc/line_fft.cuh``). The routing still picks a class per shape, as
-the JAX function does, and counts it in ``classes`` so a run shows which
-TPU-kernel class it went through; ``launches`` counts the CUDA launches.
-The real FFT runs two more instances of the same kernels, ``stage1_real``
-(one real input plane, a first leaf with two real products) and
-``stage2_half`` (only the one-sided bins k <= n/2 stored, the Nyquist bin
-included), counted by the classes of the JAX real forms.
+On Hopper they are two CUDA kernels (``csrc/fft_stages.cu``) on the
+register radix line FFT (``csrc/radix_line.cuh``): ``stage1`` (column
+FFTs of length n1 in tiles of >= 8 columns, the twiddle fused into the
+store; above 2048 points a column four-step of two launches) and
+``stage2`` (row FFTs of length n2, stored transposed through the
+exchange buffer; lines of 4096 and 8192 through a thread-block cluster).
+A smooth n1 = o * 2^a keeps the dense-leaf chain of ``csrc/line_fft.cuh``
+for stage 1 (``csrc/smooth_stage.cu``). The routing still picks a class
+per shape, as the JAX function does, and counts it in ``classes`` so a
+run shows which TPU-kernel class it went through; ``launches`` counts
+the wrapper calls that launched a kernel. The real FFT runs two more
+instances of the same kernels, ``stage1_real`` (one real input plane)
+and ``stage2_half`` (only the one-sided bins k <= n/2 stored, the Nyquist
+bin included), counted by the classes of the JAX real forms.
 
 The N-D FFT's three Pallas kernels (the one-call 2-D kernel, the two-call
 2-D pair and the fused all-axes kernel) compute DFTs along axes with no
@@ -82,9 +86,10 @@ _PHASED_MAX_N = 1 << 22   # phased one-call cap, 6-pass tiers
 _PHASED_MAX_N_DEFAULT = 1 << 24   # phased cap, `default` tier
 _PHASED_FLAT_MAX_N = 1 << 21      # flat (rank-1 output) phased cap
 _PHASED_FLAT_REAL_MAX_N = 1 << 23  # the same for the real form
-# shared memory of one stage block (two buffers). 64 KB lets up to three
-# blocks share an SM so loads, leaf work and stores of different blocks
-# overlap: 8 x 2^20 measured 940 -> 704 us against 128 KB (H100, 700 W)
+# shared memory of one dense-chain stage-1 block (two buffers; smooth n1
+# only). 64 KB lets up to three blocks share an SM so loads, leaf work and
+# stores of different blocks overlap: 8 x 2^20 measured 940 -> 704 us
+# against 128 KB (H100, 700 W)
 _SMEM_BYTES = 64 * 1024
 
 # the longest line col_fft and row_fft take (the N-D zones' longest axis)
@@ -449,9 +454,11 @@ def stage2_half_plain(cr, ci, dtype=_F32):
 # ---------------------------------------------------------------------------
 
 def _kernel_tile(m: int) -> int:
-    """Lines per block: the largest power of two T <= 16 whose two (m, T)
-    float2 buffers fit _SMEM_BYTES, else 1 (T = 4 at m = 1024; a single
-    line of 8192 takes 128 KB, within the 227 KB a block may have)."""
+    """Lines per block of the dense-chain stage 1, which only a smooth n1
+    runs (``csrc/smooth_stage.cu``): the largest power of two T <= 16
+    whose two (m, T) float2 buffers fit _SMEM_BYTES, else 1 (T = 4 at m =
+    1024; a single line of 8192 takes 128 KB, within the 227 KB a block
+    may have)."""
     t = 16
     while t > 1 and 16 * m * t > _SMEM_BYTES:
         t //= 2
@@ -476,18 +483,21 @@ def _leaf_kb(mm: int, kb_max: int) -> int:
 
 
 def _grid_kb(blocks: int, sms: int) -> int:
-    """Register blocking for a launch of ``blocks`` blocks on ``sms`` SMs.
-    Measured on the H100 (back-to-back device time, 700 W): 8 outputs per
-    thread win on grids of at most ~4 blocks per SM (2^20: 96.7 -> 76.6
-    us, 3*2^18: 92.1 -> 67.2) and lose 3-11 % on large grids (8 x 2^20,
-    2^24, 2^26), where 4 is kept. Why 8 loses there is still open."""
+    """Register blocking of the dense chain (smooth n1 only) for a launch
+    of ``blocks`` blocks on ``sms`` SMs. Measured on the H100
+    (back-to-back device time, 700 W): 8 outputs per thread win on grids
+    of at most ~4 blocks per SM (2^20: 96.7 -> 76.6 us, 3*2^18: 92.1 ->
+    67.2) and lose 3-11 % on large grids (8 x 2^20, 2^24, 2^26), where 4
+    is kept. Why 8 loses there is still open."""
     return 8 if blocks <= 4 * sms else 4
 
 
 def _line_plan(m: int, t: int, kb_max: int = 8):
-    """The flattened line-FFT chain for (m, t) blocks: an int32 array of
-    (mm, kb, bb, inner, f_off, tw_off) per step, and the float2-interleaved
-    float32 table buffer the offsets point into. Every table starts at an
+    """The flattened dense line-FFT chain for (m, t) blocks
+    (``csrc/line_fft.cuh``; the stage kernels run it only for a smooth
+    n1): an int32 array of (mm, kb, bb, inner, f_off, tw_off) per step,
+    and the float2-interleaved float32 table buffer the offsets point
+    into. Every table starts at an
     even float2 offset, so the kernel may read table rows 16 bytes at a
     time."""
     def build():
@@ -607,14 +617,21 @@ def _exchange_addrs(kind: str, m: int, t: int, e: int, radix: int, ns: int):
 def _pick_swizzle(kind: str, m: int, t: int, e: int, radix: int, ns: int):
     """The swizzle (x1, y1, x2, y2) of the exchange after pass (radix, ns)
     with the fewest bank conflicts over its writes and the next pass's
-    reads, one term where one suffices. Every address is an XOR of
-    disjoint bit fields (lane, instruction, warp), and the swizzle is
-    linear over GF(2), so the first warp's first write and read show the
-    conflicts of all of them (tests/test_torch_axis.py checks whole
+    reads (``_best_swizzle``)."""
+    return _best_swizzle(*_exchange_addrs(kind, m, t, e, radix, ns), m * t)
+
+
+def _best_swizzle(w, r, words: int):
+    """The swizzle (x1, y1, x2, y2) with the fewest bank conflicts over the
+    logical words ``w`` written and ``r`` read (each (threads, E), in
+    issue order) of a buffer of ``words`` words, one term where one
+    suffices. Every address is an XOR of disjoint bit fields (lane,
+    instruction, warp), and the swizzle is linear over GF(2), so the first
+    warp's first write and read show the conflicts of all of them
+    (tests/test_torch_axis.py and tests/test_torch_stage.py check whole
     blocks)."""
-    w, r = _exchange_addrs(kind, m, t, e, radix, ns)
     lanes = np.stack([w[:32, 0], r[:32, 0]])
-    hi = max(0, (m * t).bit_length() - 6)
+    hi = max(0, words.bit_length() - 6)
     cands = np.array([(x1, y1, x2, y2) for x2 in range(hi + 1)
                       for y2 in (5, 0, 1, 2, 3, 4) for x1 in range(hi + 1)
                       for y1 in range(5) if y2 == 5 or x2 > x1])
@@ -675,6 +692,90 @@ def _split_twiddle(m1: int, m2: int):
     return tables.custom(("splittw", m1, m2), build)
 
 
+# ---------------------------------------------------------------------------
+# the stage kernels' host plan (csrc/fft_stages.cu): stage 1 on col_fft's
+# tiles and column four-step, stage 2 on whole-line tiles with the
+# transposed store through the exchange buffer or a cluster
+# ---------------------------------------------------------------------------
+
+_STAGE_E = 16             # points per thread: stage lines have >= 128 points
+_ROW_MIN_TILE = 8         # lines k1 per stage-2 tile: >= 32-byte store runs
+_ROW_CLUSTER_ABOVE = 2048  # longer stage-2 lines: a cluster holds the tile
+_CLUSTER_CTA_THREADS = 512  # threads of each CTA of a stage-2 cluster
+
+
+def _stage2_tile(m: int) -> tuple:
+    """(T, Tc) of a stage-2 launch on lines of m points: a tile of T >= 8
+    consecutive lines k1, so that the transposed store writes >= 32-byte
+    runs of k1 into each output row k2, and Tc of them per CTA. Up to
+    _ROW_CLUSTER_ABOVE one block holds the tile (T*m/16 threads: 256 up to
+    lines of 512, 512 at 1024, 1024 at 2048; T = 32 at 128 and 16 at 256).
+    Longer lines: a cluster of T/Tc CTAs of 512 threads, each holding
+    Tc = 8192/m whole lines (4 x (4096, 2), 8 x (8192, 1))."""
+    if m > _ROW_CLUSTER_ABOVE:
+        return _ROW_MIN_TILE, _CLUSTER_CTA_THREADS * _STAGE_E // m
+    t = max(_ROW_MIN_TILE, _AXIS_THREADS * _STAGE_E // m)
+    return t, t
+
+
+def _transpose_addrs(m: int, t: int, tc: int, rank: int = 0):
+    """Logical words of stage 2's transposed exchange, each (threads, E) in
+    issue order: those the threads of CTA ``rank`` write (point k2 of tile
+    line c = rank*Tc + line to word c*slice + k2 mod slice of CTA k2 //
+    slice, slice = m*Tc/T: a warp writes one 128-byte row) and those every
+    CTA reads back (read i = thread + s*threads is output row i // T,
+    column i mod T of its slice: word (i mod T)*slice + i // T)."""
+    cl, ti = _axis_lanes("row", m, tc, _STAGE_E)
+    tpl = m // _STAGE_E
+    sl = m * tc // t
+    w = np.stack([(rank * tc + cl) * sl + (ti + s * tpl) % sl
+                  for s in range(_STAGE_E)], axis=1)
+    n = tc * tpl
+    i = np.arange(n)[:, None] + np.arange(_STAGE_E)[None, :] * n
+    return w, (i % t) * sl + i // t
+
+
+def _stage2_plan(m: int, t: int, tc: int):
+    """The radix plan of a stage-2 launch: ``_axis_plan`` of Tc lines of m
+    per CTA, with the last pass's swizzle (which radix_line.cuh does not
+    use) set to that of the transposed exchange after it."""
+    def build():
+        steps, tab = _axis_plan("row", m, tc, _STAGE_E)
+        steps = steps.copy()
+        steps[-4:] = _best_swizzle(*_transpose_addrs(m, t, tc), m * tc)
+        return steps, tab
+
+    return tables.custom(("stage2plan", m, t, tc), build)
+
+
+def _stage1_twiddle(n1: int, n2: int):
+    """The four-step twiddle's factored tables (``_twiddle_factors``, t =
+    min(128, n1)) float2-interleaved, so that each factor is one 8-byte
+    load: base (n1, t) and col (n1, n2/t)."""
+    def build():
+        br, bi, cr, ci = _twiddle_factors(n1, n2, min(_ML_TILE, n1),
+                                          "float32")
+        return (np.stack([br, bi], axis=-1).ravel(),
+                np.stack([cr, ci], axis=-1).ravel())
+
+    return tables.custom(("stage1tw", n1, n2), build)
+
+
+def _stage1_views(n1: int, n2: int) -> list:
+    """The column launches of a power-of-two stage 1, each (rows per batch
+    row, m, inner, split twiddle or None, tw_div, swap): one over (b, n1,
+    n2) up to _COL_SPLIT_ABOVE, else the column four-step of
+    ``_col_split``: lines of m1 over (b, m1, m2*n2) with w_n1^(k1a*j1b),
+    then lines of m2 over (b*m1, m2, n2) stored to row k1b*m1 + k1a. The
+    four-step twiddle W rides on the last launch's store."""
+    split = _col_split(n1)
+    if split is None:
+        return [(1, n1, n2, None, 1, 1)]
+    m1, m2 = split
+    return [(1, m1, m2 * n2, _split_twiddle(m1, m2), n2, 1),
+            (m1, m2, n2, None, 1, m1)]
+
+
 def _check_planes(xr, xi, what: str, dtypes: tuple = (_F32,)) -> None:
     # one condition, message built only on failure: this runs on every
     # launch, and formatting eagerly cost ~25 us of host time per call
@@ -710,37 +811,54 @@ tables.on_clear(_ARGS.clear)
 def _static_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
     """The launch arguments that depend only on the kernel kind ("stage1",
     "stage2", "col" or "row"), the (b, n1, n2) shape and the device, built
-    once. "stage1" and "stage2" (lines of n1 along axis 1, lines of n2
-    along the last axis): (T, steps pointer, step count, table
-    pointers...), only "stage1" with twiddle tables. "col" (lines of n1
-    along axis 1, tiles of n2 columns) and "row" (lines of n2, b*n1 of
-    them): (T, E, plan pointer, pass count, table pointer) of
-    ``_axis_tile`` and ``_axis_plan``. The host side of a launch is on the
-    2^20 critical path (the transform was host-bound there), so nothing is
-    rebuilt per call."""
+    once; the cached host and device tables keep every pointer alive.
+    - "col" (lines of n1 along axis 1, tiles of n2 columns) and "row"
+      (lines of n2, b*n1 of them): (T, E, plan pointer, pass count, table
+      pointer) of ``_axis_tile`` and ``_axis_plan``.
+    - "stage2": (T, Tc, plan pointer, pass count, table pointer) of
+      ``_stage2_tile`` and ``_stage2_plan``.
+    - "stage1": (base twiddle pointer, col twiddle pointer, launches).
+      A power-of-two n1 has one or two column launches
+      (``_stage1_views``), each (rows per batch row, m, inner, T, plan
+      pointer, pass count, table pointer, split twiddle pointer or None,
+      tw_div, swap); a smooth n1 has launches None and the dense chain's
+      (T, steps pointer, step count, table pointer) after it.
+    The host side of a launch is on the 2^20 critical path (the transform
+    was host-bound there), so nothing is rebuilt per call."""
     key = (kind, b, n1, n2, dev.index)
     hit = _ARGS.get(key)
-    if hit is None and kind in ("col", "row"):
+    if hit is not None:
+        return hit
+    if kind in ("col", "row"):
         m, count = (n1, n2) if kind == "col" else (n2, b * n1)
         t, e = _axis_tile(kind, m, count)
         steps, tab = _axis_plan(kind, m, t, e)
-        # the cached host and device tables keep every pointer alive
         hit = (t, e, steps.ctypes.data, len(steps) // 7,
                const(tab, dev).data_ptr())
-        _ARGS[key] = hit
-    elif hit is None:
-        m, other = (n1, n2) if kind == "stage1" else (n2, n1)
-        t = _kernel_tile(m)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        steps, tab = _line_plan(m, t, _grid_kb(b * (other // t), sms))
-        tabs = [const(tab, dev)]
-        if kind == "stage1":
-            tabs += [const(a, dev) for a in
-                     _twiddle_factors(n1, n2, min(_ML_TILE, n1), "float32")]
-        # the cached host and device tables keep every pointer alive
-        hit = (t, steps.ctypes.data, len(steps) // 6,
-               *[x.data_ptr() for x in tabs])
-        _ARGS[key] = hit
+    elif kind == "stage2":
+        t, tc = _stage2_tile(n2)
+        steps, tab = _stage2_plan(n2, t, tc)
+        hit = (t, tc, steps.ctypes.data, len(steps) // 7,
+               const(tab, dev).data_ptr())
+    else:
+        wb, wc = (const(a, dev).data_ptr() for a in _stage1_twiddle(n1, n2))
+        if n1 & (n1 - 1):
+            t = _kernel_tile(n1)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            steps, tab = _line_plan(n1, t, _grid_kb(b * (n2 // t), sms))
+            hit = (wb, wc, None, t, steps.ctypes.data, len(steps) // 6,
+                   const(tab, dev).data_ptr())
+        else:
+            views = []
+            for rows, m, inner, tw, tw_div, swap in _stage1_views(n1, n2):
+                t, e = _axis_tile("col", m, inner)
+                steps, tab = _axis_plan("col", m, t, e)
+                views.append((rows, m, inner, t, steps.ctypes.data,
+                              len(steps) // 7, const(tab, dev).data_ptr(),
+                              None if tw is None else const(tw, dev)
+                              .data_ptr(), tw_div, swap))
+            hit = (wb, wc, tuple(views))
+    _ARGS[key] = hit
     return hit
 
 
@@ -750,28 +868,70 @@ def _stream(dev) -> int:
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
+def _stage1_kernel(ar, ai, conj: bool, c_dtype):
+    """Stage 1 on CUDA planes (``ai=None``: one real plane) into a new C of
+    ``c_dtype``: the dense chain for a smooth n1, else one column launch
+    or the column four-step's two (``_static_args``)."""
+    from ._cuda_build import check, lib
+    b, n1, n2 = ar.shape
+    dev = ar.device
+    real = ai is None
+    in_bf = int(ar.dtype == _BF16)
+    wb, wc, views, *smooth = _static_args("stage1", b, n1, n2, dev)
+    cr = torch.empty(ar.shape, dtype=c_dtype, device=dev)
+    ci = torch.empty(ar.shape, dtype=c_dtype, device=dev)
+    src = (ar.data_ptr(), None if real else ai.data_ptr())
+    if views is None:
+        t, steps, nsteps, tab = smooth
+        check(lib().kofft_stage1_smooth(
+            *src, cr.data_ptr(), ci.data_ptr(), b, n1, n2, t, steps, nsteps,
+            tab, wb, wc, min(_ML_TILE, n1), int(conj), int(real), in_bf,
+            int(c_dtype == _BF16), dev.index, _stream(dev)), "stage1 launch")
+        return cr, ci
+    if len(views) == 2:
+        mid = (torch.empty(ar.shape, dtype=_F32, device=dev),
+               torch.empty(ar.shape, dtype=_F32, device=dev))
+        outs = [mid, (cr, ci)]
+    else:
+        outs = [(cr, ci)]
+    for i, (view, (yr, yi)) in enumerate(zip(views, outs)):
+        rows, m, inner, t, steps, npass, tab, tw, tw_div, swap = view
+        last = i == len(views) - 1
+        check(lib().kofft_stage1(
+            *src, yr.data_ptr(), yi.data_ptr(), b * rows, m, inner, t, steps,
+            npass, tab, int(conj and i == 0), tw, tw_div, swap,
+            wb if last else None, wc if last else None, min(_ML_TILE, n1),
+            int(real and i == 0), in_bf if i == 0 else 0,
+            int(yr.dtype == _BF16), dev.index, _stream(dev)), "stage1 launch")
+        src = (yr.data_ptr(), yi.data_ptr())
+    return cr, ci
+
+
+def _stage2_kernel(cr, ci, yr, yi, conj: bool, half: bool) -> None:
+    """Stage 2 on CUDA planes into yr, yi: (b, n2, n1), or the one-sided
+    (b, n/2 + 1) planes for ``half``."""
+    from ._cuda_build import check, lib
+    b, n1, n2 = cr.shape
+    dev = cr.device
+    t, tc, steps, npass, tab = _static_args("stage2", b, n1, n2, dev)
+    check(lib().kofft_stage2(
+        cr.data_ptr(), ci.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1,
+        n2, t, tc, steps, npass, tab, int(conj), int(half),
+        int(cr.dtype == _BF16), int(yr.dtype == _BF16), dev.index,
+        _stream(dev)), "stage2 launch")
+
+
 def stage1(ar, ai, conj: bool = False, c_dtype=_F32):
     """Stage 1: (b, n1, n2) float32 or bfloat16 planes -> C (b, n1, n2) of
     ``c_dtype`` (the forms of ``_IO_FORMS``). CUDA tensors launch the
-    kernel (one count in ``launches`` under the form's name); CPU tensors
-    run ``stage1_plain``."""
+    kernel (one count in ``launches`` under the form's name, also for the
+    column four-step's two launches above 2048 points); CPU tensors run
+    ``stage1_plain``."""
     _check_planes(ar, ai, "stage1", _IO_DTYPES)
     name = _form("stage1", ar.dtype, c_dtype)
     if ar.device.type == "cpu":
         return stage1_plain(ar, ai, conj, c_dtype)
-    from ._cuda_build import check, lib
-    b, n1, n2 = ar.shape
-    dev = ar.device
-    t, steps, nsteps, tab, ebr, ebi, ecr, eci = _static_args(
-        "stage1", b, n1, n2, dev)
-    cr = torch.empty(ar.shape, dtype=c_dtype, device=dev)
-    ci = torch.empty(ar.shape, dtype=c_dtype, device=dev)
-    err = lib().kofft_stage1(
-        ar.data_ptr(), ai.data_ptr(), cr.data_ptr(), ci.data_ptr(), b, n1,
-        n2, t, steps, nsteps, tab, ebr, ebi, ecr, eci, min(_ML_TILE, n1),
-        int(conj), int(ar.dtype == _BF16), int(c_dtype == _BF16), dev.index,
-        _stream(dev))
-    check(err, f"{name} launch")
+    cr, ci = _stage1_kernel(ar, ai, conj, c_dtype)
     launches[name] += 1
     return cr, ci
 
@@ -795,17 +955,10 @@ def stage2(cr, ci, conj: bool = False, out=None, dtype=_F32):
         yr.copy_(pr)
         yi.copy_(pi)
         return yr, yi
-    from ._cuda_build import check, lib
-    dev = cr.device
     if out is None:
-        yr = torch.empty((b, n2, n1), dtype=dtype, device=dev)
-        yi = torch.empty((b, n2, n1), dtype=dtype, device=dev)
-    t, steps, nsteps, tab = _static_args("stage2", b, n1, n2, dev)
-    err = lib().kofft_stage2(
-        cr.data_ptr(), ci.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1,
-        n2, t, steps, nsteps, tab, int(conj), int(cr.dtype == _BF16),
-        int(dtype == _BF16), dev.index, _stream(dev))
-    check(err, f"{name} launch")
+        yr = torch.empty((b, n2, n1), dtype=dtype, device=cr.device)
+        yi = torch.empty((b, n2, n1), dtype=dtype, device=cr.device)
+    _stage2_kernel(cr, ci, yr, yi, conj, False)
     launches[name] += 1
     return yr, yi
 
@@ -819,19 +972,7 @@ def stage1_real(ar, c_dtype=_F32):
     name = _form("stage1_real", ar.dtype, c_dtype)
     if ar.device.type == "cpu":
         return stage1_real_plain(ar, c_dtype)
-    from ._cuda_build import check, lib
-    b, n1, n2 = ar.shape
-    dev = ar.device
-    t, steps, nsteps, tab, ebr, ebi, ecr, eci = _static_args(
-        "stage1", b, n1, n2, dev)
-    cr = torch.empty(ar.shape, dtype=c_dtype, device=dev)
-    ci = torch.empty(ar.shape, dtype=c_dtype, device=dev)
-    err = lib().kofft_stage1_real(
-        ar.data_ptr(), cr.data_ptr(), ci.data_ptr(), b, n1, n2, t, steps,
-        nsteps, tab, ebr, ebi, ecr, eci, min(_ML_TILE, n1),
-        int(ar.dtype == _BF16), int(c_dtype == _BF16), dev.index,
-        _stream(dev))
-    check(err, f"{name} launch")
+    cr, ci = _stage1_kernel(ar, None, False, c_dtype)
     launches[name] += 1
     return cr, ci
 
@@ -845,18 +986,11 @@ def stage2_half(cr, ci, dtype=_F32):
     name = _form("stage2_half", cr.dtype, dtype)
     if cr.device.type == "cpu":
         return stage2_half_plain(cr, ci, dtype)
-    from ._cuda_build import check, lib
     b, n1, n2 = cr.shape
-    dev = cr.device
     h = n1 * n2 // 2 + 1
-    yr = torch.empty((b, h), dtype=dtype, device=dev)
-    yi = torch.empty((b, h), dtype=dtype, device=dev)
-    t, steps, nsteps, tab = _static_args("stage2", b, n1, n2, dev)
-    err = lib().kofft_stage2_half(
-        cr.data_ptr(), ci.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1,
-        n2, t, steps, nsteps, tab, int(cr.dtype == _BF16),
-        int(dtype == _BF16), dev.index, _stream(dev))
-    check(err, f"{name} launch")
+    yr = torch.empty((b, h), dtype=dtype, device=cr.device)
+    yi = torch.empty((b, h), dtype=dtype, device=cr.device)
+    _stage2_kernel(cr, ci, yr, yi, False, True)
     launches[name] += 1
     return yr, yi
 

@@ -59,23 +59,30 @@ def _planes(shape, dev, seed=0):
     return torch.as_tensor(a[0], device=dev), torch.as_tensor(a[1], device=dev)
 
 
-@pytest.mark.parametrize("b,n", [(1, 1 << 14), (8, 1 << 14), (2, 1 << 16),
-                                 (1, 3 << 18), (1, 23 << 14), (1, 9 << 14),
-                                 (1, 1 << 22)])
-def test_stages_match_plain(cuda, b, n):
+@pytest.mark.parametrize("b,n,conj", [
+    (1, 1 << 14, False), (8, 1 << 14, False), (2, 1 << 16, False),
+    (1, 3 << 18, False), (1, 23 << 14, False), (1, 9 << 14, False),
+    (1, 1 << 22, False), (1, 1 << 23, False), (1, 1 << 26, False),
+    (2, 1 << 16, True), (1, 3 << 18, True), (1, 1 << 23, True),
+    (1, 1 << 26, True)])
+def test_stages_match_plain(cuda, b, n, conj):
+    """Both stages against their plain versions at one-launch columns,
+    smooth n1 (the dense chain), a stage-2 cluster (2^23) and the column
+    four-step (2^26), forward and inverse; one count per wrapper call."""
     n1, n2 = HK._pow2_split(n)
     ar, ai = _planes((b, n1, n2), cuda)
     before = dict(HK.launches)
-    cr, ci = HK.stage1(ar, ai)
-    pr, pi = HK.stage1_plain(ar, ai)
+    cr, ci = HK.stage1(ar, ai, conj)
+    pr, pi = HK.stage1_plain(ar, ai, conj)
     assert snr_db(_np(pr, pi), _np(cr, ci)) >= PORT_DB
-    yr, yi = HK.stage2(cr, ci)
-    qr, qi = HK.stage2_plain(cr, ci)
+    yr, yi = HK.stage2(cr, ci, conj)
+    qr, qi = HK.stage2_plain(cr, ci, conj)
     torch.cuda.synchronize()
     assert snr_db(_np(qr, qi), _np(yr, yi)) >= PORT_DB
     assert HK.launches["stage1"] == before["stage1"] + 1
     assert HK.launches["stage2"] == before["stage2"] + 1
-    ref = np.fft.fft(_np(ar, ai).reshape(b, n), axis=-1)
+    x = _np(ar, ai).reshape(b, n)
+    ref = np.fft.ifft(x, axis=-1) * n if conj else np.fft.fft(x, axis=-1)
     assert snr_db(ref, _np(yr, yi).reshape(b, n)) > ORACLE_DB
 
 
@@ -262,13 +269,14 @@ def _form_cases():
             for f in forms if f != "ff"]
 
 
+@pytest.mark.parametrize("shape", [(2, 256, 512), (1, 2048, 4096)])
 @pytest.mark.parametrize("base,form", _form_cases())
-def test_bf16_forms_match_plain(cuda, base, form):
-    """Each bf16 I/O form against its plain version on the same input:
-    float32 outputs >= 110 dB, bf16 outputs >= 70 dB in bf16."""
+def test_bf16_forms_match_plain(cuda, base, form, shape):
+    """Each bf16 I/O form against its plain version on the same input, at
+    whole-block tiles and at 2048 x 4096 (a stage-2 cluster): float32
+    outputs >= 110 dB, bf16 outputs >= 70 dB in bf16."""
     loads, stores = (HK._LETTER_DTYPE[c] for c in form)
-    b, n1, n2 = 2, 256, 512
-    ar, ai = _planes((b, n1, n2), cuda, seed=14)
+    ar, ai = _planes(shape, cuda, seed=14)
     ar, ai = ar.to(loads), ai.to(loads)
     if base == "stage1":
         got = HK.stage1(ar, ai, c_dtype=stores)

@@ -24,7 +24,8 @@ call:
 Row groups (``kind`` / ``name`` / ``shape``): ``kernel`` col_fft and
 row_fft at the shapes of PERF.md section 6 ((1, 1024, 1024), the three
 128^3 views, (8, 512, 512), (1, 4096, 4096), (1, 8192, 8192)), stage1 and
-stage2 at (1, 1024, 1024) and (1, 8192, 8192); ``library`` torch.fft.fft
+stage2 at (1, 1024, 1024), (1, 2048, 2048), (1, 4096, 4096) and (1, 8192,
+8192); ``library`` torch.fft.fft
 along the same axis of the complex tensor (for stage2 of its C); ``route``
 fftn_split at 1024^2, (8, 512, 512), 4096^2, 8192^2 and 128^3, and
 torch.fft.fftn beside each; ``path`` fft_split and rfft_split at 2^20,
@@ -116,7 +117,8 @@ def main() -> int:
             row(pos, "library", f"torch.fft.fft(dim={dim})", shape,
                 lambda: torch.fft.fft(ac, dim=dim))
             del ar, ai, ac
-        for shape in [(1, 1024, 1024), (1, 8192, 8192)]:
+        for shape in [(1, 1024, 1024), (1, 2048, 2048), (1, 4096, 4096),
+                      (1, 8192, 8192)]:
             ar, ai = planes(shape)
             row(pos, "kernel", "stage1", shape, lambda: HK.stage1(ar, ai))
             cr, ci = HK.stage1(ar, ai)
