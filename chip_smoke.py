@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions run in full float32;
 2. build: nvcc builds every kernel source of the package, one process per
    source, all at once (timed), and the ptxas register / spill lines are
-   printed;
+   printed; cuobjdump -sass must show HGMMA (wgmma) in each of the dense
+   pair's four tensor-core instances;
 3. kernels vs plain: stage1 and stage2 against their plain PyTorch
    versions on the same CUDA tensors (above 110 dB), forward and inverse
    (conj), and the pair against a float64 numpy FFT / inverse FFT, at
@@ -29,16 +30,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    4096), (1, 8192, 8192)), the four-step at 2048 (as phase 6 times it),
    the three axis passes of a 128^3 grid against its fftn, and the
    fused_nd route (d launches) against fused_nd_plain at 128^3 and (512,
-   256); then dense_stage_a and dense_stage_b, and
-   fused_four_step_fft against float64, at 2^14, (3, 2^14), 3*2^14, 2^20,
-   (8, 2^20), 2^24 and 2^26; every SNR against float64 must exceed 100
-   dB; last, every bf16 I/O form of the four stage kernels against its
-   plain version with the same types at (8, 1024, 1024), (1, 2048, 2048),
+   256); then dense_stage_a and dense_stage_b on the `highest` tier
+   (tf32x3) and the `default` tier (bf16x1) against their plain versions
+   on that tier (100 dB), and fused_four_step_fft against a float64 FFT
+   (100 dB, `default` 42 dB) with its peak device memory, at 2^14,
+   (3, 2^14), 3*2^14, 2^20, (8, 2^20), 2^24 and 2^26; every other SNR
+   against float64 must exceed 100 dB; last, every bf16 I/O form of the
+   four stage kernels against its plain version with the same types at
+   (8, 1024, 1024), (1, 2048, 2048),
    (1, 2048, 4096), (1, 4096, 4096), (1, 4096, 8192) and (1, 8192, 8192)
    (the `default` tier's 2^26 shape), above 110 dB where it stores
    float32 and 70 dB where it stores bf16;
 4. main paths: the public entries (complex, then real, then N-D, then
-   the dense pair, bf16 planes and the `default` tier) with every count
+   the dense pair, bf16 planes and the `default` tier, the dense pair on
+   it included; the complex path includes the smooth 3*2^18, whose
+   stage-1 launches on the dense chain are read apart) with every count
    set to 0 just before each path; each case checks its output against a
    float64 oracle and that its TPU-kernel class count rose; the kernel
    launch counts are read just after each path; one real case passes
@@ -63,12 +69,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel paths, fft_split and rfft_split, are timed in turns (fft, rfft,
    rfft, fft, three times) and reported as medians. Each transform row
    has its bound (``transform_bound``). Then fused_four_step_fft at 2^20,
-   8 x 2^20 and 2^24 beside its plain version and cuFFT; the float32
+   8 x 2^20 and 2^24 on the `highest` and the `default` tier, each beside
+   its plain version on that tier, beside the two products alone as
+   complex64 torch.matmul (TF32 off) and cuFFT; the float32
    route, the bf16-planes route and the `default` tier in turns at
    8 x 2^20, 2^24 and 2^26 for both 1-D transforms. Then the N-D rows: the
    kernel route (fftn_split), its plain version and torch.fft.fft2 / fftn
    at 1024^2, (8, 512, 512), 4096^2, 8192^2 and 128^3 with their bound
-   (``nd_bound``); every kernel and bf16 form alone at (1, 1024, 1024)
+   (``nd_bound``); every kernel, bf16 form and dense instance alone at
+   (1, 1024, 1024)
    beside its plain version, and the library call where one computes the
    same function, each back to back and as device time per call of a CUDA
    graph of 20 calls (``graph_ms``: no host time; at this size the
@@ -76,8 +85,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    of a 128^3 grid alone, col_fft and row_fft at (1, 4096, 4096) and
    (1, 8192, 8192), and stage1 and stage2 at (1, 2048, 2048), (1, 4096,
    4096) and (1, 8192, 8192) (kernel graph and back-to-back, plain
-   version, torch.fft.fft along the same axis, bound); and col_fft at
-   lines of 2048 as one launch and as the column four-step.
+   version, torch.fft.fft along the same axis, bound); the smooth-n1
+   stage 1 (the dense chain) alone at the splits of 3*2^18, 9*2^14 and
+   23*2^14; and col_fft at lines of 2048 as one launch and as the column
+   four-step.
 
 A bound is the least time the card could take for the work: the larger
 of the bytes the function must move (each input read once, each output
@@ -121,6 +132,10 @@ AXIS_DB = 110.0
 BF16_DB = 40.0
 BF16_PLAIN_DB = 70.0
 DEFAULT_DB = 42.0
+# the dense pair's bf16x1 instances against their plain versions, which
+# round the same operands to bf16: float32 summation order only (118-139
+# dB measured on the card)
+DENSE_BF16_DB = 100.0
 SEED = 20261016
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FMA-pipe flop/s
 PEAK_BYTES = 3.35e12
@@ -265,6 +280,43 @@ def graph_ms(fn, runs=20):
     return a.elapsed_time(z) / (3 * runs)
 
 
+def on_tier(tier, fn):
+    """``fn`` run on precision tier ``tier`` (of the imported
+    kofft_tpu_torch), the default restored after."""
+    def run():
+        import kofft_tpu_torch as kt
+        kt.set_precision(tier)
+        try:
+            return fn()
+        finally:
+            kt.set_precision(None)
+    return run
+
+
+def dense_sass_counts(build) -> dict:
+    """{instance: {"HGMMA": n, "FFMA": n}} of the dense pair's kernel
+    instances (dense_tc_kernel<bf16, stage b>) in the library that
+    ``build.lib()`` loaded, from ``cuobjdump -sass``."""
+    so = build.build_info["path"]
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    names = {"ILb0ELb0E": "dense_stage_a", "ILb0ELb1E": "dense_stage_b",
+             "ILb1ELb0E": "dense_stage_a_bf16x1",
+             "ILb1ELb1E": "dense_stage_b_bf16x1"}
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = next((v for k, v in names.items()
+                       if "dense_tc_kernel" + k in line), None)
+            if fn is not None:
+                counts[fn] = {"HGMMA": 0, "FFMA": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += op in line
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -318,6 +370,13 @@ def main() -> int:
         if "registers" in line or "Function properties" in line \
                 or "spill" in line or "Compiling entry" in line:
             log(f"  {line.strip()}")
+    # the dense pair's four instances run on the tensor cores: HGMMA
+    # (wgmma) in the SASS of each
+    hgmma = dense_sass_counts(B)
+    log(f"dense_tc_kernel instances, SASS counts of "
+        f"{Path(B.build_info['path']).name}: {hgmma}")
+    assert len(hgmma) == 4 and all(c["HGMMA"] > 0 for c in hgmma.values()), \
+        hgmma
 
     # -- 3. kernels vs plain --------------------------------------------
     log("== phase 3: kernels vs plain on the card")
@@ -464,34 +523,54 @@ def main() -> int:
         assert min(sp, so) > FLOOR_DB, (shape, sp, so)
     del ar, ai, xr, xi, yr, yi, pr, pi
 
-    # the dense four-step pair, each stage against its plain version on the
-    # same input; the pair, through fused_four_step_fft, against float64
-    err.update(dense_stage_a=0.0, dense_stage_b=0.0)
-    for b, n in [(1, 1 << 14), (3, 1 << 14), (1, 3 << 14), (1, 1 << 20),
-                 (8, 1 << 20), (1, 1 << 24), (1, 1 << 26)]:
-        n1, n2 = HK._pow2_split(n)
-        ar, ai = planes((b, n1, n2))
-        cr, ci = HK.dense_stage_a(ar, ai)
-        pr, pi = HK.dense_stage_a_plain(ar, ai)
-        yr, yi = HK.dense_stage_b(cr, ci)
-        qr, qi = HK.dense_stage_b_plain(cr, ci)
-        torch.cuda.synchronize()
-        e1 = max((cr - pr).abs().max().item(), (ci - pi).abs().max().item())
-        e2 = max((yr - qr).abs().max().item(), (yi - qi).abs().max().item())
-        err["dense_stage_a"] = max(err["dense_stage_a"], e1)
-        err["dense_stage_b"] = max(err["dense_stage_b"], e2)
-        s1 = snr_db(host(pr, pi), host(cr, ci))
-        s2 = snr_db(host(qr, qi), host(yr, yi))
-        del cr, ci, pr, pi, yr, yi, qr, qi
-        fr, fi = HK.fused_four_step_fft(ar.reshape(b, n), ai.reshape(b, n), n)
-        so = snr_db(np.fft.fft(host(ar, ai).reshape(b, n), axis=-1),
-                    host(fr, fi))
-        log(f"({b}, {n}) split ({n1}, {n2}): dense_stage_a vs plain "
-            f"{s1:.2f} dB (max abs {e1:.3e}), dense_stage_b vs plain "
-            f"{s2:.2f} dB (max abs {e2:.3e}), fused_four_step_fft vs "
-            f"float64 {so:.2f} dB")
-        assert min(s1, s2, so) > FLOOR_DB, (b, n, s1, s2, so)
-        del ar, ai, fr, fi
+    # the dense four-step pair on both instances of its tier routing
+    # (tf32x3 on `highest`, bf16x1 on `default`), each stage against its
+    # plain version on the same input (on `default` the bf16-rounding one,
+    # DENSE_BF16_DB); the pair, through fused_four_step_fft, against the
+    # float64 FFT (on `default` at DEFAULT_DB); peak device memory of the
+    # 2^26 pair
+    for tier in ("highest", "default"):
+        kt.set_precision(tier)
+        mode = HK._dense_mode()
+        na, nb = (HK._dense_name(k, mode) for k in ("dense_stage_a",
+                                                     "dense_stage_b"))
+        err.update({na: 0.0, nb: 0.0})
+        floor = DENSE_BF16_DB if mode == "bf16x1" else FLOOR_DB
+        oracle = DEFAULT_DB if mode == "bf16x1" else FLOOR_DB
+        for b, n in [(1, 1 << 14), (3, 1 << 14), (1, 3 << 14), (1, 1 << 20),
+                     (8, 1 << 20), (1, 1 << 24), (1, 1 << 26)]:
+            n1, n2 = HK._pow2_split(n)
+            ar, ai = planes((b, n1, n2))
+            cr, ci = HK.dense_stage_a(ar, ai)
+            pr, pi = HK.dense_stage_a_plain(ar, ai)
+            yr, yi = HK.dense_stage_b(cr, ci)
+            qr, qi = HK.dense_stage_b_plain(cr, ci)
+            torch.cuda.synchronize()
+            e1 = max_abs((cr, ci), (pr, pi))
+            e2 = max_abs((yr, yi), (qr, qi))
+            err[na] = max(err[na], e1)
+            err[nb] = max(err[nb], e2)
+            s1 = snr_db_card((pr, pi), (cr, ci))
+            s2 = snr_db_card((qr, qi), (yr, yi))
+            del cr, ci, pr, pi, yr, yi, qr, qi
+            torch.cuda.reset_peak_memory_stats()
+            fr, fi = HK.fused_four_step_fft(ar.reshape(b, n),
+                                            ai.reshape(b, n), n)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            xc = torch.complex(ar.double(), ai.double()).reshape(b, n)
+            want = torch.fft.fft(xc, dim=-1)
+            so = snr_db_card((want.real, want.imag),
+                             (fr.reshape(b, n), fi.reshape(b, n)))
+            del xc, want
+            log(f"[{tier}] ({b}, {n}) split ({n1}, {n2}): {na} vs plain "
+                f"{s1:.2f} dB (max abs {e1:.3e}), {nb} vs plain {s2:.2f} dB "
+                f"(max abs {e2:.3e}), fused_four_step_fft vs float64 "
+                f"{so:.2f} dB; peak device memory allocated during the pair "
+                f"(tables included) {peak:.2f} GiB")
+            assert min(s1, s2) > floor and so > oracle, (tier, b, n, s1, s2,
+                                                         so)
+            del ar, ai, fr, fi
+        kt.set_precision(None)
 
     # the bf16 I/O forms of the stage kernels against their plain versions
     # on the same input: float32 outputs above AXIS_DB, bf16 outputs
@@ -573,6 +652,14 @@ def main() -> int:
     split_case((1 << 24,), "ml")
     split_case((1 << 26,), "ml")
     split_case((8, 1 << 14), "ml")
+    # a smooth n1 (3 * 2^8 at 3 * 2^18): stage 1 on the dense chain of
+    # smooth_stage.cu, counted under stage1 and read apart here
+    before = HK.launches["stage1"]
+    split_case((3 << 18,), "phased_flat")
+    smooth_launches = HK.launches["stage1"] - before
+    log(f"smooth-n1 stage 1 (kofft_stage1_smooth) launches on the main "
+        f"path: {smooth_launches}")
+    assert smooth_launches > 0
     xr, xi = planes((1 << 20,))
     x = host(xr, xi)
     case("ifft_split(fft_split(x)) 2^20", "phased_flat",
@@ -735,6 +822,16 @@ def main() -> int:
     del br, bi, bx
     kt.set_precision("default")
     log(f"precision tier: {kt.get_config().precision}")
+    # the dense pair's bf16x1 instances (one bf16 pass, as _build's
+    # `default` mode)
+    for shape in [(1 << 20,), (8, 1 << 20)]:
+        xr, xi = planes(shape)
+        x = host(xr, xi)
+        case(f"fused_four_step_fft default tier {shape}", "four_step",
+             lambda: typed(HK.fused_four_step_fft(xr, xi, shape[-1]),
+                           torch.float32),
+             lambda: np.fft.fft(x, axis=-1), DEFAULT_DB)
+        del xr, xi, x
     for shape, cls in [((8, 1 << 20), "phased_tiled"),
                        ((1 << 24,), "phased_tiled"), ((1 << 26,), "ml")]:
         xr, xi = planes(shape)
@@ -882,8 +979,10 @@ def main() -> int:
         del xr, xi, xc, x, a3r, a3i, a3, paths, rows
         torch.cuda.synchronize()
 
-    # the dense four-step pair against its bound, its plain version and
-    # cuFFT
+    # the dense four-step pair on both tiers (tf32x3, bf16x1) against its
+    # bound, its plain version on the same tier, complex64 torch.matmul of
+    # its two products alone (context: TF32 off) and cuFFT
+    assert not torch.backends.cuda.matmul.allow_tf32
     for shape in [(1 << 20,), (8, 1 << 20), (1 << 24,)]:
         b = shape[0] if len(shape) == 2 else 1
         n = shape[-1]
@@ -891,30 +990,30 @@ def main() -> int:
         xr, xi = planes(shape)
         xc = torch.complex(xr, xi)
         a3r, a3i = xr.reshape(b, n1, n2), xi.reshape(b, n1, n2)
+        a3c = xc.reshape(b, n1, n2)
+        f1, f2 = (torch.complex(*(torch.as_tensor(a, device=dev) for a in
+                                  HK.tables.dft_matrix(m))) for m in (n1, n2))
         bd, by = transform_bound(False, b, n)
         log(f"{shape}: fused_four_step_fft bound {bd * 1e3:.2f} us ({by})")
-        report(shape, "dense pair (fused_four_step_fft)",
-               time_ms(lambda: HK.fused_four_step_fft(xr, xi, n)))
-        report(shape, "plain version (dense_stage_a_plain + "
-               "dense_stage_b_plain)", time_ms(
-                   lambda: HK.dense_stage_b_plain(
-                       *HK.dense_stage_a_plain(a3r, a3i))))
+        for tier in ("highest", "default"):
+            report(shape, f"dense pair (fused_four_step_fft), {tier} tier",
+                   time_ms(on_tier(tier, lambda: HK.fused_four_step_fft(
+                       xr, xi, n))))
+            report(shape, f"plain version, {tier} tier (dense_stage_a_plain"
+                   " + dense_stage_b_plain)", time_ms(on_tier(
+                       tier, lambda: HK.dense_stage_b_plain(
+                           *HK.dense_stage_a_plain(a3r, a3i)))))
+        report(shape, "context: the two products alone, complex64 "
+               "torch.matmul(F1, A) and torch.matmul(F2, C^T) "
+               "(allow_tf32 False)", time_ms(
+                   lambda: torch.matmul(f2, torch.matmul(f1, a3c).mT)))
         report(shape, "torch.fft.fft (cuFFT)",
                time_ms(lambda: torch.fft.fft(xc)))
-        del xr, xi, xc, a3r, a3i
+        del xr, xi, xc, a3r, a3i, a3c, f1, f2
         torch.cuda.synchronize()
 
     # the bf16 routes beside the float32 route, in turns (f32, bf16 planes,
     # default tier, then the reverse), each the median of its two runs
-    def default_tier(fn):
-        def run():
-            kt.set_precision("default")
-            try:
-                return fn()
-            finally:
-                kt.set_precision(None)
-        return run
-
     for shape in [(8, 1 << 20), (1 << 24,), (1 << 26,)]:
         b = shape[0] if len(shape) == 2 else 1
         n = shape[-1]
@@ -924,13 +1023,13 @@ def main() -> int:
             if real_fft:
                 paths = {"float32": lambda: kt.rfft_split(xr),
                          "bf16 planes": lambda: kt.rfft_split(br),
-                         "default tier, float32 planes": default_tier(
-                             lambda: kt.rfft_split(xr))}
+                         "default tier, float32 planes": on_tier(
+                             "default", lambda: kt.rfft_split(xr))}
             else:
                 paths = {"float32": lambda: kt.fft_split(xr, xi),
                          "bf16 planes": lambda: kt.fft_split(br, bi),
-                         "default tier, float32 planes": default_tier(
-                             lambda: kt.fft_split(xr, xi))}
+                         "default tier, float32 planes": on_tier(
+                             "default", lambda: kt.fft_split(xr, xi))}
             turns = {w: [] for w in paths}
             order = list(paths)
             for w in order + order[::-1]:
@@ -989,14 +1088,23 @@ def main() -> int:
              "dense_stage_a": (lambda: HK.dense_stage_a(ar, ai),
                                lambda: HK.dense_stage_a_plain(ar, ai)),
              "dense_stage_b": (lambda: HK.dense_stage_b(cr, ci),
-                               lambda: HK.dense_stage_b_plain(cr, ci))}
+                               lambda: HK.dense_stage_b_plain(cr, ci)),
+             "dense_stage_a_bf16x1": (
+                 on_tier("default", lambda: HK.dense_stage_a(ar, ai)),
+                 on_tier("default", lambda: HK.dense_stage_a_plain(ar, ai))),
+             "dense_stage_b_bf16x1": (
+                 on_tier("default", lambda: HK.dense_stage_b(cr, ci)),
+                 on_tier("default",
+                         lambda: HK.dense_stage_b_plain(cr, ci)))}
     # (function, load bytes, store bytes) of each timed kernel: a form
     # computes its base kernel's function, the dense pair stage1's and
     # stage2's; the bf16 forms run on the same data, loaded as each form
     # loads it (stage 1 forms read the input planes, stage 2 forms a C)
     work = {k: (k, 4, 4) for k in calls}
     work.update(dense_stage_a=("stage1", 4, 4),
-                dense_stage_b=("stage2", 4, 4))
+                dense_stage_b=("stage2", 4, 4),
+                dense_stage_a_bf16x1=("stage1", 4, 4),
+                dense_stage_b_bf16x1=("stage2", 4, 4))
     for base, loads, stores, name in forms:
         xr, xi = (ar, ai) if base.startswith("stage1") else (cr, ci)
         calls[name] = form_fns(base, xr.to(loads), xi.to(loads), stores)
@@ -1016,33 +1124,38 @@ def main() -> int:
             f"{bound[k][0] * 1e3:.2f} us ({bound[k][1]}) [{smi}]")
     # library calls, on complex tensors built once outside the timed calls:
     # one axis pass is torch.fft.fft along that axis, and stage2 is
-    # torch.fft.fft(C, dim=2) (its transposed store is a layout);
-    # dense_stage_b is one complex matmul F2 C^T (F2 is symmetric). stage1,
-    # stage1_real and stage2_half have none: twiddle and FFT, or FFT and
-    # slice, are two calls, as are dense_stage_a's product and twiddle
-    # (its product alone is printed as context). The bf16 forms have none:
-    # torch.fft and torch.matmul take no bf16 complex operands.
+    # torch.fft.fft(C, dim=2) (its transposed store is a layout); so are
+    # both instances of dense_stage_b, which compute stage2's function on
+    # the same float32 planes. stage1, stage1_real and stage2_half have
+    # none: twiddle and FFT, or FFT and slice, are two calls, as are
+    # dense_stage_a's product and twiddle. The bf16 forms have none:
+    # torch.fft takes no bf16 complex operands. As context, not as library
+    # calls: the dense pair's two products as one complex64 matmul each
+    # (F1 = F2 is symmetric; torch.backends.cuda.matmul.allow_tf32 False,
+    # set in phase 1).
+    assert not torch.backends.cuda.matmul.allow_tf32
     ac = torch.complex(ar, ai)
     cc = torch.complex(cr, ci)
     f1 = torch.complex(*(torch.as_tensor(a, device=dev) for a in
                          HK.tables.dft_matrix(1024)))
     library_ms, library_graph_ms = {}, {}
-    for k, what, fn in (
-            ("col_fft", "torch.fft.fft(complex, dim=1)",
+    for ks, what, fn in (
+            (("col_fft",), "torch.fft.fft(complex, dim=1)",
              lambda: torch.fft.fft(ac, dim=1)),
-            ("row_fft", "torch.fft.fft(complex, dim=2)",
+            (("row_fft",), "torch.fft.fft(complex, dim=2)",
              lambda: torch.fft.fft(ac, dim=2)),
-            ("stage2", "torch.fft.fft(complex(C), dim=2)",
+            (("stage2", "dense_stage_b", "dense_stage_b_bf16x1"),
+             "torch.fft.fft(complex(C), dim=2)",
              lambda: torch.fft.fft(cc, dim=2)),
-            ("dense_stage_b", "torch.matmul(F2, complex(C).mT), complex64",
-             lambda: torch.matmul(f1, cc.mT)),
-            (None, "dense_stage_a's product alone, torch.matmul(F1, "
+            ((), "dense_stage_b's product, torch.matmul(F2, complex(C).mT),"
+             " complex64", lambda: torch.matmul(f1, cc.mT)),
+            ((), "dense_stage_a's product alone, torch.matmul(F1, "
              "complex(A)), complex64", lambda: torch.matmul(f1, ac))):
         t = time_ms(fn)
         tg = graph_ms(fn)
-        if k is not None:
+        for k in ks:
             library_ms[k], library_graph_ms[k] = t[1], tg
-        log(f"{shape} {k or 'context'} library {what}: single "
+        log(f"{shape} {'/'.join(ks) or 'context'} library {what}: single "
             f"{t[0] * 1e3:.1f} us, back-to-back {t[1] * 1e3:.1f} us/call, "
             f"graph {tg * 1e3:.1f} us/call [{smi}]")
     del ar, ai, cr, ci, ac, cc, f1, calls
@@ -1099,6 +1212,15 @@ def main() -> int:
         axis_row(view, "stage2", HK.stage2, HK.stage2_plain, cr, ci,
                  "torch.fft.fft(C, dim=2)", lambda: torch.fft.fft(cc, dim=2))
         del cr, ci, cc
+    # the smooth-n1 stage 1 (the dense chain of smooth_stage.cu) at the
+    # splits of 3 * 2^18, 9 * 2^14 and 23 * 2^14
+    for n in (3 << 18, 9 << 14, 23 << 14):
+        view = (1, *HK._pow2_split(n))
+        vr, vi = planes(view)
+        log(f"smooth n1 = {view[1]}, n = {n}:")
+        axis_row(view, "stage1", HK.stage1, HK.stage1_plain, vr, vi, None,
+                 None)
+        del vr, vi
     # col_fft at lines of 2048, one launch against the column four-step:
     # the measurement behind HK._COL_SPLIT_ABOVE
     vr, vi = planes((1, 2048, 2048))
@@ -1128,6 +1250,10 @@ def main() -> int:
                                  "last-axis pass)"]),
         "dense_stage_a": (dense, 185, ["235 (its pallas_call in _build)"]),
         "dense_stage_b": (dense, 199, ["261 (its pallas_call in _build)"])}
+    replaces["dense_stage_a_bf16x1"] = (dense, 185, [
+        "235 (its pallas_call in _build, mode 'default')"])
+    replaces["dense_stage_b_bf16x1"] = (dense, 199, [
+        "261 (its pallas_call in _build, mode 'default')"])
     # the bf16 forms: _build_ml's calls with a bf16 C (cdt) and the phased
     # kernel's bf16 io / sdt forms
     call = {"stage1": 613, "stage1_real": 630, "stage2": 649,

@@ -14,7 +14,11 @@ KOFFT_TPU_TORCH_DFT_CUTOFF     max n computed by one direct DFT matmul in
 KOFFT_TPU_TORCH_PRECISION      highest | high | default. The hand-written
                                kernels compute every tier in float32 FFMA
                                (the `highest` arithmetic), which clears
-                               every tier's floor.
+                               every tier's floor; the exception is the
+                               dense four-step pair, whose tensor-core
+                               kernels follow the tier as the JAX _build's
+                               mode does: 3xTF32 on highest and high, one
+                               bf16 pass on default.
 KOFFT_TPU_TORCH_MAX_FACTOR     largest smooth prime factor before Bluestein
 """
 

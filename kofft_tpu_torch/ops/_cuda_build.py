@@ -43,16 +43,17 @@ SIGNATURES = {
                       _I, _P, _I, _I, _I, _P],
     "kofft_row_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
                       _I, _I, _P],
-    "kofft_dense_stage_a": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _P],
-    "kofft_dense_stage_b": [_P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _P],
+    "kofft_dense_stage_a": [_P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _P],
+    "kofft_dense_stage_b": [_P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
-# the last build: nvcc/ptxas output and wall seconds (0.0: found built)
-build_info = {"log": "", "seconds": None}
+# the last build: nvcc/ptxas output, wall seconds (0.0: found built) and
+# the path of the library that lib() loaded
+build_info = {"log": "", "seconds": None, "path": None}
 
 
 def _nvcc() -> str:
@@ -126,7 +127,9 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         with _lock:
             if _lib is None:
-                cdll = ctypes.CDLL(str(_build()))
+                path = _build()
+                cdll = ctypes.CDLL(str(path))
+                build_info["path"] = str(path)
                 for fn, argtypes in SIGNATURES.items():
                     f = getattr(cdll, fn)
                     f.argtypes = argtypes

@@ -49,8 +49,11 @@ The dense four-step pair (``_build``, whose entry ``fused_four_step_fft``
 only tests call in the JAX package) is two more CUDA kernels
 (``csrc/dense_dft.cu``): ``dense_stage_a`` (C = (F_n1^T A) o W, one
 complex DFT-matrix product per batch row) and ``dense_stage_b`` (X =
-F_n2^T C^T), with the Gauss three-product in float32 FFMA and no line
-recursion; the class count is ``four_step``.
+F_n2^T C^T), the Gauss three-product on the tensor cores (``wgmma``) and
+no line recursion; the class count is ``four_step``. Their arithmetic
+follows the precision tier as ``_build``'s ``mode`` does (``_dense_mode``):
+3xTF32 on `highest` and `high` (counted under the kernels' names), one
+bf16 pass on `default` (``dense_stage_a_bf16x1``, ``dense_stage_b_bf16x1``).
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 PyTorch version for a CPU tensor; any other device raises. The plain
@@ -60,7 +63,9 @@ versions (``fft_axis0_plain``, ``stage1_plain``, ``stage2_plain``,
 three-product of ``_cdot`` at the `highest` tier, in float32 matmuls (bf16
 operands widened first, results rounded to the requested type last);
 ``fused_nd_plain``, ``dense_stage_a_plain`` and ``dense_stage_b_plain``
-are their kernels' own math, dense Gauss products.
+are their kernels' own math, dense Gauss products (the dense pair's in
+float32, or on `default` from operands rounded to bf16 as its kernel
+rounds them).
 """
 
 from __future__ import annotations
@@ -114,7 +119,8 @@ _FORM_NAMES = {(base, _LETTER_DTYPE[f[0]], _LETTER_DTYPE[f[1]]):
 
 launches = {"stage1": 0, "stage2": 0, "stage1_real": 0, "stage2_half": 0,
             "col_fft": 0, "row_fft": 0, "dense_stage_a": 0,
-            "dense_stage_b": 0}
+            "dense_stage_b": 0, "dense_stage_a_bf16x1": 0,
+            "dense_stage_b_bf16x1": 0}
 launches.update({name: 0 for name in _FORM_NAMES.values()})
 classes = {"phased_flat": 0, "phased_tiled": 0, "ml": 0,
            "phased_flat_real": 0, "phased_tiled_real": 0, "ml_real": 0,
@@ -1197,41 +1203,111 @@ def fused_four_step_supported(n: int) -> bool:
 
 def _dense_dft(m: int):
     """(re, im, re + im) host planes of DFT_m: the ``tables.dft_matrix``
-    pair and its float32 sum, the third operand of the kernel's Gauss
-    product, built once per length."""
+    pair and its float32 sum, the third operand of the Gauss product,
+    built once per length."""
     fr, fi = tables.dft_matrix(m)
     return fr, fi, tables.custom(("dftsum", m), lambda: fr + fi)
 
 
+def _dense_mode() -> str:
+    """The dense pair's arithmetic on the current tier, as ``_build``'s
+    ``mode``: ``bf16x1`` (one bf16 pass) on `default`, else ``tf32x3``
+    (`high` rides the `highest` instance, as every kernel of the port
+    runs `high` at `highest` arithmetic)."""
+    return "bf16x1" if get_config().precision == "default" else "tf32x3"
+
+
+def _dense_name(base: str, mode: str) -> str:
+    """Launch-count name of a dense kernel's instance."""
+    return base if mode == "tf32x3" else f"{base}_{mode}"
+
+
+def _tf32_rna(x: np.ndarray) -> np.ndarray:
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as ``cvt.rna.tf32.f32`` rounds: the low 13 bits zero."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_split(x: np.ndarray):
+    """(big, small) = (tf32(x), tf32(x - big)), the kernel's 3xTF32 split:
+    big + small is x to about 2^-22 relative."""
+    big = _tf32_rna(x)
+    return big, _tf32_rna(x - big)
+
+
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 bit patterns (int16), rounded to nearest even,
+    as ``__float2bfloat16_rn`` rounds."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    r = (u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1)))
+    return (r >> np.uint32(16)).astype(np.uint16).view(np.int16)
+
+
+def _dense_tables(m: int, mode: str) -> np.ndarray:
+    """The F_m planes the tensor-core kernel reads, (planes, m, m), built
+    once per length and tier: ``tf32x3`` the big and small TF32 parts of
+    Fr, Fi and Fr + Fi (six float32 planes, low 13 bits zero), ``bf16x1``
+    the bf16 bit patterns of the same three planes, each rounded once."""
+    def build():
+        planes = _dense_dft(m)
+        if mode == "bf16x1":
+            return np.stack([_bf16_bits(p) for p in planes])
+        return np.stack([h for p in planes for h in _tf32_split(p)])
+
+    return tables.custom(("dense_tc", m, mode), build)
+
+
+def _bf16_round(x):
+    return x.to(_BF16).float()
+
+
+def _dense_cdot(m: int, xr, xi, mode: str):
+    """y[k, c] = sum_j F_m[j, k] x[j, c] by the Gauss three-product in
+    float32 matmuls: on ``tf32x3`` of the float32 operands (the `highest`
+    tier's product, which the kernel's split evaluates), on ``bf16x1`` of
+    the operands and both Gauss sums rounded to bf16 first, as the
+    kernel rounds them."""
+    if mode == "tf32x3":
+        fr, fi = (const(a, xr.device) for a in tables.dft_matrix(m))
+        return _cdot(fr, fi, xr, xi)
+    fr, fi, fs = (_bf16_round(const(a, xr.device)) for a in _dense_dft(m))
+    t1 = torch.matmul(fr.T, _bf16_round(xr))
+    t2 = torch.matmul(fi.T, _bf16_round(xi))
+    t3 = torch.matmul(fs.T, _bf16_round(xr + xi))
+    return t1 - t2, t3 - t1 - t2
+
+
 def dense_stage_a_plain(ar, ai):
     """Plain version of the dense stage-a kernel (``_stage_a_kernel``):
-    (b, n1, n2) -> C = (F_n1^T A) o W, the Gauss product in float32
-    matmuls and the full twiddle plane ``tables.twiddle(n1, n2)``."""
+    (b, n1, n2) -> C = (F_n1^T A) o W, the Gauss product of the current
+    tier (``_dense_cdot``) and the full twiddle plane
+    ``tables.twiddle(n1, n2)``."""
     b, n1, n2 = ar.shape
-    fr, fi = (const(a, ar.device) for a in tables.dft_matrix(n1))
     wr, wi = (const(a, ar.device) for a in tables.twiddle(n1, n2))
-    br, bi = _cdot(fr, fi, ar, ai)
+    br, bi = _dense_cdot(n1, ar, ai, _dense_mode())
     return br * wr - bi * wi, br * wi + bi * wr
 
 
 def dense_stage_b_plain(cr, ci):
     """Plain version of the dense stage-b kernel (``_stage_b_kernel``):
-    C (b, n1, n2) -> X = F_n2^T C^T, (b, n2, n1)."""
-    fr, fi = (const(a, cr.device) for a in tables.dft_matrix(cr.shape[2]))
-    return _cdot(fr, fi, cr.mT, ci.mT)
+    C (b, n1, n2) -> X = F_n2^T C^T, (b, n2, n1), the Gauss product of
+    the current tier."""
+    return _dense_cdot(cr.shape[2], cr.mT, ci.mT, _dense_mode())
 
 
 def _check_dense(x, what: str) -> None:
     b, n1, n2 = x.shape
-    require(n1 % 64 == 0 and n2 % 64 == 0, InvalidValueError,
-            f"{what}: both plane dims must be multiples of 64 (the "
-            f"kernel's tile); got {tuple(x.shape)}")
+    require(all(d % 128 == 0 and 128 <= d <= _LINE_MAX for d in (n1, n2)),
+            InvalidValueError,
+            f"{what}: both plane dims must be multiples of 128 (the "
+            f"kernel's tile) in [128, {_LINE_MAX}]; got {tuple(x.shape)}")
 
 
 def dense_stage_a(ar, ai):
     """Dense stage a: (b, n1, n2) float32 planes -> C (b, n1, n2). CUDA
-    tensors launch the kernel (one count in ``launches``); CPU tensors run
-    ``dense_stage_a_plain``."""
+    tensors launch the tier's instance (one count in ``launches``, under
+    ``_dense_name``); CPU tensors run ``dense_stage_a_plain``."""
     _check_planes(ar, ai, "dense_stage_a")
     _check_dense(ar, "dense_stage_a")
     if ar.device.type == "cpu":
@@ -1239,24 +1315,26 @@ def dense_stage_a(ar, ai):
     from ._cuda_build import check, lib
     b, n1, n2 = ar.shape
     dev = ar.device
-    fr, fi, fs = (const(a, dev) for a in _dense_dft(n1))
+    mode = _dense_mode()
+    f = const(_dense_tables(n1, mode), dev)
     wr, wi = (const(a, dev) for a in tables.twiddle(n1, n2))
     cr = torch.empty_like(ar)
     ci = torch.empty_like(ai)
+    name = _dense_name("dense_stage_a", mode)
     err = lib().kofft_dense_stage_a(
-        ar.data_ptr(), ai.data_ptr(), fr.data_ptr(), fi.data_ptr(),
-        fs.data_ptr(), wr.data_ptr(), wi.data_ptr(), cr.data_ptr(),
-        ci.data_ptr(), b, n1, n2, dev.index, _stream(dev))
-    check(err, "dense_stage_a launch")
-    launches["dense_stage_a"] += 1
+        ar.data_ptr(), ai.data_ptr(), f.data_ptr(), wr.data_ptr(),
+        wi.data_ptr(), cr.data_ptr(), ci.data_ptr(), b, n1, n2,
+        int(mode == "bf16x1"), dev.index, _stream(dev))
+    check(err, f"{name} launch")
+    launches[name] += 1
     return cr, ci
 
 
 def dense_stage_b(cr, ci):
     """Dense stage b: C (b, n1, n2) float32 -> (b, n2, n1), the transposed
     layout whose row-major flattening is the spectrum. CUDA tensors launch
-    the kernel (one count in ``launches``); CPU tensors run
-    ``dense_stage_b_plain``."""
+    the tier's instance (one count in ``launches``, under
+    ``_dense_name``); CPU tensors run ``dense_stage_b_plain``."""
     _check_planes(cr, ci, "dense_stage_b")
     _check_dense(cr, "dense_stage_b")
     if cr.device.type == "cpu":
@@ -1264,15 +1342,17 @@ def dense_stage_b(cr, ci):
     from ._cuda_build import check, lib
     b, n1, n2 = cr.shape
     dev = cr.device
-    fr, fi, fs = (const(a, dev) for a in _dense_dft(n2))
+    mode = _dense_mode()
+    f = const(_dense_tables(n2, mode), dev)
     yr = torch.empty((b, n2, n1), dtype=cr.dtype, device=dev)
     yi = torch.empty((b, n2, n1), dtype=cr.dtype, device=dev)
+    name = _dense_name("dense_stage_b", mode)
     err = lib().kofft_dense_stage_b(
-        cr.data_ptr(), ci.data_ptr(), fr.data_ptr(), fi.data_ptr(),
-        fs.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1, n2, dev.index,
+        cr.data_ptr(), ci.data_ptr(), f.data_ptr(), yr.data_ptr(),
+        yi.data_ptr(), b, n1, n2, int(mode == "bf16x1"), dev.index,
         _stream(dev))
-    check(err, "dense_stage_b launch")
-    launches["dense_stage_b"] += 1
+    check(err, f"{name} launch")
+    launches[name] += 1
     return yr, yi
 
 
@@ -1280,7 +1360,7 @@ def fused_four_step_fft(xr, xi, n: int):
     """Forward unnormalized DFT of (..., n) float32 planes through the
     dense pair (``fused_four_step_fft``, pallas_kernels.py:278), batch
     folded, counted as class ``four_step``: ``dense_stage_a`` then
-    ``dense_stage_b``."""
+    ``dense_stage_b``, in the current tier's arithmetic."""
     require(fused_four_step_supported(n), InvalidValueError,
             f"fused_four_step_fft serves smooth n = odd * 2^k (odd <= 23) "
             f"in [2^14, 2^26] that split into factors >= 128; got {n}")

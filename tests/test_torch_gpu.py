@@ -16,7 +16,9 @@ that stores bf16 is held against its plain version in bf16 at >= 40 dB
 (both round the same float32 sums once, so they differ by at most one
 bf16 ulp where the sums round differently); bf16 routes >= 40 dB against
 the float64 FFT of their bf16 input, and the `default` tier's float32
-route >= 42 dB (its floor).
+route >= 42 dB (its floor). The dense pair's `default` instances (one
+bf16 pass) are held against their bf16-rounding plain versions at
+>= 100 dB and against float64 at the tier's 42 dB.
 """
 
 import numpy as np
@@ -37,6 +39,9 @@ BF16_DB = 40.0
 # bf16 sums would read 45-55 dB
 BF16_PLAIN_DB = 70.0
 DEFAULT_DB = 42.0
+# the dense pair's bf16x1 instances against their plain versions, which
+# round the same operands to bf16: float32 summation order only
+DENSE_BF16_DB = 100.0
 
 
 @pytest.fixture
@@ -240,28 +245,44 @@ def test_nd_grad_on_card(cuda):
     assert snr_db(want, _np(xr.grad, xi.grad)) > ORACLE_DB
 
 
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
 @pytest.mark.parametrize("b,n", [(1, 1 << 14), (3, 1 << 14), (1, 3 << 14),
                                  (2, 1 << 16)])
-def test_dense_stages_match_plain(cuda, b, n):
+def test_dense_stages_match_plain(cuda, b, n, tier):
+    """The tier's tensor-core instance of each dense stage against its
+    plain version (on `default` the bf16-rounding one), counted under the
+    instance's name; the pair against float64 at the tier's floor."""
+    from kofft_tpu_torch import config
     n1, n2 = HK._pow2_split(n)
     ar, ai = _planes((b, n1, n2), cuda, seed=13)
-    before = dict(HK.launches)
-    cr, ci = HK.dense_stage_a(ar, ai)
-    pr, pi = HK.dense_stage_a_plain(ar, ai)
-    yr, yi = HK.dense_stage_b(cr, ci)
-    qr, qi = HK.dense_stage_b_plain(cr, ci)
-    torch.cuda.synchronize()
-    assert snr_db(_np(pr, pi), _np(cr, ci)) >= PORT_DB
-    assert snr_db(_np(qr, qi), _np(yr, yi)) >= PORT_DB
-    assert HK.launches["dense_stage_a"] == before["dense_stage_a"] + 1
-    assert HK.launches["dense_stage_b"] == before["dense_stage_b"] + 1
-    ref = np.fft.fft(_np(ar, ai).reshape(b, n), axis=-1)
-    assert snr_db(ref, _np(yr, yi).reshape(b, n)) > ORACLE_DB
-    HK.reset_counts()
-    fr, fi = HK.fused_four_step_fft(ar.reshape(b, n), ai.reshape(b, n), n)
-    assert HK.classes["four_step"] == 1
-    assert HK.launches["dense_stage_a"] == HK.launches["dense_stage_b"] == 1
-    assert snr_db(ref, _np(fr, fi)) > ORACLE_DB
+    config.set_precision(tier)
+    try:
+        mode = HK._dense_mode()
+        names = [HK._dense_name(k, mode) for k in ("dense_stage_a",
+                                                    "dense_stage_b")]
+        assert mode == ("bf16x1" if tier == "default" else "tf32x3")
+        before = dict(HK.launches)
+        cr, ci = HK.dense_stage_a(ar, ai)
+        pr, pi = HK.dense_stage_a_plain(ar, ai)
+        yr, yi = HK.dense_stage_b(cr, ci)
+        qr, qi = HK.dense_stage_b_plain(cr, ci)
+        torch.cuda.synchronize()
+        floor = DENSE_BF16_DB if mode == "bf16x1" else PORT_DB
+        assert snr_db(_np(pr, pi), _np(cr, ci)) >= floor
+        assert snr_db(_np(qr, qi), _np(yr, yi)) >= floor
+        assert all(HK.launches[k] == before[k] + 1 for k in names)
+        assert sum(HK.launches.values()) == sum(before.values()) + 2
+        ref = np.fft.fft(_np(ar, ai).reshape(b, n), axis=-1)
+        oracle = DEFAULT_DB if mode == "bf16x1" else ORACLE_DB
+        assert snr_db(ref, _np(yr, yi).reshape(b, n)) > oracle
+        HK.reset_counts()
+        fr, fi = HK.fused_four_step_fft(ar.reshape(b, n), ai.reshape(b, n),
+                                        n)
+        assert HK.classes["four_step"] == 1
+        assert [HK.launches[k] for k in names] == [1, 1]
+        assert snr_db(ref, _np(fr, fi)) > oracle
+    finally:
+        config.set_precision(None)
 
 
 def _form_cases():

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time kofft_tpu_torch's N-D axis kernels, N-D routes and 1-D paths on
-one CUDA card, so that two trees of the port can be compared in turns.
+"""Time kofft_tpu_torch's N-D axis kernels, N-D routes, 1-D paths and
+dense four-step pair on one CUDA card, so that two trees of the port can
+be compared in turns.
 
     python tools/hopper_timing.py [--root DIR] [--label NAME] [--out FILE]
-                                  [--kinds kernel,split,route,path]
+                                  [--kinds kernel,split,route,path,dense]
 
 ``--root`` is the checkout whose ``kofft_tpu_torch`` is imported (default:
 this one), so a parent tree unpacked beside it can be timed by the same
@@ -30,7 +31,12 @@ along the same axis of the complex tensor (for stage2 of its C); ``route``
 fftn_split at 1024^2, (8, 512, 512), 4096^2, 8192^2 and 128^3, and
 torch.fft.fftn beside each; ``path`` fft_split and rfft_split at 2^20,
 8 x 2^20, 2^24 and 2^26; and, where the tree has the column four-step,
-``split`` col_fft at (1, 2048, 2048) as one launch and as the split.
+``split`` col_fft at (1, 2048, 2048) as one launch and as the split;
+``dense`` the dense pair's stages at (1, 1024, 1024) on the `highest`
+and the `default` tier (the tree's instance for each tier), beside
+stage b's library call torch.fft.fft(C, dim=2) and, as ``context``, the
+complex64 product torch.matmul(F2, C^T) (TF32 off), and fused_four_step_fft at
+2^20, 8 x 2^20 and 2^24 on both tiers.
 ``--kinds`` lists the groups in the order they run, a group may come
 twice (``path,kernel,path`` times the paths before and after the kernel
 rows in one process); each row carries ``pos``, its group's place in that
@@ -52,7 +58,8 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import SEED, graph_ms, graph_runs, time_ms  # noqa: E402
+from chip_smoke import (SEED, graph_ms, graph_runs, on_tier,  # noqa: E402
+                        time_ms)
 
 
 def smi(query: str) -> str:
@@ -69,7 +76,7 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--kinds", default="kernel,split,route,path",
                     help="row groups in the order they run: kernel (with "
-                         "its library rows), split, route, path")
+                         "its library rows), split, route, path, dense")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -162,8 +169,33 @@ def main() -> int:
                 lambda: kt.rfft_split(xr))
             del xr, xi
 
+    def dense_rows(pos):
+        shape = (1, 1024, 1024)
+        ar, ai = planes(shape)
+        cr, ci = HK.dense_stage_a(ar, ai)
+        for tier in ("highest", "default"):
+            row(pos, "dense", f"dense_stage_a {tier}", shape,
+                on_tier(tier, lambda: HK.dense_stage_a(ar, ai)))
+            row(pos, "dense", f"dense_stage_b {tier}", shape,
+                on_tier(tier, lambda: HK.dense_stage_b(cr, ci)))
+        f2 = torch.complex(*(torch.as_tensor(a, device=dev) for a in
+                             HK.tables.dft_matrix(1024)))
+        cc = torch.complex(cr, ci)
+        row(pos, "library", "torch.fft.fft(C, dim=2)", shape,
+            lambda: torch.fft.fft(cc, dim=2))
+        row(pos, "context", "torch.matmul(F2, C^T) complex64", shape,
+            lambda: torch.matmul(f2, cc.mT))
+        del ar, ai, cr, ci, cc, f2
+        for shape in [(1 << 20,), (8, 1 << 20), (1 << 24,)]:
+            xr, xi = planes(shape)
+            for tier in ("highest", "default"):
+                row(pos, "dense", f"fused_four_step_fft {tier}", shape,
+                    on_tier(tier, lambda: HK.fused_four_step_fft(
+                        xr, xi, shape[-1])))
+            del xr, xi
+
     groups = {"kernel": kernel_rows, "split": split_rows,
-              "route": route_rows, "path": path_rows}
+              "route": route_rows, "path": path_rows, "dense": dense_rows}
     for pos, kind in enumerate(args.kinds.split(",")):
         emit({"label": args.label, "pos": pos, "kind": "state", "name": kind,
               "state": smi("clocks.sm,clocks.mem,temperature.gpu,"
