@@ -12,16 +12,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions run in full float32;
 2. build: nvcc builds every kernel source of the package, one process per
    source, all at once (timed), and the ptxas register / spill lines are
-   printed; cuobjdump -sass must show HGMMA (wgmma) in each of the dense
-   pair's four tensor-core instances;
+   printed, with a summary of the smooth-n1 stage-1 instances
+   (stage1_odd.cu); cuobjdump -sass must show HGMMA (wgmma) in each of
+   the dense pair's four tensor-core instances;
 3. kernels vs plain: stage1 and stage2 against their plain PyTorch
    versions on the same CUDA tensors (above 110 dB), forward and inverse
    (conj), and the pair against a float64 numpy FFT / inverse FFT, at
    (8, 2^14), 2^20, the smooth 3*2^18, 9*2^14 and 23*2^14 (stage 1 on
-   the dense chain), (8, 2^20), 2^22, 2^23 (stage 2's cluster), 2^24,
+   the odd plan), (8, 2^20), 2^22, 2^23 (stage 2's cluster), 2^24,
    2^25 and 2^26 (stage 1's column four-step); then stage1_real and
    stage2_half the same way, the pair against the float64 numpy rfft, at
-   (4, 2^14) and the same sizes;
+   (4, 2^14) and the same sizes; then stage 1 of every smooth n1 = o * 2^a
+   (the 19 lengths at the smallest n that _pow2_split gives each, and
+   3*2^23, 3072 x 8192), forward, inverse and real against the plain
+   versions (above 110 dB), and its bf16 forms at (1, 768, 1024), (1,
+   1152, 128) and (1, 2944, 128);
    then col_fft and row_fft the same way, forward and inverse (conj),
    above 110 dB against their plain versions, the pair against the
    float64 numpy fft2 / ifft2, at lines of 2 ... 8192 ((4096, 2, 16),
@@ -43,8 +48,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    float32 and 70 dB where it stores bf16;
 4. main paths: the public entries (complex, then real, then N-D, then
    the dense pair, bf16 planes and the `default` tier, the dense pair on
-   it included; the complex path includes the smooth 3*2^18, whose
-   stage-1 launches on the dense chain are read apart) with every count
+   it included; the complex and the real path include the smooth 3*2^18,
+   whose stage-1 launches on the odd plan are read apart) with every count
    set to 0 just before each path; each case checks its output against a
    float64 oracle and that its TPU-kernel class count rose; the kernel
    launch counts are read just after each path; one real case passes
@@ -86,9 +91,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (1, 8192, 8192), and stage1 and stage2 at (1, 2048, 2048), (1, 4096,
    4096) and (1, 8192, 8192) (kernel graph and back-to-back, plain
    version, torch.fft.fft along the same axis, bound); the smooth-n1
-   stage 1 (the dense chain) alone at the splits of 3*2^18, 9*2^14 and
-   23*2^14; and col_fft at lines of 2048 as one launch and as the column
-   four-step.
+   stage 1 (the odd plan) alone at the splits of 3*2^18, 9*2^14,
+   23*2^14, 5*2^16 and 3*2^23, and fft_split at 3*2^18 and 5*2^16 beside
+   torch.fft.fft; and col_fft at lines of 2048 as one launch and as the
+   column four-step.
 
 A bound is the least time the card could take for the work: the larger
 of the bytes the function must move (each input read once, each output
@@ -293,6 +299,25 @@ def on_tier(tier, fn):
     return run
 
 
+def ptxas_summary(log_text: str, key: str) -> dict:
+    """{mangled name: (registers, spill store bytes, spill load bytes)} of
+    the entry functions whose name holds ``key``, from ptxas -v output."""
+    import re
+    out, name, spills = {}, None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and key in name:
+            out[name] = (int(m.group(1)), *spills)
+    return out
+
+
 def dense_sass_counts(build) -> dict:
     """{instance: {"HGMMA": n, "FFMA": n}} of the dense pair's kernel
     instances (dense_tc_kernel<bf16, stage b>) in the library that
@@ -370,6 +395,17 @@ def main() -> int:
         if "registers" in line or "Function properties" in line \
                 or "spill" in line or "Compiling entry" in line:
             log(f"  {line.strip()}")
+    # the odd plan's instances (11 radices x 6 forms): registers and spills
+    odd_fns = ptxas_summary(B.build_info["log"], "stage1_odd_kernel")
+    if odd_fns:
+        regs = [r for r, _, _ in odd_fns.values()]
+        log(f"stage1_odd_kernel: {len(odd_fns)} instances, {min(regs)} ... "
+            f"{max(regs)} registers, spill stores "
+            f"{sum(st for _, st, _ in odd_fns.values())} bytes, spill loads "
+            f"{sum(ld for _, _, ld in odd_fns.values())} bytes")
+        for name, (r, st, ld) in sorted(odd_fns.items()):
+            if st or ld:
+                log(f"  spills: {name}: {r} registers, {st} / {ld} bytes")
     # the dense pair's four instances run on the tensor cores: HGMMA
     # (wgmma) in the SASS of each
     hgmma = dense_sass_counts(B)
@@ -387,8 +423,8 @@ def main() -> int:
 
     # the stage kernels at every route shape class: one-launch stage 1 up
     # to 2^22 (2048-point columns), the column four-step from 2^24, the
-    # stage-2 cluster from 2^23 (4096-point lines), smooth n1 (the dense
-    # chain) at 3*2^18, 9*2^14 and 23*2^14; forward and inverse (conj on
+    # stage-2 cluster from 2^23 (4096-point lines), smooth n1 (the odd
+    # plan) at 3*2^18, 9*2^14 and 23*2^14; forward and inverse (conj on
     # stage 1's load and stage 2's store)
     stage_sizes = [(8, 1 << 14), (1, 1 << 20), (1, 3 << 18), (1, 9 << 14),
                    (1, 23 << 14), (8, 1 << 20), (1, 1 << 22), (1, 1 << 23),
@@ -616,6 +652,57 @@ def main() -> int:
         log(f"{shape}: bf16 forms vs plain (dB): {', '.join(lines)}")
         del ar, ai
 
+    # stage 1 of every smooth n1 = o * q (csrc/stage1_odd.cu: the
+    # power-of-two passes on the o sub-lines in thread groups, then the
+    # odd pass) at the smallest n that _pow2_split gives it, and at 3*2^23
+    # (3072 x 8192, the largest): forward, inverse and real against the
+    # plain versions above AXIS_DB; then the bf16 forms of stage1 and
+    # stage1_real at three of them (bf16 stores above BF16_PLAIN_DB)
+    smooth = {}
+    for o in range(3, HK._MAX_ODD + 1, 2):
+        for k in range(14, 27):
+            split = HK._pow2_split(o << k)
+            if split and split[0] & (split[0] - 1):
+                smooth.setdefault(split[0], split)
+    smooth_shapes = sorted(smooth.values()) + [(3072, 8192)]
+    assert len(smooth_shapes) == 20, smooth_shapes
+    for n1, n2 in smooth_shapes:
+        ar, ai = planes((1, n1, n2))
+        vals = []
+        for conj in (False, True):
+            c, pc = HK.stage1(ar, ai, conj), HK.stage1_plain(ar, ai, conj)
+            torch.cuda.synchronize()
+            err["stage1"] = max(err["stage1"], max_abs(c, pc))
+            vals.append(snr_db_card(pc, c))
+        c, pc = HK.stage1_real(ar), HK.stage1_real_plain(ar)
+        torch.cuda.synchronize()
+        err["stage1_real"] = max(err["stage1_real"], max_abs(c, pc))
+        vals.append(snr_db_card(pc, c))
+        t, groups = HK._odd_tile(n1)
+        log(f"smooth n1 {n1} x {n2} (o = {HK._odd_part(n1)}, {groups} "
+            f"groups of {t * n1 // HK._odd_part(n1) // 16} threads): "
+            f"stage1 vs plain {vals[0]:.2f} dB, inverse {vals[1]:.2f} dB, "
+            f"stage1_real {vals[2]:.2f} dB")
+        assert min(vals) > AXIS_DB, (n1, n2, vals)
+        del ar, ai, c, pc
+    for shape in [(1, 768, 1024), (1, 1152, 128), (1, 2944, 128)]:
+        ar, ai = planes(shape)
+        lines = []
+        for base, loads, stores, name in forms:
+            if base not in ("stage1", "stage1_real"):
+                continue
+            fn, plain_fn = form_fns(base, ar.to(loads), ai.to(loads), stores)
+            (yr, yi), (pr, pi) = fn(), plain_fn()
+            torch.cuda.synchronize()
+            assert yr.dtype == yi.dtype == stores, (name, yr.dtype)
+            sv = snr_db_card((pr, pi), (yr, yi))
+            floor = AXIS_DB if stores == torch.float32 else BF16_PLAIN_DB
+            lines.append(f"{name} {sv:.2f}")
+            assert sv > floor, (shape, name, sv, floor)
+            del yr, yi, pr, pi
+        log(f"smooth {shape}: bf16 forms vs plain (dB): {', '.join(lines)}")
+        del ar, ai
+
     # -- 4. main path through the public entries --------------------------
     log("== phase 4: main paths through the public entries")
     log("-- the complex FFT")
@@ -652,14 +739,12 @@ def main() -> int:
     split_case((1 << 24,), "ml")
     split_case((1 << 26,), "ml")
     split_case((8, 1 << 14), "ml")
-    # a smooth n1 (3 * 2^8 at 3 * 2^18): stage 1 on the dense chain of
-    # smooth_stage.cu, counted under stage1 and read apart here
+    # a smooth n1 (768 = 3 * 2^8 at 3 * 2^18): stage 1 on the odd plan of
+    # stage1_odd.cu, counted under stage1 and read apart here
     before = HK.launches["stage1"]
     split_case((3 << 18,), "phased_flat")
-    smooth_launches = HK.launches["stage1"] - before
-    log(f"smooth-n1 stage 1 (kofft_stage1_smooth) launches on the main "
-        f"path: {smooth_launches}")
-    assert smooth_launches > 0
+    smooth_launches = {"fft_split": HK.launches["stage1"] - before}
+    assert smooth_launches["fft_split"] > 0
     xr, xi = planes((1 << 20,))
     x = host(xr, xi)
     case("ifft_split(fft_split(x)) 2^20", "phased_flat",
@@ -701,6 +786,12 @@ def main() -> int:
     rfft_case((1 << 24,), "ml_real", "rfft")
     rfft_case((1 << 26,), "ml_real", "rfft")
     rfft_case((8, 1 << 14), "ml_real", "rfft")
+    before = HK.launches["stage1_real"]
+    rfft_case((3 << 18,), "phased_flat_real", "rfft_split")
+    smooth_launches["rfft_split"] = HK.launches["stage1_real"] - before
+    log(f"smooth-n1 stage 1 (odd plan, stage1_odd.cu) launches on the "
+        f"main paths at 3 * 2^18: {smooth_launches}")
+    assert smooth_launches["rfft_split"] > 0
     x = real((1 << 20,))
     xh = x.double().cpu().numpy()
     case("irfft(rfft(x)) 2^20", "phased_flat_real",
@@ -1212,15 +1303,28 @@ def main() -> int:
         axis_row(view, "stage2", HK.stage2, HK.stage2_plain, cr, ci,
                  "torch.fft.fft(C, dim=2)", lambda: torch.fft.fft(cc, dim=2))
         del cr, ci, cc
-    # the smooth-n1 stage 1 (the dense chain of smooth_stage.cu) at the
-    # splits of 3 * 2^18, 9 * 2^14 and 23 * 2^14
-    for n in (3 << 18, 9 << 14, 23 << 14):
+    # the smooth-n1 stage 1 (the odd plan of stage1_odd.cu) at the splits
+    # of 3 * 2^18, 9 * 2^14, 23 * 2^14, 5 * 2^16 and 3 * 2^23, then the
+    # complex path at 3 * 2^18 and 5 * 2^16 (the JAX bench's smooth sizes)
+    # beside torch.fft.fft
+    for n in (3 << 18, 9 << 14, 23 << 14, 5 << 16, 3 << 23):
         view = (1, *HK._pow2_split(n))
         vr, vi = planes(view)
-        log(f"smooth n1 = {view[1]}, n = {n}:")
+        log(f"smooth n1 = {view[1]}, n = {n}, tile and groups "
+            f"{HK._odd_tile(view[1])}:")
         axis_row(view, "stage1", HK.stage1, HK.stage1_plain, vr, vi, None,
                  None)
         del vr, vi
+    for n in (3 << 18, 5 << 16):
+        xr, xi = planes((n,))
+        xc = torch.complex(xr, xi)
+        bd, by = transform_bound(False, 1, n)
+        log(f"({n},): fft_split bound {bd * 1e3:.2f} us ({by})")
+        report((n,), "kernel path (fft_split)",
+               time_ms(lambda: kt.fft_split(xr, xi)))
+        report((n,), "torch.fft.fft (cuFFT)",
+               time_ms(lambda: torch.fft.fft(xc)))
+        del xr, xi, xc
     # col_fft at lines of 2048, one launch against the column four-step:
     # the measurement behind HK._COL_SPLIT_ABOVE
     vr, vi = planes((1, 2048, 2048))
@@ -1232,6 +1336,7 @@ def main() -> int:
     del vr, vi
 
     stages = "kofft_tpu_torch/ops/csrc/fft_stages.cu"
+    odd = "kofft_tpu_torch/ops/csrc/stage1_odd.cu"
     dense = "kofft_tpu_torch/ops/csrc/dense_dft.cu"
     axis = "kofft_tpu_torch/ops/csrc/axis_fft.cu"
     tpu = "kofft_tpu/ops/pallas_kernels.py"
@@ -1269,7 +1374,8 @@ def main() -> int:
          "ms": kern[k][1], "plain_ms": plain[k][1], "bound_ms": bound[k][0],
          "bound_by": bound[k][1], "library_ms": library_ms.get(k),
          "graph_ms": kern_g[k], "plain_graph_ms": plain_g[k],
-         "library_graph_ms": library_graph_ms.get(k)}
+         "library_graph_ms": library_graph_ms.get(k),
+         **({"also_source": [odd]} if k.startswith("stage1") else {})}
         for k, (src, line, also) in replaces.items()]}
     assert set(replaces) == set(HK.launches), set(HK.launches) ^ set(
         replaces)

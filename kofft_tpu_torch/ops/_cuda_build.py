@@ -1,7 +1,7 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc at first use and load them
 with ctypes.
 
-Every ``csrc/*.cu`` source (``fft_stages.cu``, ``smooth_stage.cu``,
+Every ``csrc/*.cu`` source (``fft_stages.cu``, ``stage1_odd.cu``,
 ``axis_fft.cu`` and ``dense_dft.cu``, with the headers they include) is
 compiled for ``sm_90a`` by its own nvcc process, all started together,
 and the objects are linked into one shared library with a plain C
@@ -33,10 +33,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the exported functions
 SIGNATURES = {
-    "kofft_stage1": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I,
+    "kofft_stage1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I,
                      _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P],
-    "kofft_stage1_smooth": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
-                            _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "kofft_stage2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
                      _I, _I, _I, _I, _I, _P],
     "kofft_col_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,

@@ -36,7 +36,7 @@
 // of that bound:
 // 1. Leaf work: radix butterflies in registers, ~30-45 floating-point
 //    instructions per point for lines of 128 ... 8192 where the dense
-//    leaves took 128-192 complex MACs (line_fft.cuh); one exchange through
+//    leaves took 128-192 complex MACs (retired); one exchange through
 //    shared memory per pass boundary instead of a ping-pong round trip and
 //    table reads per step.
 // 2. Bank conflicts: the exchange buffer is swizzled per exchange so that

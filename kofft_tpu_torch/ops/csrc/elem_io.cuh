@@ -1,5 +1,5 @@
 // Global element access of the stage kernels' float32 and bfloat16 I/O
-// forms (fft_stages.cu, smooth_stage.cu): a load widens to float32, a
+// forms (fft_stages.cu, stage1_odd.cu): a load widens to float32, a
 // store rounds to the nearest even bfloat16 (__float2bfloat16_rn, as
 // torch's .to(torch.bfloat16) and XLA's convert do). Shared memory and
 // registers stay float32.

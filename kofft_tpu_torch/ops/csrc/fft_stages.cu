@@ -3,7 +3,7 @@
 // (radix_line.cuh), with a plain C interface bound by ctypes
 // (kofft_tpu_torch/ops/_cuda_build.py). n = n1 * n2 from
 // hopper_kernels._pow2_split: n2 is a power of two of 128 ... 8192, n1 one
-// of 128 ... 8192 or a smooth o * 2^a (see below).
+// of 128 ... 8192 or a smooth o * 2^a <= 3072 (see below).
 //
 // stage1_kernel replaces s1_kernel and s1r_kernel
 // (kofft_tpu/ops/pallas_kernels.py:547, :558, called at :613, :630) and
@@ -62,7 +62,7 @@
 // for stage2_half), 5.01 us at 3.35 TB/s for 2^20 points; the FFT's 5 m
 // log2 m flop per line is under a fifth of that at 67 TFLOP/s. What the
 // design does about the three causes that held the earlier dense-chain
-// stage kernels (line_fft.cuh) at 2.5-15 % of that bound:
+// stage kernels (dense DFT-matrix leaves) at 2.5-15 % of that bound:
 // 1. Leaf work: radix-16/8/4/2 butterflies in registers, ~30-45
 //    floating-point instructions per point for lines of 128 ... 8192
 //    where the dense leaves took 64-192 complex MACs, and one exchange
@@ -81,10 +81,12 @@
 //    (the dense chain made four 4-byte loads from four planes); the base
 //    factors of a warp are T-float2 runs, the column factor one broadcast.
 //
-// Shapes that keep the dense chain: a smooth n1 = o * 2^a (odd o = 3 ...
-// 23: 3*2^18, 9*2^14, 23*2^14, ...) is not a power of two, so its stage 1
-// is the dense-leaf kernel of smooth_stage.cu; stage 2 lines are always
-// powers of two.
+// A smooth n1 = o * 2^a (odd o = 3 ... 23: 3*2^18 splits as 768 x 1024,
+// 9*2^14 as 1152 x 128, 23*2^14 as 2944 x 128) is one more radix plan of
+// stage 1: its power-of-two passes, then one pass of radix o
+// (radix_line.cuh). kofft_stage1 sends such a plan to stage1_odd.cu,
+// whose kernel runs the o sub-lines of 2^a in thread groups and the odd
+// pass with its own thread map; stage 2 lines are always powers of two.
 //
 // bfloat16 I/O: every kernel also loads and stores bfloat16 planes (the
 // forms of hopper_kernels._IO_FORMS, the counterparts of _build_ml's
@@ -105,6 +107,16 @@
 #include "radix_line.cuh"
 
 namespace cg = cooperative_groups;
+
+namespace kofft {
+// stage1_odd.cu: stage 1 on a plan whose last radix is odd
+int launch_stage1_odd(int o, int real, int in_bf16, int out_bf16,
+                      const void* ar, const void* ai, void* yr, void* yi,
+                      int rows, int q, int inner, int T, int groups,
+                      const radix::RadixPlan& p, const void* tab,
+                      int otw_off, int conj, const void* wb, const void* wc,
+                      int tw_t, int device, void* stream);
+}  // namespace kofft
 using kofft::bf16;
 using kofft::kMaxDevices;
 using kofft::ld;
@@ -442,19 +454,35 @@ int stage2_forms(int in_bf16, int out_bf16, Args... a) {
 // negates the imaginary part on load), stored with the optional split
 // twiddle (tw, tw_div), digit swap (swap) and four-step twiddle (wb, wc,
 // tw_t; hopper_kernels._stage1_twiddle). T columns per block, steps /
-// npass / tab from hopper_kernels._axis_plan. The I/O forms: f32 -> f32,
+// npass / tab from hopper_kernels._stage1_plan. The I/O forms: f32 -> f32,
 // bf16 -> f32 and bf16 -> bf16, and complex f32 -> bf16 for the split's
-// second launch.
+// second launch. A plan whose last radix is odd (m = o * q) launches
+// stage1_odd.cu's kernel in ``groups`` sub-line groups (0 for a
+// power-of-two plan), with W and without a split or swap.
 extern "C" int kofft_stage1(const void* ar, const void* ai, void* yr,
                             void* yi, int rows, int m, int inner, int T,
-                            const int* steps, int npass, const void* tab,
-                            int conj, const void* tw, int tw_div, int swap,
-                            const void* wb, const void* wc, int tw_t,
-                            int real, int in_bf16, int out_bf16, int device,
-                            void* stream) {
+                            int groups, const int* steps, int npass,
+                            const void* tab, int conj, const void* tw,
+                            int tw_div, int swap, const void* wb,
+                            const void* wc, int tw_t, int real, int in_bf16,
+                            int out_bf16, int device, void* stream) {
   RadixPlan p;
+  if (npass >= 2 && steps[7 * (npass - 1)] % 2 == 1) {
+    const int* odd = steps + 7 * (npass - 1);
+    const int o = odd[0];
+    if (o < 3 || m % o != 0 || odd[1] != m / o || tw != nullptr ||
+        swap != 1) {
+      return cudaErrorInvalidValue;
+    }
+    const int r = fill_plan(&p, steps, npass - 1, m / o, kE);
+    if (r != cudaSuccess) return r;
+    return kofft::launch_stage1_odd(o, real, in_bf16, out_bf16, ar, ai, yr,
+                                    yi, rows, m / o, inner, T, groups, p,
+                                    tab, odd[2], conj, wb, wc, tw_t, device,
+                                    stream);
+  }
   const int r = fill_plan(&p, steps, npass, m, kE);
-  if (r != cudaSuccess) return r;
+  if (r != cudaSuccess || groups != 0) return cudaErrorInvalidValue;
   if (real) {
     return stage1_forms<true>(in_bf16, out_bf16, ar, ai, yr, yi, rows, m,
                               inner, T, p, tab, 0, tw, tw_div, swap, wb, wc,

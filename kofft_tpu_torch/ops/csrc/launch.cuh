@@ -1,5 +1,5 @@
 // Launch helper shared by the kernel sources with dynamic shared memory
-// (fft_stages.cu, axis_fft.cu).
+// (fft_stages.cu, stage1_odd.cu, axis_fft.cu, dense_dft.cu).
 #pragma once
 
 #include <cuda_runtime.h>

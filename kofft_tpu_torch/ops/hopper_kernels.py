@@ -16,8 +16,9 @@ FFTs of length n1 in tiles of >= 8 columns, the twiddle fused into the
 store; above 2048 points a column four-step of two launches) and
 ``stage2`` (row FFTs of length n2, stored transposed through the
 exchange buffer; lines of 4096 and 8192 through a thread-block cluster).
-A smooth n1 = o * 2^a keeps the dense-leaf chain of ``csrc/line_fft.cuh``
-for stage 1 (``csrc/smooth_stage.cu``). The routing still picks a class
+A smooth n1 = o * 2^a is one more radix plan of stage 1: the power-of-two
+passes of 2^a on the o sub-lines, then one pass of radix o, in the kernel
+of ``csrc/stage1_odd.cu`` (``_odd_tile``). The routing still picks a class
 per shape, as the JAX function does, and counts it in ``classes`` so a
 run shows which TPU-kernel class it went through; ``launches`` counts
 the wrapper calls that launched a kernel. The real FFT runs two more
@@ -91,11 +92,6 @@ _PHASED_MAX_N = 1 << 22   # phased one-call cap, 6-pass tiers
 _PHASED_MAX_N_DEFAULT = 1 << 24   # phased cap, `default` tier
 _PHASED_FLAT_MAX_N = 1 << 21      # flat (rank-1 output) phased cap
 _PHASED_FLAT_REAL_MAX_N = 1 << 23  # the same for the real form
-# shared memory of one dense-chain stage-1 block (two buffers; smooth n1
-# only). 64 KB lets up to three blocks share an SM so loads, leaf work and
-# stores of different blocks overlap: 8 x 2^20 measured 940 -> 704 us
-# against 128 KB (H100, 700 W)
-_SMEM_BYTES = 64 * 1024
 
 # the longest line col_fft and row_fft take (the N-D zones' longest axis)
 _LINE_MAX = 8192
@@ -459,78 +455,12 @@ def stage2_half_plain(cr, ci, dtype=_F32):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _kernel_tile(m: int) -> int:
-    """Lines per block of the dense-chain stage 1, which only a smooth n1
-    runs (``csrc/smooth_stage.cu``): the largest power of two T <= 16
-    whose two (m, T) float2 buffers fit _SMEM_BYTES, else 1 (T = 4 at m =
-    1024; a single line of 8192 takes 128 KB, within the 227 KB a block
-    may have)."""
-    t = 16
-    while t > 1 and 16 * m * t > _SMEM_BYTES:
-        t //= 2
-    return t
-
-
 def _check_line(m: int, what: str) -> None:
     """col_fft and row_fft take pow2 lines of 2 ... _LINE_MAX points."""
     if m & (m - 1) or not 2 <= m <= _LINE_MAX:
         raise InvalidValueError(
             f"{what}: lines must be a power of two in [2, {_LINE_MAX}]; "
             f"got {m}")
-
-
-def _leaf_kb(mm: int, kb_max: int) -> int:
-    """Outputs per thread of a leaf step (register blocking): the largest
-    of 8 and 4 that divides mm and is <= kb_max, else 1."""
-    for kb in (8, 4):
-        if kb <= kb_max and mm % kb == 0:
-            return kb
-    return 1
-
-
-def _grid_kb(blocks: int, sms: int) -> int:
-    """Register blocking of the dense chain (smooth n1 only) for a launch
-    of ``blocks`` blocks on ``sms`` SMs. Measured on the H100
-    (back-to-back device time, 700 W): 8 outputs per thread win on grids
-    of at most ~4 blocks per SM (2^20: 96.7 -> 76.6 us, 3*2^18: 92.1 ->
-    67.2) and lose 3-11 % on large grids (8 x 2^20, 2^24, 2^26), where 4
-    is kept. Why 8 loses there is still open."""
-    return 8 if blocks <= 4 * sms else 4
-
-
-def _line_plan(m: int, t: int, kb_max: int = 8):
-    """The flattened dense line-FFT chain for (m, t) blocks
-    (``csrc/line_fft.cuh``; the stage kernels run it only for a smooth
-    n1): an int32 array of (mm, kb, bb, inner, f_off, tw_off) per step,
-    and the float2-interleaved float32 table buffer the offsets point
-    into. Every table starts at an
-    even float2 offset, so the kernel may read table rows 16 bytes at a
-    time."""
-    def build():
-        keys = _ml_const_keys(m)
-        arrs = _ml_const_arrays(keys, "float32")
-        offs, chunks, off = {}, [], 0
-        for i, key in enumerate(keys):
-            re, im = arrs[2 * i], arrs[2 * i + 1]
-            offs[key] = off
-            pad = re.size % 2
-            off += re.size + pad
-            chunks.append(np.stack([re.ravel(), im.ravel()], axis=1).ravel())
-            chunks.append(np.zeros(2 * pad, np.float32))
-        steps, inner, mm = [], t, m
-        while mm > _ML_LEAF:
-            a, b = _ml_split(mm)
-            require(a <= _ML_LEAF, InvalidValueError,
-                    f"line {m}: leading factor {a} of {mm} is not a leaf")
-            steps += [a, _leaf_kb(a, kb_max), b, inner, offs[("dft", a)],
-                      offs[("tw", a, b)]]
-            inner *= a
-            mm = b
-        steps += [mm, _leaf_kb(mm, kb_max), 1, inner, offs[("dft", mm)], 0]
-        return (np.asarray(steps, np.int32),
-                np.concatenate(chunks).astype(np.float32))
-
-    return tables.custom(("lineplan", m, t, kb_max), build)
 
 
 # ---------------------------------------------------------------------------
@@ -547,13 +477,20 @@ _SMEM_MAX = 227 * 1024    # shared memory one Hopper block may have
 _COL_SPLIT_ABOVE = 2048
 
 
+def _odd_part(m: int) -> int:
+    """The odd factor o of m = o * 2^a."""
+    return m >> ((m & -m).bit_length() - 1)
+
+
 def _radices(m: int) -> list:
-    """The radix passes of a pow2 line m: ceil(log2(m) / 4) passes of 16, 8,
+    """The radix passes of a line m = o * 2^a: ceil(a / 4) passes of 16, 8,
     4 or 2 points, the bits spread evenly, largest first (128 = 16*8, 1024 =
-    16*8*8, 8192 = 16*8*8*8)."""
-    p = m.bit_length() - 1
+    16*8*8, 8192 = 16*8*8*8), then one pass of radix o for odd o > 1 (768 =
+    16*16*3)."""
+    o = _odd_part(m)
+    p = (m // o).bit_length() - 1
     n = -(-p // 4)
-    return [1 << (p // n + (i < p % n)) for i in range(n)]
+    return [1 << (p // n + (i < p % n)) for i in range(n)] + [o][:o > 1]
 
 
 def _axis_tile(kind: str, m: int, count: int) -> tuple:
@@ -654,14 +591,20 @@ def _axis_plan(kind: str, m: int, t: int, e: int):
     x1, y1, x2, y2) per pass (the RadixPlan of radix_line.cuh) and the
     float2-interleaved float32 twiddle table the offsets point into. Pass p
     with Ns > 1 reads w[jj*(R-1) + r-1] = exp(-2 pi i jj r / (Ns R)),
-    built in float64 with the phase jj*r reduced mod Ns*R in integers."""
+    built in float64 with the phase jj*r reduced mod Ns*R in integers. A
+    smooth m = o * q (stage 1 only, ``kind="col"``) plans the passes of
+    its sub-lines of q, exchanged in (q, t) sub-tiles, then the odd pass
+    (Ns = q, its (q, o-1) table over m; no swizzle: stage1_odd.cu's
+    exchange before it is unswizzled)."""
     def build():
         steps, chunks, off, ns = [], [], 0, 1
         rs = _radices(m)
+        q = m // _odd_part(m)
+        n_pow2 = len(_radices(q))
         for p, radix in enumerate(rs):
             sw = (0, 5, 0, 5)
-            if p + 1 < len(rs):
-                sw = _pick_swizzle(kind, m, t, e, radix, ns)
+            if p + 1 < n_pow2:
+                sw = _pick_swizzle(kind, q, t, e, radix, ns)
             steps += [radix, ns, off, *sw]
             if ns > 1:
                 ph = np.mod(np.outer(np.arange(ns, dtype=np.int64),
@@ -708,6 +651,10 @@ _STAGE_E = 16             # points per thread: stage lines have >= 128 points
 _ROW_MIN_TILE = 8         # lines k1 per stage-2 tile: >= 32-byte store runs
 _ROW_CLUSTER_ABOVE = 2048  # longer stage-2 lines: a cluster holds the tile
 _CLUSTER_CTA_THREADS = 512  # threads of each CTA of a stage-2 cluster
+_ODD_TILE = 8             # columns per smooth-n1 stage-1 tile: 32-byte runs
+_ODD_MAX_GROUPS = 15      # sub-line groups: named barriers 1 ... 15
+_ODD_MAX_LINE = 3072      # the longest smooth n1 of _pow2_split
+_ODD_MAX_THREADS = 768    # a block of the odd plan (80 registers a thread)
 
 
 def _stage2_tile(m: int) -> tuple:
@@ -722,6 +669,28 @@ def _stage2_tile(m: int) -> tuple:
         return _ROW_MIN_TILE, _CLUSTER_CTA_THREADS * _STAGE_E // m
     t = max(_ROW_MIN_TILE, _AXIS_THREADS * _STAGE_E // m)
     return t, t
+
+
+def _odd_tile(m: int) -> tuple:
+    """(T, P) of a stage-1 launch on smooth lines m = o * q
+    (``csrc/stage1_odd.cu``): T = 8 consecutive columns per block, and P
+    groups of T*q/16 threads, each running its share of the o sub-lines of
+    q in turn: the fewest rounds ceil(o / P) that keep the block at <= 768
+    threads and P <= 15, with P = ceil(o / rounds) (768 = 3*256: 3 groups
+    of 128; 3072 = 3*1024: one group of 512, 3 rounds; 2944 = 23*128: 12
+    groups of 64, 2 rounds). Any other line raises."""
+    o = _odd_part(m)
+    q = m // o
+    require(3 <= o <= _MAX_ODD and _MIN_FACTOR <= q <= 1024
+            and m <= _ODD_MAX_LINE, InvalidValueError,
+            f"stage1: no kernel for lines of {m} (smooth lines o * 2^a take "
+            f"odd o <= {_MAX_ODD}, 2^a in [128, 1024], o * 2^a <= "
+            f"{_ODD_MAX_LINE})")
+    t = _ODD_TILE
+    gsize = t * q // _STAGE_E
+    most = min(_ODD_MAX_GROUPS, _ODD_MAX_THREADS // gsize, o)
+    rounds = -(-o // most)
+    return t, -(-o // rounds)
 
 
 def _transpose_addrs(m: int, t: int, tc: int, rank: int = 0):
@@ -768,13 +737,13 @@ def _stage1_twiddle(n1: int, n2: int):
 
 
 def _stage1_views(n1: int, n2: int) -> list:
-    """The column launches of a power-of-two stage 1, each (rows per batch
-    row, m, inner, split twiddle or None, tw_div, swap): one over (b, n1,
-    n2) up to _COL_SPLIT_ABOVE, else the column four-step of
+    """The column launches of stage 1, each (rows per batch row, m, inner,
+    split twiddle or None, tw_div, swap): one over (b, n1, n2) for a
+    smooth n1 and up to _COL_SPLIT_ABOVE, else the column four-step of
     ``_col_split``: lines of m1 over (b, m1, m2*n2) with w_n1^(k1a*j1b),
     then lines of m2 over (b*m1, m2, n2) stored to row k1b*m1 + k1a. The
     four-step twiddle W rides on the last launch's store."""
-    split = _col_split(n1)
+    split = None if n1 & (n1 - 1) else _col_split(n1)
     if split is None:
         return [(1, n1, n2, None, 1, 1)]
     m1, m2 = split
@@ -823,12 +792,12 @@ def _static_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
       pointer) of ``_axis_tile`` and ``_axis_plan``.
     - "stage2": (T, Tc, plan pointer, pass count, table pointer) of
       ``_stage2_tile`` and ``_stage2_plan``.
-    - "stage1": (base twiddle pointer, col twiddle pointer, launches).
-      A power-of-two n1 has one or two column launches
-      (``_stage1_views``), each (rows per batch row, m, inner, T, plan
-      pointer, pass count, table pointer, split twiddle pointer or None,
-      tw_div, swap); a smooth n1 has launches None and the dense chain's
-      (T, steps pointer, step count, table pointer) after it.
+    - "stage1": (base twiddle pointer, col twiddle pointer, launches),
+      one or two column launches (``_stage1_views``), each (rows per
+      batch row, m, inner, T, P, plan pointer, pass count, table pointer,
+      split twiddle pointer or None, tw_div, swap): T of ``_axis_tile``
+      and P = 0 for a power-of-two m, (T, P) of ``_odd_tile`` for a
+      smooth one, and ``_axis_plan``.
     The host side of a launch is on the 2^20 critical path (the transform
     was host-bound there), so nothing is rebuilt per call."""
     key = (kind, b, n1, n2, dev.index)
@@ -848,22 +817,16 @@ def _static_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
                const(tab, dev).data_ptr())
     else:
         wb, wc = (const(a, dev).data_ptr() for a in _stage1_twiddle(n1, n2))
-        if n1 & (n1 - 1):
-            t = _kernel_tile(n1)
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            steps, tab = _line_plan(n1, t, _grid_kb(b * (n2 // t), sms))
-            hit = (wb, wc, None, t, steps.ctypes.data, len(steps) // 6,
-                   const(tab, dev).data_ptr())
-        else:
-            views = []
-            for rows, m, inner, tw, tw_div, swap in _stage1_views(n1, n2):
-                t, e = _axis_tile("col", m, inner)
-                steps, tab = _axis_plan("col", m, t, e)
-                views.append((rows, m, inner, t, steps.ctypes.data,
-                              len(steps) // 7, const(tab, dev).data_ptr(),
-                              None if tw is None else const(tw, dev)
-                              .data_ptr(), tw_div, swap))
-            hit = (wb, wc, tuple(views))
+        views = []
+        for rows, m, inner, tw, tw_div, swap in _stage1_views(n1, n2):
+            t, groups = (_odd_tile(m) if m & (m - 1)
+                         else (_axis_tile("col", m, inner)[0], 0))
+            steps, tab = _axis_plan("col", m, t, _STAGE_E)
+            views.append((rows, m, inner, t, groups, steps.ctypes.data,
+                          len(steps) // 7, const(tab, dev).data_ptr(),
+                          None if tw is None else const(tw, dev).data_ptr(),
+                          tw_div, swap))
+        hit = (wb, wc, tuple(views))
     _ARGS[key] = hit
     return hit
 
@@ -876,24 +839,17 @@ def _stream(dev) -> int:
 
 def _stage1_kernel(ar, ai, conj: bool, c_dtype):
     """Stage 1 on CUDA planes (``ai=None``: one real plane) into a new C of
-    ``c_dtype``: the dense chain for a smooth n1, else one column launch
-    or the column four-step's two (``_static_args``)."""
+    ``c_dtype``: one column launch (a smooth n1's odd plan among them) or
+    the column four-step's two (``_static_args``)."""
     from ._cuda_build import check, lib
     b, n1, n2 = ar.shape
     dev = ar.device
     real = ai is None
     in_bf = int(ar.dtype == _BF16)
-    wb, wc, views, *smooth = _static_args("stage1", b, n1, n2, dev)
+    wb, wc, views = _static_args("stage1", b, n1, n2, dev)
     cr = torch.empty(ar.shape, dtype=c_dtype, device=dev)
     ci = torch.empty(ar.shape, dtype=c_dtype, device=dev)
     src = (ar.data_ptr(), None if real else ai.data_ptr())
-    if views is None:
-        t, steps, nsteps, tab = smooth
-        check(lib().kofft_stage1_smooth(
-            *src, cr.data_ptr(), ci.data_ptr(), b, n1, n2, t, steps, nsteps,
-            tab, wb, wc, min(_ML_TILE, n1), int(conj), int(real), in_bf,
-            int(c_dtype == _BF16), dev.index, _stream(dev)), "stage1 launch")
-        return cr, ci
     if len(views) == 2:
         mid = (torch.empty(ar.shape, dtype=_F32, device=dev),
                torch.empty(ar.shape, dtype=_F32, device=dev))
@@ -901,11 +857,11 @@ def _stage1_kernel(ar, ai, conj: bool, c_dtype):
     else:
         outs = [(cr, ci)]
     for i, (view, (yr, yi)) in enumerate(zip(views, outs)):
-        rows, m, inner, t, steps, npass, tab, tw, tw_div, swap = view
+        rows, m, inner, t, groups, steps, npass, tab, tw, tw_div, swap = view
         last = i == len(views) - 1
         check(lib().kofft_stage1(
-            *src, yr.data_ptr(), yi.data_ptr(), b * rows, m, inner, t, steps,
-            npass, tab, int(conj and i == 0), tw, tw_div, swap,
+            *src, yr.data_ptr(), yi.data_ptr(), b * rows, m, inner, t,
+            groups, steps, npass, tab, int(conj and i == 0), tw, tw_div, swap,
             wb if last else None, wc if last else None, min(_ML_TILE, n1),
             int(real and i == 0), in_bf if i == 0 else 0,
             int(yr.dtype == _BF16), dev.index, _stream(dev)), "stage1 launch")

@@ -67,13 +67,17 @@ def _planes(shape, dev, seed=0):
 @pytest.mark.parametrize("b,n,conj", [
     (1, 1 << 14, False), (8, 1 << 14, False), (2, 1 << 16, False),
     (1, 3 << 18, False), (1, 23 << 14, False), (1, 9 << 14, False),
+    (1, 5 << 16, False), (1, 7 << 14, False), (1, 11 << 14, False),
+    (1, 13 << 14, False), (1, 15 << 14, False), (1, 17 << 14, False),
+    (1, 19 << 14, False), (1, 21 << 14, False), (2, 3 << 23, False),
     (1, 1 << 22, False), (1, 1 << 23, False), (1, 1 << 26, False),
-    (2, 1 << 16, True), (1, 3 << 18, True), (1, 1 << 23, True),
-    (1, 1 << 26, True)])
+    (2, 1 << 16, True), (1, 3 << 18, True), (1, 23 << 14, True),
+    (1, 1 << 23, True), (1, 1 << 26, True)])
 def test_stages_match_plain(cuda, b, n, conj):
     """Both stages against their plain versions at one-launch columns,
-    smooth n1 (the dense chain), a stage-2 cluster (2^23) and the column
-    four-step (2^26), forward and inverse; one count per wrapper call."""
+    smooth n1 (the odd plan, one n per odd o = 3 ... 23, and 3072 x 8192),
+    a stage-2 cluster (2^23) and the column four-step (2^26), forward and
+    inverse; one count per wrapper call."""
     n1, n2 = HK._pow2_split(n)
     ar, ai = _planes((b, n1, n2), cuda)
     before = dict(HK.launches)

@@ -107,42 +107,6 @@ def test_inverse_and_donate_plain():
         > ORACLE_DB
 
 
-def _emulate_chain(x, m, t, kb_max):
-    """The CUDA line FFT's step chain (csrc/line_fft.cuh) in numpy: each
-    step is a dense leaf over the (mm, R) view of the whole buffer, with
-    the twiddle and digit swap fused into its store when bb > 1."""
-    steps, tab = HK._line_plan(m, t, kb_max)
-    tab = tab[0::2].astype(np.float64) + 1j * tab[1::2]
-    src = x.reshape(-1)
-    for mm, kb, bb, inner, f_off, tw_off in steps.reshape(-1, 6):
-        assert mm % kb == 0 and (kb == 1 or f_off % 2 == 0)
-        y = tab[f_off:f_off + mm * mm].reshape(mm, mm).T @ src.reshape(mm, -1)
-        if bb > 1:
-            tw = tab[tw_off:tw_off + mm * bb].reshape(mm, bb)
-            y = (y.reshape(mm, bb, inner) * tw[:, :, None]).transpose(1, 0, 2)
-        src = y.reshape(-1)
-    return src.reshape(m, t)
-
-
-@pytest.mark.parametrize("kb_max", [4, 8])
-@pytest.mark.parametrize("m", [128, 768, 1024, 2944, 8192])
-def test_kernel_step_chain_is_the_line_fft(m, kb_max):
-    """The host-flattened level table the kernel runs computes the line
-    FFT (float32 tables, float64 arithmetic: > 140 dB here)."""
-    t = HK._kernel_tile(m)
-    xr, xi = _planes((m, t), m)
-    x = _c(xr, xi)
-    got = _emulate_chain(x, m, t, kb_max)
-    assert snr_db(np.fft.fft(x, axis=0), got) > 140.0
-
-
-def test_register_blocking_follows_grid():
-    assert HK._grid_kb(256, 132) == 8        # 2^20: 256 blocks per stage
-    assert HK._grid_kb(2048, 132) == 4       # 8 x 2^20
-    assert [HK._leaf_kb(mm, 8) for mm in (32, 92, 36, 7)] == [8, 4, 4, 1]
-    assert HK._leaf_kb(32, 4) == 4
-
-
 def test_wrappers_reject_bad_planes():
     a = torch.zeros((1, 128, 128), dtype=torch.float64)
     with pytest.raises(ValueError):

@@ -430,15 +430,6 @@ def test_axis_wrappers_reject_bad_input():
         HK.fused_ndfft_planes(torch.zeros(128), torch.zeros(128))
 
 
-@pytest.mark.parametrize("m, t", [(128, 16), (1024, 4), (4096, 1),
-                                  (8192, 1)])
-def test_kernel_tile_divides_the_route_lines(m, t):
-    """Lines per block at the N-D routes' line lengths: every route passes
-    a power-of-two count of at least 128 lines, which T <= 16 divides."""
-    assert HK._kernel_tile(m) == t
-    assert 128 % t == 0
-
-
 # ---------------------------------------------------------------------------
 # zones and gradients
 # ---------------------------------------------------------------------------

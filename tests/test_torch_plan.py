@@ -87,16 +87,6 @@ def test_factor_helpers_agree(n):
     assert repr(build_factor_tree(n)) == repr(jplan.build_factor_tree(n))
 
 
-def test_kernel_tile_fits_shared_memory():
-    for m in (128, 768, 1024, 2048, 2944, 3072, 4096, 8192):
-        t = HK._kernel_tile(m)
-        # T = 1 may exceed the budget (one line of 8192 needs 128 KB) but
-        # never the 227 KB a block can have on Hopper
-        assert t >= 1 and 16 * m * t <= max(HK._SMEM_BYTES, 16 * m)
-        assert 16 * m * t <= 227 * 1024
-        assert t == 16 or t == 1 or 16 * m * (2 * t) > HK._SMEM_BYTES
-
-
 def test_config_env_parsing(monkeypatch):
     monkeypatch.setenv("KOFFT_TPU_TORCH_BACKEND", "CUFFT")
     monkeypatch.setenv("KOFFT_TPU_TORCH_DFT_CUTOFF", "64")

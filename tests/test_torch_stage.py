@@ -6,13 +6,15 @@ fused into the store (float2 factor tables), its column four-step above
 whole-line tiles with the transposed store through the swizzled exchange
 buffer, its cluster of CTAs at lines of 4096 and 8192 (each point sent to
 the CTA that stores its output row), the one-sided store with the
-Nyquist bin, and conj on both sides. Smooth n1 keeps the dense chain of
-csrc/smooth_stage.cu, emulated as tests/test_torch_kernels.py does. Over
-every split that ``_pow2_split`` gives from 2^14 to 2^26 the launches fit
-a block, every warp's global loads and stores cover >= 32-byte runs, and
-every shared-memory exchange is one wavefront per warp access. The
-kernels themselves run only on the card (tests/test_torch_gpu.py,
-chip_smoke.py).
+Nyquist bin, and conj on both sides; and stage 1 of a smooth n1 = o * q
+(csrc/stage1_odd.cu): the sub-lines of q in thread groups, exchanged in
+their sub-tiles, and the odd pass with its own thread map and the pair-form
+butterfly on the header's float32 constants. Over every split that
+``_pow2_split`` gives from 2^14 to 2^26, and every smooth n1 it gives,
+the launches fit a block, every warp's global loads and stores cover
+>= 32-byte runs, and every shared-memory exchange is one wavefront per
+warp access. The kernels themselves run only on the card
+(tests/test_torch_gpu.py, chip_smoke.py).
 
 Tolerances: the emulation runs in float64 on the float32 tables, so it
 differs from the float64 FFT only by the tables' rounding: > 140 dB. The
@@ -20,15 +22,16 @@ JAX Pallas kernels (interpret mode) are float32 evaluations: >= 110 dB
 against the emulation, as port against JAX elsewhere.
 """
 
+import re
+
 import numpy as np
 import pytest
 
 pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
-from test_torch_axis import _c64, _wavefronts  # noqa: E402
+from test_torch_axis import CSRC, _c64, _wavefronts  # noqa: E402
 from test_torch_axis import _data as _data32  # noqa: E402
-from test_torch_kernels import _emulate_chain  # noqa: E402
 
 from kofft_tpu.ops import pallas_kernels as PK  # noqa: E402
 from kofft_tpu_torch.ops import hopper_kernels as HK  # noqa: E402
@@ -39,6 +42,9 @@ PORT_DB = 110.0
 E = HK._STAGE_E
 SMEM_MAX = 227 * 1024
 POW2_SPLITS = [HK._pow2_split(1 << k) for k in range(14, 27)]
+# every smooth n1 = o * 2^a of _pow2_split from 3*2^14 to 2^26
+SMOOTH_N1 = [384, 768, 1536, 3072, 640, 1280, 2560, 896, 1792, 1152, 2304,
+             1408, 2816, 1664, 1920, 2176, 2432, 2688, 2944]
 
 
 def _data(shape, seed):
@@ -122,34 +128,169 @@ def _emu_s1_launch(a, out, conj=False, tw=None, tw_div=1, swap=1, w=None):
     if tw is not None:
         v = v * tw[k[None] * (inner // tw_div) + (col // tw_div)[..., None]]
     if w is not None:
-        base, fac = (_c64(x) for x in w)
-        tw_t = w[0].size // 2 // (m * swap)
         k1 = k[None] * swap + (row % swap)[..., None]
-        cc = col[..., None]
-        v = v * (fac[k1 * (inner // tw_t) + cc // tw_t]
-                 * base[k1 * tw_t + cc % tw_t])
+        v = v * _w_factor(w, m * swap, inner, k1, col[..., None])
     out[o] = v
+
+
+def _w_factor(w, m, inner, k1, col):
+    """W[k1, col] as the kernels form it from the float2 factor tables
+    ``w = (base, col)``."""
+    base, fac = (_c64(x) for x in w)
+    tw_t = base.size // m
+    return fac[k1 * (inner // tw_t) + col // tw_t] * base[k1 * tw_t
+                                                         + col % tw_t]
+
+
+def _odd_consts():
+    """radix_line.cuh's odd_w table: {(o, k): (cos, sin)} as float32."""
+    src = (CSRC / "radix_line.cuh").read_text()
+    found = re.findall(r"case (\d+) \* 32 \+ (\d+):\s*return make_float2"
+                       r"\(([-0-9.e]+)f, ([-0-9.e]+)f\);", src)
+    return {(int(o), int(k)): (np.float32(c), np.float32(s))
+            for o, k, c, s in found}
+
+
+ODD_W = _odd_consts()
+# stage1_odd.cu: up to this o the butterflies store C with W themselves
+FUSED_MAX_O = int(re.search(r"constexpr int kFusedMaxO = (\d+);", (
+    CSRC / "stage1_odd.cu").read_text()).group(1))
+
+
+def _dft_odd(u, o):
+    """radix_line.cuh's dft_odd<o> along the last axis of u: the pair form
+    on the header's float32 constants, in float64 arithmetic."""
+    h = o // 2
+    a = [u[..., j] + u[..., o - j] for j in range(1, h + 1)]
+    d = [u[..., j] - u[..., o - j] for j in range(1, h + 1)]
+    x = np.empty(u.shape, complex)
+    x[..., 0] = u[..., 0] + sum(a)
+    for k in range(1, h + 1):
+        big_a, big_b = u[..., 0].copy(), 0
+        for j in range(1, h + 1):
+            t = j * k % o
+            c, s = ODD_W.get((o, min(t, o - t)), (1.0, 0.0))
+            big_a = big_a + a[j - 1] * float(c)
+            big_b = big_b + d[j - 1] * float(s if t <= h else -s)
+        x[..., k] = big_a - 1j * big_b
+        x[..., o - k] = big_a + 1j * big_b
+    return x
+
+
+def _odd_layout(m):
+    """stage1_odd_kernel's block: (T, P, o, q, threads per sub-line q / 16,
+    group size, block threads, and each group thread's column c and line
+    thread ti)."""
+    t, groups = HK._odd_tile(m)
+    o = HK._odd_part(m)
+    q = m // o
+    tpl = q // E
+    gsize = t * tpl
+    lt = np.arange(gsize)
+    return t, groups, o, q, tpl, gsize, groups * gsize, lt % t, lt // t
+
+
+def _odd_loads(m, inner, row, col0, i):
+    """Element offsets (blocks, group threads, E) of sub-line i's loads:
+    rows i + o*(ti + s*q/16) of column col0 + c."""
+    t, _, o, q, tpl, _, _, c, ti = _odd_layout(m)
+    s = np.arange(E) * tpl
+    return ((row * m * inner + col0)[:, None, None] + c[None, :, None]
+            + (i + o * (ti[None, :, None] + s)) * inner)
+
+
+def _odd_butterflies(m):
+    """The odd pass's butterflies bi = k'*T + c of each block thread,
+    (threads, reps), -1 where the thread has none."""
+    t, _, _, q, _, _, n, _, _ = _odd_layout(m)
+    bi = np.arange(n)[:, None] + np.arange(-(-q * t // n))[None, :] * n
+    return np.where(bi < q * t, bi, -1)
+
+
+def _odd_store_words(m):
+    """The store's words k1*T + c of each block thread, (threads, reps):
+    column c = thread mod T, rows k1 = thread / T + rep * threads / T
+    while k1 < m, -1 after (whole warps: 32 / T rows divide m); each
+    word once."""
+    t, _, _, _, _, _, n, _, _ = _odd_layout(m)
+    tid = np.arange(n)[:, None]
+    k1 = tid // t + np.arange(-(-m * t // n))[None, :] * (n // t)
+    words = np.where(k1 < m, k1 * t + tid % t, -1)
+    live = words[words >= 0]
+    assert np.unique(live).size == live.size == m * t
+    warps = (words >= 0).reshape(n // 32, 32, -1)
+    assert np.all(warps.all(axis=1) | ~warps.any(axis=1))
+    return words
+
+
+def _emu_s1_odd_launch(a, out, conj, w):
+    """One stage1_odd_kernel launch over the (rows, m, inner) view ``a``
+    (smooth m = o * q), into the flat ``out``: each group's sub-lines i
+    loaded from rows i + o*l, the power-of-two passes of the plan on each
+    (q, T) sub-tile, the natural-order store times w_m^(i*k') to word
+    k'*T + c of the sub-tile, then the odd pass (pair-form butterfly):
+    up to FUSED_MAX_O each butterfly stores row k' + q*r times W, above
+    it the butterflies write X[k' + q*r] back to word bi of sub-tile r
+    and a store pass with W follows."""
+    rows, m, inner = a.shape
+    t, groups, o, q, tpl, gsize, n, c, ti = _odd_layout(m)
+    steps, tab = HK._axis_plan("col", m, t, E)
+    steps = steps.reshape(-1, 7)
+    radix, ns, off = steps[-1, :3]
+    assert (radix, ns) == (o, q)
+    otw = _c64(tab)[off:off + q * (o - 1)].reshape(q, o - 1)
+    tiles = inner // t
+    blocks = np.arange(rows * tiles)
+    row, col0 = blocks // tiles, (blocks % tiles) * t
+    flat = a.reshape(-1)
+    sm = np.full((blocks.size, m * t), np.nan, complex)
+    done = []
+    k = ti[:, None] + np.arange(E) * tpl
+    for g in range(groups):
+        for i in range(g, o, groups):
+            done.append(i)
+            v = flat[_odd_loads(m, inner, row, col0, i)]
+            if conj:
+                v = v.conj()
+            v = _radix_blocks("col", q, t, v, (steps[:-1].ravel(), tab))
+            if i:
+                v = v * otw[k, i - 1]
+            sm[:, i * q * t + k * t + c[:, None]] = v
+    assert sorted(done) == list(range(o))
+    bi = _odd_butterflies(m)
+    bi = bi[bi >= 0]
+    words = bi[:, None] + np.arange(o) * q * t
+    if o <= FUSED_MAX_O:
+        k1 = (bi // t)[:, None] + np.arange(o) * q
+        col = col0[:, None, None] + (bi % t)[None, :, None]
+        dest = (row * m * inner)[:, None, None] + k1[None] * inner + col
+        out[dest] = (_dft_odd(sm[:, words], o)
+                     * _w_factor(w, m, inner, k1[None], col))
+        return
+    sm[:, words] = _dft_odd(sm[:, words], o)
+    st = _odd_store_words(m)
+    st = st[st >= 0]
+    k1, col = st // t, col0[:, None] + st % t
+    dest = (row * m * inner)[:, None] + k1 * inner + col
+    out[dest] = sm[:, st] * _w_factor(w, m, inner, k1, col)
 
 
 def _emu_stage1(a, conj=False):
     """stage1 on (b, n1, n2): the launches of ``HK._stage1_views`` (the
-    dense chain of smooth_stage.cu for a smooth n1), into C."""
+    odd kernel's for a smooth n1), into C."""
     b, n1, n2 = a.shape
     w = HK._stage1_twiddle(n1, n2)
-    if n1 & (n1 - 1):
-        x = a.conj() if conj else a
-        y = _emulate_chain(x.transpose(1, 0, 2).reshape(n1, -1), n1,
-                           b * n2, 8).reshape(n1, b, n2).transpose(1, 0, 2)
-        base, fac = (_c64(x).reshape(n1, -1) for x in w)
-        j2 = np.arange(n2)
-        return y * (fac[:, j2 // 128] * base[:, j2 % 128])
     views = HK._stage1_views(n1, n2)
     src = a
     for i, (rows, m, inner, tw, tw_div, swap) in enumerate(views):
         out = np.full(a.size, np.nan, complex)
-        _emu_s1_launch(src.reshape(b * rows, m, inner), out,
-                       conj and i == 0, None if tw is None else _c64(tw),
-                       tw_div, swap, w if i == len(views) - 1 else None)
+        last = i == len(views) - 1
+        if m & (m - 1):
+            _emu_s1_odd_launch(src.reshape(b * rows, m, inner), out, conj, w)
+        else:
+            _emu_s1_launch(src.reshape(b * rows, m, inner), out,
+                           conj and i == 0, None if tw is None else _c64(tw),
+                           tw_div, swap, w if last else None)
         src = out
     return src.reshape(a.shape)
 
@@ -234,7 +375,8 @@ def _ref_stage2(c, conj=False):
 @pytest.mark.parametrize("conj", [False, True])
 @pytest.mark.parametrize("b,n", [(2, 1 << 14), (1, 1 << 15), (1, 1 << 16),
                                  (1, 1 << 18), (1, 1 << 20), (1, 3 << 14),
-                                 (2, 9 << 14)])
+                                 (2, 9 << 14), (1, 5 << 14), (1, 7 << 14),
+                                 (1, 23 << 14)])
 def test_pair_emulation_is_the_fft(b, n, conj):
     """stage1 then stage2, as they launch: the flat (b, n2, n1) output is
     the DFT of each length-n line (conj on both sides: the unnormalized
@@ -247,7 +389,8 @@ def test_pair_emulation_is_the_fft(b, n, conj):
 
 
 @pytest.mark.parametrize("b,n", [(2, 1 << 14), (1, 1 << 16), (3, 1 << 17),
-                                 (1, 1 << 20), (1, 3 << 14)])
+                                 (1, 1 << 20), (1, 3 << 14), (1, 5 << 14),
+                                 (1, 7 << 14), (1, 23 << 14)])
 def test_real_pair_emulation_is_the_rfft(b, n):
     """stage1_real (imaginary part zero in registers) then stage2_half:
     the one-sided spectrum with the Nyquist bin from the k1 = 0 line."""
@@ -262,7 +405,7 @@ def test_real_pair_emulation_is_the_rfft(b, n):
 
 
 @pytest.mark.parametrize("real", [False, True])
-@pytest.mark.parametrize("n", [1 << 14, 3 << 14])
+@pytest.mark.parametrize("n", [1 << 14, 3 << 14, 9 << 14])
 def test_pair_emulation_vs_jax(n, real):
     """The emulated kernels against the JAX Pallas kernels in interpret
     mode, as tests/test_torch_kernels.py runs them: the complex pair
@@ -460,16 +603,6 @@ def test_stage_exchanges_have_no_bank_conflicts(n1, n2):
         assert np.unique(phys).size == phys.size == n2 * tc
 
 
-def test_smooth_n1_keeps_the_dense_chain():
-    """A smooth n1 is no power of two: stage 1 runs the dense chain
-    (_kernel_tile, _line_plan), and its stage 2 the radix kernel."""
-    for n in (3 << 18, 9 << 14, 23 << 14):
-        n1, n2 = HK._pow2_split(n)
-        assert n1 & (n1 - 1) and not n2 & (n2 - 1)
-        assert HK._kernel_tile(n1) >= 1
-        assert HK._stage2_tile(n2)[0] >= 8
-
-
 def test_stage1_twiddle_tables_interleave_the_factors():
     """The float2 factor tables hold _twiddle_factors' planes, re and im
     interleaved: base (n1, t) and col (n1, n2/t)."""
@@ -481,3 +614,121 @@ def test_stage1_twiddle_tables_interleave_the_factors():
     assert np.array_equal(base[1::2], bi.ravel())
     assert np.array_equal(fac[0::2], cr.ravel())
     assert np.array_equal(fac[1::2], ci.ravel())
+
+
+# ---------------------------------------------------------------------------
+# stage 1 of a smooth n1: the odd butterflies, and at every smooth n1 the
+# plan, the fit, the coalescing and the bank conflicts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("o", list(range(3, 24, 2)))
+def test_odd_butterfly_is_the_dft(o):
+    """dft_odd<o>'s constants are cos and sin(2 pi k / o) rounded once from
+    float64 to float32, and its pair form with them is the DFT of o points
+    (float64 arithmetic: > 140 dB)."""
+    for k in range(1, o // 2 + 1):
+        assert ODD_W[(o, k)] == (np.float32(np.cos(2 * np.pi * k / o)),
+                                 np.float32(np.sin(2 * np.pi * k / o)))
+    u = _data((64, o), o)
+    assert snr_db(np.fft.fft(u, axis=-1), _dft_odd(u, o)) > EMU_DB
+
+
+def test_smooth_n1_are_the_splits():
+    """The smooth n1 of every n = o * 2^k that _pow2_split serves are the
+    19 lengths o * 2^a, 2^a in [128, 1024], o * 2^a <= 3072, and stage 1
+    runs each as one launch of the odd plan."""
+    got = {HK._pow2_split(o << k)[0] for o in range(3, 24, 2)
+           for k in range(7, 27) if HK._pow2_split(o << k) is not None}
+    assert sorted(x for x in got if x & (x - 1)) == sorted(SMOOTH_N1)
+    for n1 in SMOOTH_N1:
+        assert HK._stage1_views(n1, 128) == [(1, n1, 128, None, 1, 1)]
+    for bad in (3 * 64, 25 * 128, 3 * 2048, 5 * 1024):
+        with pytest.raises(ValueError):
+            HK._odd_tile(bad)
+
+
+@pytest.mark.parametrize("n1", SMOOTH_N1)
+def test_odd_plan_fits_a_block(n1):
+    """The plan's radices multiply to n1 (power-of-two passes of q, Ns
+    their product, then radix o at Ns = q); the block has <= 768 threads
+    (80 registers each) in P <= 15 groups of whole warps that cover the o
+    sub-lines in the fewest rounds, its (n1, 8) buffer <= 227 KB."""
+    t, groups, o, q, _, gsize, n, _, _ = _odd_layout(n1)
+    steps = HK._axis_plan("col", n1, t, E)[0].reshape(-1, 7)
+    assert list(steps[:, 0]) == HK._radices(q) + [o]
+    assert int(np.prod(steps[:, 0])) == n1
+    assert list(steps[:, 1]) == list(np.cumprod([1, *steps[:-1, 0]]))
+    assert t >= 8 and gsize % 32 == 0 and n <= 768
+    assert 1 <= groups <= min(o, 15)
+    assert -(-o // groups) == -(-o // min(o, 15, 768 // gsize))
+    assert 8 * n1 * t <= SMEM_MAX
+    assert HK._axis_smem(n1, t) == 8 * n1 * t
+
+
+@pytest.mark.parametrize("n1", SMOOTH_N1)
+def test_odd_accesses_coalesce(n1):
+    """Each warp loads every sub-line and stores C (from the butterflies up
+    to FUSED_MAX_O, from the store pass above) in float32 runs of >= 32
+    bytes that fill whole sectors: 8 consecutive columns per row."""
+    inner = 256
+    t, groups, o, q, _, gsize, n, _, _ = _odd_layout(n1)
+    blocks = _edge_blocks(2 * (inner // t))
+    tiles = inner // t
+    row, col0 = blocks // tiles, (blocks % tiles) * t
+    for i in range(o):
+        g = _odd_loads(n1, inner, row, col0, i)
+        assert _min_run_bytes(g) >= 32 and _sectors_ideal(g)
+    if o <= FUSED_MAX_O:
+        bi = _odd_butterflies(n1)
+        for rep in range(bi.shape[1]):
+            live = bi[:, rep] >= 0
+            kp, cc = bi[:, rep] // t, bi[:, rep] % t
+            for r in range(o):
+                dest = ((row * n1 * inner + col0)[:, None]
+                        + (kp + r * q) * inner + cc)[..., None]
+                mask = np.broadcast_to(live[None, :, None], dest.shape)
+                assert _min_run_bytes(dest, mask=mask) >= 32
+                if live.all():
+                    assert _sectors_ideal(dest)
+        return
+    st = _odd_store_words(n1)
+    live = st[:, (st >= 0).all(axis=0)]
+    dest = ((row * n1 * inner + col0)[:, None, None]
+            + (live // t)[None] * inner + (live % t)[None])
+    assert _min_run_bytes(dest) >= 32 and _sectors_ideal(dest)
+    mask = np.broadcast_to((st >= 0)[None], (row.size,) + st.shape)
+    dest = ((row * n1 * inner + col0)[:, None, None]
+            + (st // t)[None] * inner + (st % t)[None])
+    assert _min_run_bytes(dest, mask=mask) >= 32
+
+
+@pytest.mark.parametrize("n1", SMOOTH_N1)
+def test_odd_exchanges_have_no_bank_conflicts(n1):
+    """Whole blocks: every warp-wide access to the shared tile is one
+    wavefront: the power-of-two passes' exchanges in a sub-tile under the
+    plan's swizzles, the store of Y_i[k'] to word k'*T + c of sub-tile i,
+    the odd pass's reads of word i*q*T + bi, and above FUSED_MAX_O its
+    writes there and the store pass's reads."""
+    t, groups, o, q, tpl, gsize, n, c, ti = _odd_layout(n1)
+    steps = HK._axis_plan("col", n1, t, E)[0].reshape(-1, 7)
+    for radix, ns, _, *sw in steps[:-2]:
+        for acc in HK._exchange_addrs("col", q, t, E, radix, ns):
+            phys = HK._swizzle(acc, tuple(sw))
+            assert _wavefronts(phys) == (gsize // 32) * acc.shape[1]
+            assert np.unique(phys).size == phys.size
+    sub = q * t
+    for g in range(groups):
+        for i in range(g, o, groups):
+            st = i * sub + (ti[:, None] + np.arange(E) * tpl) * t + c[:, None]
+            assert _wavefronts(st) == (gsize // 32) * E
+    assert tuple(steps[-2, 3:]) == tuple(steps[-1, 3:]) == (0, 5, 0, 5)
+    bi = _odd_butterflies(n1)
+    for i in range(o):
+        rd = np.where(bi >= 0, i * sub + bi, i * sub)
+        assert _wavefronts(rd) == (n // 32) * bi.shape[1]
+    if o <= FUSED_MAX_O:
+        return
+    st = _odd_store_words(n1)
+    for rep in range(st.shape[1]):
+        live = st[st[:, rep] >= 0, rep]
+        assert _wavefronts(live[:, None]) == live.size // 32

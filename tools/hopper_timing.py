@@ -4,7 +4,8 @@ dense four-step pair on one CUDA card, so that two trees of the port can
 be compared in turns.
 
     python tools/hopper_timing.py [--root DIR] [--label NAME] [--out FILE]
-                                  [--kinds kernel,split,route,path,dense]
+                                  [--kinds kernel,split,route,path,dense,
+                                           smooth]
 
 ``--root`` is the checkout whose ``kofft_tpu_torch`` is imported (default:
 this one), so a parent tree unpacked beside it can be timed by the same
@@ -36,7 +37,12 @@ torch.fft.fftn beside each; ``path`` fft_split and rfft_split at 2^20,
 and the `default` tier (the tree's instance for each tier), beside
 stage b's library call torch.fft.fft(C, dim=2) and, as ``context``, the
 complex64 product torch.matmul(F2, C^T) (TF32 off), and fused_four_step_fft at
-2^20, 8 x 2^20 and 2^24 on both tiers.
+2^20, 8 x 2^20 and 2^24 on both tiers; ``smooth`` the smooth-n1 stage 1
+at the splits of 3*2^18, 9*2^14, 23*2^14, 5*2^16 and 3*2^23 ((1, 768,
+1024), (1, 1152, 128), (1, 2944, 128), (1, 640, 512), (1, 3072, 8192)),
+fft_split at 3*2^18 and 5*2^16 beside torch.fft.fft, and, where the tree
+has the odd plan (``HK._ODD_TILE``), stage 1 at (1, 1152, 128) and (1,
+2944, 128) with tiles of 4 columns (``tile4``) beside the 8 it keeps.
 ``--kinds`` lists the groups in the order they run, a group may come
 twice (``path,kernel,path`` times the paths before and after the kernel
 rows in one process); each row carries ``pos``, its group's place in that
@@ -76,7 +82,8 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--kinds", default="kernel,split,route,path",
                     help="row groups in the order they run: kernel (with "
-                         "its library rows), split, route, path, dense")
+                         "its library rows), split, route, path, dense, "
+                         "smooth")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -194,8 +201,38 @@ def main() -> int:
                         xr, xi, shape[-1])))
             del xr, xi
 
+    def smooth_rows(pos):
+        for n in (3 << 18, 9 << 14, 23 << 14, 5 << 16, 3 << 23):
+            shape = (1, *HK._pow2_split(n))
+            ar, ai = planes(shape)
+            row(pos, "smooth", "stage1", shape, lambda: HK.stage1(ar, ai))
+            del ar, ai
+        for n in (3 << 18, 5 << 16):
+            xr, xi = planes((n,))
+            row(pos, "smooth", "fft_split", (n,),
+                lambda: kt.fft_split(xr, xi))
+            xc = torch.complex(xr, xi)
+            row(pos, "library", "torch.fft.fft", (n,),
+                lambda: torch.fft.fft(xc))
+            del xr, xi, xc
+        if not hasattr(HK, "_ODD_TILE"):
+            return
+        keep = HK._ODD_TILE
+        try:
+            HK._ODD_TILE = 4
+            HK._ARGS.clear()
+            for shape in [(1, 1152, 128), (1, 2944, 128)]:
+                ar, ai = planes(shape)
+                row(pos, "smooth", "stage1 tile4", shape,
+                    lambda: HK.stage1(ar, ai))
+                del ar, ai
+        finally:
+            HK._ODD_TILE = keep
+            HK._ARGS.clear()
+
     groups = {"kernel": kernel_rows, "split": split_rows,
-              "route": route_rows, "path": path_rows, "dense": dense_rows}
+              "route": route_rows, "path": path_rows, "dense": dense_rows,
+              "smooth": smooth_rows}
     for pos, kind in enumerate(args.kinds.split(",")):
         emit({"label": args.label, "pos": pos, "kind": "state", "name": kind,
               "state": smi("clocks.sm,clocks.mem,temperature.gpu,"
