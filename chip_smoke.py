@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive kofft_tpu_torch's main paths, the 1-D complex and real FFT (on
 float32 and bfloat16 planes, on the `highest` and the `default` tier), the
-dense four-step pair and the N-D FFT, on one CUDA card.
+dense four-step pair, the N-D FFT and the signal-processing entries (STFT,
+its streams, the composite transforms), on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -94,19 +95,45 @@ Phases, in order; any failure raises and the script exits non-zero:
    stage 1 (the odd plan) alone at the splits of 3*2^18, 9*2^14,
    23*2^14, 5*2^16 and 3*2^23, and fft_split at 3*2^18 and 5*2^16 beside
    torch.fft.fft; and col_fft at lines of 2048 as one launch and as the
-   column four-step.
+   column four-step;
+7. the signal-processing entries, every count set to 0 first: the STFT at
+   the JAX bench's shape (2^20 samples, hann(1024), hop 256, 4096 frames;
+   the plain factor tree, no kernel launched), one-sided and full, against
+   the float64 numpy STFT (100 dB), and its ISTFT's interior on the
+   `highest` and the `default` tier (90 dB); 2^24 samples, hann(4096), hop
+   1024 (the torch.fft zone) and its ISTFT; 2^22 samples, hann(16384), hop
+   4096 with backend='cuda', whose one-sided, full and inverse transforms
+   must each raise their stage kernels' launch counts; the stream scans,
+   the push stream (4800-sample chunks) and 64 pushed ISTFT frames against
+   the offline entries (110 dB), with the scans' peak device memory; the
+   DCT/DST fast paths, idct round trips, dht, hilbert_analytic,
+   real_cepstrum and czt_fast (n = 10^6, m = 4096) at 2^20 through the
+   stage kernels, mfcc, goertzel_bins, and dwt/idwt and dwt_multi/
+   idwt_multi at 2^24, each at 100 dB against a float64 oracle; the
+   public goertzel_scan at (64, 2^20) (the kernel's launches on this path
+   are read here) with its relative error against the float64 DFT
+   magnitude, then the goertzel_scan kernel against its plain version at
+   (64, 4096) (1e-5 relative); last, stft_split (one-sided) and
+   istft_split in frames per second at the bench shape and the kernel
+   path beside torch.stft / torch.istft, and goertzel_scan at (64, 4096)
+   and (64, 2^20) beside its bound.
 
 A bound is the least time the card could take for the work: the larger
 of the bytes the function must move (each input read once, each output
 written once) over 3.35 TB/s, and 5 m log2 m float32 operations per
 complex line of length m (half for real input or one-sided output) over
-67 TFLOP/s; an N-D transform does that along each of its axes. The line
+67 TFLOP/s; an N-D transform does that along each of its axes. The
+Goertzel recurrence's operations are a dependent chain: its bound is
+three float32 operations per sample, one after the other, at 4 cycles
+each and the card's highest SM clock (nvidia-smi clocks.max.sm). The line
 before the last is the kernels' JSON record (launches on the main paths,
 max abs error against the plain version, and at (1, 1024, 1024) the bound
 and the device ms per call of kernel, plain version and library call (or
 null): back to back under ``ms``, ``plain_ms`` and ``library_ms``, as
 since the first slice, and replayed from a CUDA graph under
-``graph_ms``, ``plain_graph_ms`` and ``library_graph_ms``); the last line
+``graph_ms``, ``plain_graph_ms`` and ``library_graph_ms``; the
+goertzel_scan kernel's at (64, 4096), with its (64, 2^20) figures under
+``long``); the last line
 is {"ok": true, "device": {...}}. Without a CUDA device the script exits non-zero before it prints
 any result.
 """
@@ -342,6 +369,344 @@ def dense_sass_counts(build) -> dict:
     return counts
 
 
+# the Goertzel recurrence's dependent chain: three float32 operations per
+# sample (multiply, add, subtract, no contraction), each waiting for the
+# one before; a dependent FP32 operation starts 4 cycles after its input
+# on Hopper's FMA pipe (as on every NVIDIA architecture since Volta)
+CHAIN_OPS = 3
+CHAIN_CYCLES = 4
+
+
+def stft_oracle(x, w, hop, onesided, frames=None):
+    """float64 numpy STFT of the 1-D signal ``x``: frame f covers [f*hop,
+    f*hop + win) of the zero-extended signal; ``frames`` picks some."""
+    n, win = x.size, w.size
+    nf = -(-n // hop)
+    pad = np.zeros((nf - 1) * hop + win)
+    pad[:n] = x
+    f = np.arange(nf) if frames is None else np.asarray(frames)
+    seg = pad[f[:, None] * hop + np.arange(win)[None, :]] * w
+    return np.fft.rfft(seg) if onesided else np.fft.fft(seg)
+
+
+def phase_signal(dev, smi) -> dict:
+    """Phase 7: the STFT, its streams and the composite transforms at the
+    JAX bench's shapes; returns the goertzel_scan kernel's record."""
+    import torch
+    import torch.nn.functional as F
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.ops import goertzel as GZ
+    from kofft_tpu_torch.ops import hopper_kernels as HK
+    from kofft_tpu_torch.ops import stft as ST
+    from kofft_tpu_torch.ops.cepstrum import mel_filterbank_matrix
+    from kofft_tpu_torch.ops.window import hann
+
+    log("== phase 7: the signal-processing entries on the card")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 7)
+    stage = ("stage1", "stage2", "stage1_real", "stage2_half")
+
+    def sig(*shape):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        return a.astype(np.float64), torch.as_tensor(a, device=dev)
+
+    def h(r, i=None):
+        r = r.detach().double().cpu().numpy()
+        return r if i is None else r + 1j * i.detach().double().cpu().numpy()
+
+    def counts():
+        return {k: HK.launches[k] for k in stage}
+
+    def check(name, s, floor, before=None, keys=()):
+        after = counts()
+        grew = all(after[k] > before[k] for k in keys) if keys else True
+        grown = ", ".join(f"{k} +{after[k] - before[k]}" for k in keys)
+        log(f"{name}: {s:.2f} dB (floor {floor})"
+            + (f", launches {grown}" if keys else ""))
+        assert s >= floor and grew, (name, s, floor, before, after)
+
+    HK.reset_counts()
+    GZ.launches["goertzel_scan"] = 0
+
+    # 1. the bench shape: 2^20 samples, hann(1024), hop 256, 4096 frames;
+    # under auto the plain factor tree, no kernel
+    log("-- STFT at the bench shape (2^20 samples, hann(1024), hop 256)")
+    x1n, x1 = sig(1 << 20)
+    w1 = hann(1024)
+    one1 = kt.stft_split(x1, w1, 256, onesided=True)
+    full1 = kt.stft_split(x1, w1, 256)
+    check("stft one-sided vs float64", snr_db(
+        stft_oracle(x1n, w1.astype(np.float64), 256, True), h(*one1)),
+        FLOOR_DB)
+    check("stft full vs float64", snr_db(
+        stft_oracle(x1n, w1.astype(np.float64), 256, False), h(*full1)),
+        FLOOR_DB)
+    for tier in ("highest", "default"):
+        back = on_tier(tier, lambda: kt.istft_split(*full1, w1, 256,
+                                                    length=1 << 20))()
+        check(f"istft interior on `{tier}`", snr_db(
+            x1n[1024:-1024], h(back)[1024:-1024]), 90.0)
+    assert not any(counts().values()), counts()
+    log("bench-shape STFT/ISTFT launched no kernel (plain factor tree)")
+
+    # 2. a long recording: 2^24 samples, hann(4096), hop 1024, 16384 frames
+    # (256 MB of frames; the torch.fft zone under auto); every 64th frame
+    # against float64
+    log("-- STFT of 2^24 samples, hann(4096), hop 1024")
+    x2n, x2 = sig(1 << 24)
+    w2 = hann(4096)
+    sel = np.arange(0, 1 << 14, 64)
+    one2 = kt.stft_split(x2, w2, 1024, onesided=True)
+    check("stft one-sided, every 64th frame, vs float64", snr_db(
+        stft_oracle(x2n, w2.astype(np.float64), 1024, True, sel),
+        h(one2[0][sel], one2[1][sel])), FLOOR_DB)
+    del one2
+    full2 = kt.stft_split(x2, w2, 1024)
+    back2 = kt.istft_split(*full2, w2, 1024, length=1 << 24)
+    check("istft interior", snr_db(x2n[4096:-4096], h(back2)[4096:-4096]),
+          90.0)
+    del x2, full2, back2, x2n
+
+    # 3. the kernel path: 2^22 samples, hann(16384), hop 4096, 1024 frames
+    log("-- STFT of 2^22 samples, hann(16384), hop 4096, backend='cuda'")
+    x3n, x3 = sig(1 << 22)
+    w3 = hann(1 << 14)
+    sel = np.arange(0, 1024, 16)
+    b = counts()
+    one3 = kt.stft_split(x3, w3, 4096, onesided=True, backend="cuda")
+    check("stft one-sided (stage1_real + stage2_half), every 16th frame",
+          snr_db(stft_oracle(x3n, w3.astype(np.float64), 4096, True, sel),
+                 h(one3[0][sel], one3[1][sel])), FLOOR_DB, b,
+          ("stage1_real", "stage2_half"))
+    b = counts()
+    full3 = kt.stft_split(x3, w3, 4096, backend="cuda")
+    check("stft full (stage1 + stage2), every 16th frame", snr_db(
+        stft_oracle(x3n, w3.astype(np.float64), 4096, False, sel),
+        h(full3[0][sel], full3[1][sel])), FLOOR_DB, b, ("stage1", "stage2"))
+    b = counts()
+    back3 = kt.istft_split(*full3, w3, 4096, length=1 << 22, backend="cuda")
+    check("istft interior (the complex pair inverse)", snr_db(
+        x3n[1 << 14:-(1 << 14)], h(back3)[1 << 14:-(1 << 14)]), 90.0, b,
+        ("stage1", "stage2"))
+    del one3, back3
+
+    # 4. the streams at the bench shape against the offline entries
+    log("-- streams at the bench shape")
+    def peak_mib(fn):
+        """(result, peak device memory allocated above the inputs, MiB)"""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    frame_mib = 4096 * 1024 * 4 / 2 ** 20
+    for name, fn, offline in (
+            ("stft_stream_scan", lambda: kt.stft_stream_scan(x1, w1, 256),
+             lambda: kt.stft_split(x1, w1, 256)),
+            ("istft_stream_scan",
+             lambda: (kt.istft_stream_scan(*full1, w1, 256),),
+             lambda: (kt.istft_split(*full1, w1, 256),))):
+        want, peak_off = peak_mib(offline)
+        got, peak = peak_mib(fn)
+        log(f"{name}: peak device memory {peak:.1f} MiB above the inputs "
+            f"(the offline entry {peak_off:.1f} MiB), beside the (4096, "
+            f"1024) frame matrix's {frame_mib:.1f} MiB")
+        check(f"{name} vs offline", snr_db(h(*want), h(*got)), 110.0)
+        del want, got
+    st = ST.StftPushStream(w1, 256, device=dev)
+    parts = [st.push(x1[i: i + 4800]) for i in range(0, 1 << 20, 4800)]
+    parts.append(st.flush())
+    check(f"StftPushStream, {len(parts) - 1} pushes of 4800 samples + "
+          f"flush, vs stft_split", snr_db(h(*full1), h(
+              torch.cat([p[0] for p in parts]),
+              torch.cat([p[1] for p in parts]))), 110.0)
+    ist = ST.IstftStream(1024, 256, w1, device=dev)
+    pushed = np.concatenate([ist.push_frame(full1[0][f], full1[1][f])
+                             for f in range(64)] + [ist.flush()])
+    check("64 IstftStream.push_frame + flush vs istft", snr_db(
+        h(kt.istft_split(full1[0][:64], full1[1][:64], w1, 256)), pushed),
+        110.0)
+
+    # 5. the composite transforms at 2^20 (DST-I at 2^20 - 1, so that its
+    # m = 2(n+1) is a kernel size): float64 numpy oracles by the same
+    # identities, each through the stage kernels under auto
+    log("-- composite transforms at 2^20")
+    n = 1 << 20
+    xn, x = sig(n)
+    k = np.arange(n)
+    c = np.exp(-1j * np.pi * k / (2 * n))
+    q = np.exp(-1j * np.pi * (2 * k + 1) / (4 * n))
+    f2 = np.fft.fft(xn, 2 * n)[:n + 1]
+    xp = xn.copy()
+    xp[0] *= 0.5
+    fc = np.fft.fft(xn * c, 2 * n)[:n]
+    real, cplx = ("stage1_real", "stage2_half"), ("stage1", "stage2")
+    d1n, d1 = sig(n - 1)
+    ext = np.concatenate([[0.0], d1n, [0.0], -d1n[::-1]])
+    cases = (
+        ("dct2", lambda: kt.dct2(x), np.real(c * f2[:n]), real),
+        ("dct3", lambda: kt.dct3(x),
+         np.real(np.fft.fft(xp * c, 2 * n)[:n]), cplx),
+        ("dct4", lambda: kt.dct4(x), np.real(q * fc), cplx),
+        ("dst1 (n = 2^20 - 1)", lambda: kt.dst1(d1),
+         -0.5 * np.imag(np.fft.rfft(ext))[1:n], real),
+        ("dst2", lambda: kt.dst2(x),
+         -np.imag(np.exp(-1j * np.pi * (k + 1) / (2 * n)) * f2[1:]), real),
+        ("dst4", lambda: kt.dst4(x), -np.imag(q * fc), cplx))
+    for name, fn, ref, keys in cases:
+        b = counts()
+        check(f"{name} vs float64", snr_db(ref, h(fn())), FLOOR_DB, b, keys)
+    for t in (2, 3, 4):
+        b = counts()
+        check(f"idct(dct(x, {t}), {t}) vs x",
+              snr_db(xn, h(kt.idct(kt.dct(x, t), t))), FLOOR_DB, b,
+              ("stage1",))
+    del f2, fc, ext, d1
+    f = np.fft.fft(xn)
+    g = np.zeros(n)
+    g[0] = g[n // 2] = 1.0
+    g[1: n // 2] = 2.0
+    for name, fn, ref in (
+            ("dht", lambda: h(kt.dht(x)), f.real - f.imag),
+            ("hilbert_analytic", lambda: kt.hilbert_analytic(x).cpu()
+             .numpy(), np.fft.ifft(f * g)),
+            ("real_cepstrum", lambda: h(kt.real_cepstrum(x)),
+             np.fft.ifft(np.log(np.abs(f) + 1e-12)).real)):
+        b = counts()
+        check(f"{name} vs float64", snr_db(ref, fn()), FLOOR_DB, b, cplx)
+    bins = [1, 4097, 99991, n // 2]
+    check("goertzel_bins vs the float64 DFT bins", snr_db(
+        np.abs(f[bins]), h(kt.goertzel_bins(x, bins))), FLOOR_DB)
+    del f, g
+    xz = x[: 10 ** 6]
+    wz, az = np.exp(-2j * np.pi * 0.25 / 4096), np.exp(2j * np.pi * 0.1)
+    b = counts()
+    got = kt.czt_fast(xz, 4096, wz, az).cpu().numpy()
+    check("czt_fast n = 10^6, m = 4096 (L = 2^20) vs czt_fast on float64",
+          snr_db(kt.czt_fast(xz.double(), 4096, wz, az).cpu().numpy(), got),
+          FLOOR_DB, b, cplx)
+    mags = torch.sqrt(one1[0] ** 2 + one1[1] ** 2)
+    mel = mel_filterbank_matrix(513, 48000.0, 40).astype(np.float64)
+    i40 = np.arange(40)
+    d40 = np.cos(np.pi * (i40[:, None] + 0.5) * i40[None, :] / 40)
+    ref = (np.log(h(mags) @ mel + 1e-12) @ d40)[:, :13]
+    check("mfcc of the bench-shape magnitudes (40 mel, 13 coefficients)",
+          snr_db(ref, h(kt.mfcc(mags, 48000.0, 40, 13))), FLOOR_DB)
+    xwn, xw = sig(1 << 24)
+    a, d = kt.dwt(xw, "db4")
+    check("idwt(dwt(x, db4)) at 2^24 vs x",
+          snr_db(xwn, h(kt.idwt(a, d, "db4"))), FLOOR_DB)
+    a, ds = kt.dwt_multi(xw, 4, "db4")
+    check("idwt_multi(dwt_multi(x, 4 levels, db4)) at 2^24 vs x",
+          snr_db(xwn, h(kt.idwt_multi(a, ds, "db4"))), FLOOR_DB)
+    del xw, xwn, a, d, ds
+
+    # 6. goertzel_scan at (64, 2^20) through the public entry
+    log("-- goertzel_scan")
+    rows, n = 64, 1 << 20
+    xgn, xg = sig(rows, n)
+    sr, tone = 48000.0, 1000.0
+    kb = int(math.floor(tone * n / sr))
+    mag = h(kt.goertzel_scan(xg, sr, tone))
+    ang = 2 * np.pi * kb * np.arange(n) / n
+    ref = np.hypot(xgn @ np.cos(ang), xgn @ np.sin(ang))
+    rel = float(np.max(np.abs(mag - ref) / ref))
+    log(f"goertzel_scan (64, 2^20), bin {kb}: max relative error "
+        f"{rel:.3e} against the float64 DFT magnitude (the reference "
+        f"test's floor: 1e-3 at n = 256)")
+    assert np.all(np.isfinite(mag)) and mag.shape == (rows,)
+    launches = {**counts(), **GZ.launches}
+    log(f"signal path counts: launches {launches}")
+    assert launches["goertzel_scan"] > 0
+
+    # the kernel against its plain version (launches not counted above)
+    xs = xg[:, :4096].contiguous()
+    coeff = float(np.float32(2 * math.cos(2 * math.pi * 85 / 4096)))
+    kern, plain = GZ.scan_rows(xs, coeff), GZ.scan_rows_plain(xs, coeff)
+    err = float((kern - plain).abs().max())
+    relk = float(((kern - plain).abs() / plain.abs()).max())
+    log(f"goertzel_scan (64, 4096) kernel vs plain: max abs {err:.3e}, "
+        f"max relative {relk:.3e}")
+    assert relk <= 1e-5, relk
+
+    # 7. timing: frames per second of stft_split (one-sided, the JAX
+    # bench's stft_frames) and istft_split (its istft_frames) at the bench
+    # shape and on the kernel path, beside torch.stft / torch.istft
+    log("-- timing (CUDA events after 3 warm-up calls)")
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    for label, xx, w, hop, backend in (
+            ("bench shape, auto", x1, w1, 256, None),
+            ("kernel path, backend='cuda'", x3, w3, 4096, "cuda")):
+        nsig, win = xx.numel(), w.size
+        nf = ST.num_frames(nsig, hop)
+        runs = graph_runs(nf * win)
+        fr, fi = kt.stft_split(xx, w, hop, backend=backend)
+        wt = torch.as_tensor(w, device=dev)
+        xpad = F.pad(xx, (0, (nf - 1) * hop + win - nsig))
+        spec = torch.complex(fr, fi).T.contiguous()
+        # torch.istft reads its window envelope's minimum back to the
+        # host, which a CUDA graph cannot capture: back to back only
+        for what, fn, graph in (
+                ("stft_split (one-sided)",
+                 lambda: kt.stft_split(xx, w, hop, onesided=True,
+                                       backend=backend), True),
+                ("torch.stft (center=False, padded signal)",
+                 lambda: torch.stft(xpad, win, hop, win, wt, center=False,
+                                    onesided=True, return_complex=True),
+                 True),
+                ("istft_split",
+                 lambda: kt.istft_split(fr, fi, w, hop, length=nsig,
+                                        backend=backend), True),
+                ("torch.istft (center=True: center=False refuses a window "
+                 "whose envelope is 0 at sample 0)",
+                 lambda: torch.istft(spec, win, hop, win, wt, center=True,
+                                     onesided=False), False)):
+            t = time_ms(fn)
+            g = (f", graph {graph_ms(fn, runs) * 1e3:.1f} us/call"
+                 if graph else "")
+            log(f"{label} ({nf} frames of {win}): {what}: back-to-back "
+                f"{t[1] * 1e3:.1f} us/call = {nf / (t[1] * 1e-3):.4e} "
+                f"frames/s, host enqueue {t[2] * 1e3:.1f} us/call{g} "
+                f"[{smi}]")
+        del fr, fi, spec, xpad
+
+    def chain_bound(r, m):
+        return bound_ms(4 * r * m + 4 * r, 0.0)[0], \
+            CHAIN_OPS * m * CHAIN_CYCLES / (clock * 1e6) * 1e3
+
+    out = {}
+    for shape, xx in (((64, 4096), xs), ((64, 1 << 20), xg)):
+        kb_ = lambda: GZ.scan_rows(xx, coeff)  # noqa: E731
+        t = time_ms(kb_)
+        g = graph_ms(kb_, 5)
+        by_bytes, by_chain = chain_bound(*shape)
+        bd = max(by_bytes, by_chain)
+        log(f"{shape} goertzel_scan kernel: back-to-back {t[1] * 1e3:.1f} "
+            f"us/call, graph {g * 1e3:.1f} us/call; bound {bd * 1e3:.2f} us "
+            f"(the dependent chain of {CHAIN_OPS} x {shape[1]} float32 "
+            f"operations at {CHAIN_CYCLES} cycles and {clock:.0f} MHz; the "
+            f"bytes {by_bytes * 1e3:.2f} us) [{smi}]")
+        out[shape] = (t, g, bd)
+    tp = time_ms(lambda: GZ.scan_rows_plain(xs, coeff), runs=3, warm=1)
+    gp = graph_ms(lambda: GZ.scan_rows_plain(xs, coeff), 1)
+    log(f"(64, 4096) goertzel_scan plain version: back-to-back "
+        f"{tp[1] * 1e3:.1f} us/call, graph {gp * 1e3:.1f} us/call [{smi}]")
+    log(f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    (t, g, bd), (tl, gl, bdl) = out[(64, 4096)], out[(64, 1 << 20)]
+    return {"launches": launches["goertzel_scan"], "max_abs_err": err,
+            "ms": t[1], "plain_ms": tp[1], "bound_ms": bd,
+            "bound_by": "operations", "library_ms": None, "graph_ms": g,
+            "plain_graph_ms": gp, "library_graph_ms": None,
+            "shape": [64, 4096],
+            "long": {"shape": [64, 1 << 20], "ms": tl[1], "graph_ms": gl,
+                     "bound_ms": bdl, "bound_by": "operations"}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -349,6 +714,7 @@ def main() -> int:
                          "script runs only on a card")
     import kofft_tpu_torch as kt
     from kofft_tpu_torch.ops import _cuda_build as B
+    from kofft_tpu_torch.ops import goertzel as GZ
     from kofft_tpu_torch.ops import hopper_kernels as HK
 
     dev = torch.device("cuda")
@@ -1335,6 +1701,9 @@ def main() -> int:
         f"{HK._COL_SPLIT_ABOVE} [{smi}]")
     del vr, vi
 
+    # -- 7. the signal-processing entries --------------------------------
+    goertzel = phase_signal(dev, smi)
+
     stages = "kofft_tpu_torch/ops/csrc/fft_stages.cu"
     odd = "kofft_tpu_torch/ops/csrc/stage1_odd.cu"
     dense = "kofft_tpu_torch/ops/csrc/dense_dft.cu"
@@ -1377,8 +1746,16 @@ def main() -> int:
          "library_graph_ms": library_graph_ms.get(k),
          **({"also_source": [odd]} if k.startswith("stage1") else {})}
         for k, (src, line, also) in replaces.items()]}
-    assert set(replaces) == set(HK.launches), set(HK.launches) ^ set(
-        replaces)
+    # not a TPU kernel: the JAX package runs this recurrence as a lax.scan
+    record["kernels"].append({
+        "name": "goertzel_scan", "route": "cuda",
+        "source": "kofft_tpu_torch/ops/csrc/goertzel.cu",
+        "replaces": "kofft_tpu/ops/goertzel.py:109", "also_replaces": [],
+        **goertzel})
+    names = {k["name"] for k in record["kernels"]}
+    assert set(replaces) | {"goertzel_scan"} == names == set(
+        HK.launches) | set(GZ.launches), (set(HK.launches)
+                                          | set(GZ.launches)) ^ names
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

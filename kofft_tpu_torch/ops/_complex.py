@@ -41,6 +41,14 @@ def host_float_dtype(dtype):
     return np.float64 if np.dtype(dtype) == np.float64 else np.float32
 
 
+def host_float(x) -> np.ndarray:
+    """A host array in its working float dtype (see
+    :func:`host_float_dtype`): float64 stays float64."""
+    x = np.asarray(x)
+    ft = host_float_dtype(x.dtype)
+    return x.astype(ft) if x.dtype != ft else x
+
+
 def host_device(device) -> torch.device:
     """The device that host (numpy or list) input goes to. The entries
     default to ``"cuda"``; without a card that raises instead of computing
@@ -84,6 +92,10 @@ def merge(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
 def cmul(ar, ai, br, bi):
     """Elementwise complex multiply on planes."""
     return ar * br - ai * bi, ar * bi + ai * br
+
+
+def conj(ar, ai):
+    return ar, -ai
 
 
 def cmatmul_last(ar, ai, br, bi):

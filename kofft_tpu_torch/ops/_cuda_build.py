@@ -2,7 +2,8 @@
 with ctypes.
 
 Every ``csrc/*.cu`` source (``fft_stages.cu``, ``stage1_odd.cu``,
-``axis_fft.cu`` and ``dense_dft.cu``, with the headers they include) is
+``axis_fft.cu``, ``dense_dft.cu`` and ``goertzel.cu``, with the headers
+they include) is
 compiled for ``sm_90a`` by its own nvcc process, all started together,
 and the objects are linked into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). The library
@@ -31,6 +32,8 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of the exported functions
 SIGNATURES = {
     "kofft_stage1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I,
@@ -45,6 +48,7 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _P],
     "kofft_dense_stage_b": [_P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _P],
+    "kofft_goertzel_scan": [_P, _P, _I, _L, _F, _I, _P],
 }
 
 _lock = threading.Lock()

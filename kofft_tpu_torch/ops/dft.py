@@ -23,6 +23,14 @@ def dft(x: np.ndarray, axis: int = -1, inverse: bool = False) -> np.ndarray:
     return np.moveaxis(y, -1, axis)
 
 
+def rdft(x: np.ndarray, axis: int = -1) -> np.ndarray:
+    """Naive real DFT -> one-sided spectrum of length n//2 + 1."""
+    y = dft(x, axis=axis)
+    y = np.moveaxis(y, axis, -1)
+    n = y.shape[-1]
+    return np.moveaxis(y[..., : n // 2 + 1], -1, axis)
+
+
 def snr_db(ref: np.ndarray, got: np.ndarray) -> float:
     """Signal-to-noise ratio of ``got`` against a float64 reference, in
     dB. Float32 paths are held to > 100 dB."""

@@ -220,6 +220,14 @@ def _fft_norm_planes(xr, xi, n: int, inverse: bool, norm: Optional[str],
     return yr, yi
 
 
+def _fft_traced_planes(xr, xi, n: int, inverse: bool, norm: Optional[str],
+                       backend: str):
+    """Planes -> planes DFT along the last axis through the engine ladder,
+    normalized: the composite transforms' entry
+    (``kofft_tpu.ops.fft._fft_traced_planes``)."""
+    return _fft_norm_planes(xr, xi, n, inverse, norm, backend)
+
+
 # --------------------------------------------------------------------------
 # input handling
 # --------------------------------------------------------------------------
@@ -243,6 +251,17 @@ def _as_tensor(x, device) -> torch.Tensor:
         a = a.astype(host_float_dtype(a.dtype), copy=False)
     return torch.as_tensor(_np.ascontiguousarray(a),
                            device=host_device(device))
+
+
+def _real_tensor(x, device, what: str) -> torch.Tensor:
+    """The input of a composite transform (DCT, DST, DHT, Hilbert, CZT,
+    cepstrum, Goertzel) as a tensor, non-empty along its last axis.
+    bfloat16 computes in float32: the host tables are float32 or
+    float64."""
+    x = _as_tensor(x, device)
+    require(x.dim() >= 1 and x.shape[-1] >= 1, EmptyInputError,
+            f"{what} input must be non-empty")
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def _prep(x, n: Optional[int], axis: int, device="cuda"):

@@ -1,9 +1,11 @@
 """The port's CUDA kernels (the complex and real stage kernels with their
-bfloat16 I/O forms, the N-D axis kernels and the dense four-step pair)
-against their plain PyTorch versions, and the public entries, on the
-card. Every test here carries the ``gpu`` marker and skips without a
-CUDA device; whether one exists is decided inside the fixture. Run on the
-card with ``python -m pytest -m gpu --noconftest tests/test_torch_gpu.py``
+bfloat16 I/O forms, the N-D axis kernels, the dense four-step pair and
+the goertzel_scan recurrence) against their plain PyTorch versions, and
+the public entries (the STFT, its streams and the composite transforms
+among them), on the card. Every test here carries the ``gpu`` marker and
+skips without a CUDA device; whether one exists is decided inside the
+fixture. Run on the card with ``python -m pytest -m gpu --noconftest
+tests/test_torch_gpu.py``
 (``--noconftest``: the shared conftest imports jax, which the port does
 not need).
 
@@ -18,7 +20,12 @@ bf16 ulp where the sums round differently); bf16 routes >= 40 dB against
 the float64 FFT of their bf16 input, and the `default` tier's float32
 route >= 42 dB (its floor). The dense pair's `default` instances (one
 bf16 pass) are held against their bf16-rounding plain versions at
->= 100 dB and against float64 at the tier's 42 dB.
+>= 100 dB and against float64 at the tier's 42 dB. The STFT and the
+composite transforms: >= 100 dB against float64, an ISTFT's interior
+>= 90 dB, the streams against the offline entries >= 110 dB; the
+goertzel_scan kernel against its plain version within 1e-5 relative (the
+same float32 operations in the same order: equal but for the plain
+version's own rounding of its three tensor ops, which it does not fuse).
 """
 
 import numpy as np
@@ -432,3 +439,134 @@ def test_tables_clear_then_transform(cuda):
     assert len(tables) > 0
     for (ar, ai), (br, bi) in zip(before, after):
         assert torch.equal(ar, br) and torch.equal(ai, bi)
+
+
+def _cat(ks):
+    return {k: HK.launches[k] for k in ks}
+
+
+def test_stft_on_card(cuda):
+    """win = 2^14 with backend='cuda': the one-sided STFT on the real
+    pair, the full one on the complex pair, the ISTFT on the complex pair
+    (the inverse), each against float64; the same call on the CPU."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.ops.window import hann
+    win, hop = 1 << 14, 1 << 12
+    x = torch.as_tensor(np.random.default_rng(23).standard_normal(
+        1 << 17, dtype=np.float32), device=cuda)
+    w = hann(win)
+    xn = x.double().cpu().numpy()
+    nf = -(-xn.size // hop)
+    fr = np.zeros((nf, win))
+    for f in range(nf):
+        seg = xn[f * hop: f * hop + win]
+        fr[f, : seg.size] = seg
+    ref = np.fft.fft(fr * w, axis=-1)
+    HK.reset_counts()
+    one = kt.stft(x, w, hop, onesided=True, backend="cuda")
+    assert _cat(("stage1_real", "stage2_half")) == {"stage1_real": 1,
+                                                    "stage2_half": 1}
+    full = kt.stft_split(x, w, hop, backend="cuda")
+    assert _cat(("stage1", "stage2")) == {"stage1": 1, "stage2": 1}
+    assert snr_db(ref[:, : win // 2 + 1], one.cpu().numpy()) > ORACLE_DB
+    assert snr_db(ref, _np(*full)) > ORACLE_DB
+    back = kt.istft_split(*full, w, hop, length=xn.size, backend="cuda")
+    assert HK.launches["stage1"] == 2
+    assert snr_db(xn[win:-win], back.cpu().numpy()[win:-win]) > 90.0
+    cpu = kt.stft(x.cpu(), w, hop, onesided=True, backend="cuda")
+    assert snr_db(cpu.numpy(), one.cpu().numpy()) > PORT_DB
+
+
+def test_stft_streams_on_card(cuda):
+    """The chunked stream scans against the offline entries, the push
+    stream in 4800-sample chunks and the per-frame ISTFT stream."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.ops import stft as S
+    from kofft_tpu_torch.ops.window import hann
+    win, hop = 1024, 256
+    x = torch.as_tensor(np.random.default_rng(24).standard_normal(
+        1 << 16, dtype=np.float32), device=cuda)
+    w = hann(win)
+    rr, ri = kt.stft_split(x, w, hop)
+    yr, yi = kt.stft_stream_scan(x, w, hop)
+    assert snr_db(_np(rr, ri), _np(yr, yi)) > PORT_DB
+    st = S.StftPushStream(w, hop)
+    parts = [st.push(x[i: i + 4800]) for i in range(0, x.numel(), 4800)]
+    parts.append(st.flush())
+    got = (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
+    assert snr_db(_np(rr, ri), _np(*got)) > PORT_DB
+    off = kt.istft_split(rr, ri, w, hop)
+    scan = kt.istft_stream_scan(rr, ri, w, hop)
+    assert snr_db(off.cpu().numpy(), scan.cpu().numpy()) > PORT_DB
+    ist = S.IstftStream(win, hop, w)
+    pushed = np.concatenate([ist.push_frame(rr[f], ri[f])
+                             for f in range(rr.shape[0])] + [ist.flush()])
+    assert snr_db(off.cpu().numpy(), pushed) > PORT_DB
+
+
+def test_composites_on_card(cuda):
+    """The composite transforms at 2^16 (the DCT/DST fast paths and the
+    FFT composites on the stage kernels) against float64 oracles."""
+    import kofft_tpu_torch as kt
+    n = 1 << 16
+    xn = np.random.default_rng(25).standard_normal(n)
+    x = torch.as_tensor(xn, dtype=torch.float32, device=cuda)
+    f = np.fft.fft(xn)
+    HK.reset_counts()
+    assert snr_db(f.real - f.imag, kt.dht(x).cpu().numpy()) > ORACLE_DB
+    assert HK.launches["stage1"] > 0
+    g = np.zeros(n)
+    g[0] = g[n // 2] = 1.0
+    g[1: n // 2] = 2.0
+    assert snr_db(np.fft.ifft(f * g),
+                  kt.hilbert_analytic(x).cpu().numpy()) > ORACLE_DB
+    ceps = np.fft.ifft(np.log(np.abs(f) + 1e-12)).real
+    assert snr_db(ceps, kt.real_cepstrum(x).cpu().numpy()) > ORACLE_DB
+    k = np.arange(n)
+    dct2 = np.real(np.exp(-1j * np.pi * k / (2 * n))
+                   * np.fft.fft(xn, 2 * n)[:n])
+    assert snr_db(dct2, kt.dct2(x).cpu().numpy()) > ORACLE_DB
+    assert HK.launches["stage1_real"] > 0
+    back = kt.idct(kt.dct(x, 2), 2)
+    assert snr_db(xn, back.cpu().numpy()) > ORACLE_DB
+    m = 512
+    w = np.exp(-2j * np.pi * 0.25 / m)
+    got = kt.czt_fast(x[:60000], m, w).cpu().numpy()
+    want = kt.czt_fast(x[:60000].double(), m, w).cpu().numpy()
+    assert snr_db(want, got) > ORACLE_DB
+    bins = [3, 1000, 30000]
+    assert snr_db(np.abs(f)[bins],
+                  kt.goertzel_bins(x, bins).cpu().numpy()) > ORACLE_DB
+
+
+def test_wavelets_on_card(cuda):
+    """dwt/idwt and the conv forms of wavelet_forward/_inverse on the
+    card against the same entries on the CPU."""
+    import kofft_tpu_torch as kt
+    x = torch.as_tensor(np.random.default_rng(26).standard_normal(
+        (2, 1 << 16), dtype=np.float32), device=cuda)
+    a, d = kt.dwt(x, "db4")
+    assert snr_db(x.cpu().numpy(), kt.idwt(a, d, "db4").cpu().numpy()) \
+        > ORACLE_DB
+    ga, gd = kt.wavelet_forward(x, "sym4")
+    ca, cd = kt.wavelet_forward(x.cpu(), "sym4")
+    assert snr_db(ca.numpy(), ga.cpu().numpy()) > PORT_DB
+    assert snr_db(cd.numpy(), gd.cpu().numpy()) > PORT_DB
+    gi = kt.wavelet_inverse(ga, gd, "sym4")
+    ci = kt.wavelet_inverse(ca, cd, "sym4")
+    assert snr_db(ci.numpy(), gi.cpu().numpy()) > PORT_DB
+
+
+@pytest.mark.parametrize("rows,n", [(64, 4096), (130, 1001), (3, 31)])
+def test_goertzel_scan_kernel_matches_plain(cuda, rows, n):
+    """The goertzel_scan kernel against its plain version on the same
+    CUDA tensor (1e-5 relative), one launch counted."""
+    from kofft_tpu_torch.ops import goertzel as G
+    x = torch.as_tensor(np.random.default_rng(27).standard_normal(
+        (rows, n), dtype=np.float32), device=cuda)
+    coeff = float(np.float32(2 * np.cos(2 * np.pi * 7 / n)))
+    before = G.launches["goertzel_scan"]
+    got = G.scan_rows(x, coeff)
+    assert G.launches["goertzel_scan"] == before + 1
+    want = G.scan_rows_plain(x, coeff)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time kofft_tpu_torch's N-D axis kernels, N-D routes, 1-D paths and
-dense four-step pair on one CUDA card, so that two trees of the port can
-be compared in turns.
+"""Time kofft_tpu_torch's N-D axis kernels, N-D routes, 1-D paths, dense
+four-step pair and STFT on one CUDA card, so that two trees of the port
+can be compared in turns.
 
     python tools/hopper_timing.py [--root DIR] [--label NAME] [--out FILE]
                                   [--kinds kernel,split,route,path,dense,
-                                           smooth]
+                                           smooth,stft]
 
 ``--root`` is the checkout whose ``kofft_tpu_torch`` is imported (default:
 this one), so a parent tree unpacked beside it can be timed by the same
@@ -42,7 +42,15 @@ at the splits of 3*2^18, 9*2^14, 23*2^14, 5*2^16 and 3*2^23 ((1, 768,
 1024), (1, 1152, 128), (1, 2944, 128), (1, 640, 512), (1, 3072, 8192)),
 fft_split at 3*2^18 and 5*2^16 beside torch.fft.fft, and, where the tree
 has the odd plan (``HK._ODD_TILE``), stage 1 at (1, 1152, 128) and (1,
-2944, 128) with tiles of 4 columns (``tile4``) beside the 8 it keeps.
+2944, 128) with tiles of 4 columns (``tile4``) beside the 8 it keeps;
+``stft``, where the tree has the STFT, stft_split (one-sided) and
+istft_split at the JAX bench's shape (2^20 samples, hann(1024), hop 256:
+4096 frames, ``auto``) and on the kernel path (2^22 samples, hann(16384),
+hop 4096: 1024 frames, ``backend="cuda"``), each beside torch.stft on the
+same zero-padded signal (center=False) and torch.istft (center=True,
+since center=False refuses a window whose envelope is 0 at sample 0;
+back to back only: it reads the envelope's minimum back to the host,
+which a graph cannot capture); a row's ``shape`` is (frames, win).
 ``--kinds`` lists the groups in the order they run, a group may come
 twice (``path,kernel,path`` times the paths before and after the kernel
 rows in one process); each row carries ``pos``, its group's place in that
@@ -83,7 +91,7 @@ def main() -> int:
     ap.add_argument("--kinds", default="kernel,split,route,path",
                     help="row groups in the order they run: kernel (with "
                          "its library rows), split, route, path, dense, "
-                         "smooth")
+                         "smooth, stft")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -109,11 +117,12 @@ def main() -> int:
         rows.append(r)
         print(json.dumps(r), flush=True)
 
-    def row(pos, kind, name, shape, fn):
+    def row(pos, kind, name, shape, fn, graph=True):
         _, b2b, host = time_ms(fn)
-        graph = graph_ms(fn, graph_runs(math.prod(shape)))
+        g = graph_ms(fn, graph_runs(math.prod(shape))) * 1e3 if graph \
+            else None
         emit({"label": args.label, "pos": pos, "kind": kind, "name": name,
-              "shape": list(shape), "graph": graph * 1e3, "b2b": b2b * 1e3,
+              "shape": list(shape), "graph": g, "b2b": b2b * 1e3,
               "host": host * 1e3, "device": card})
 
     def kernel_rows(pos):
@@ -230,9 +239,39 @@ def main() -> int:
             HK._ODD_TILE = keep
             HK._ARGS.clear()
 
+    def stft_rows(pos):
+        if not hasattr(kt, "stft_split"):
+            return
+        from kofft_tpu_torch.ops.window import hann
+        for n, win, hop, backend in [(1 << 20, 1024, 256, None),
+                                     (1 << 22, 1 << 14, 4096, "cuda")]:
+            x = torch.as_tensor(rng.standard_normal(n, dtype=np.float32),
+                                device=dev)
+            w = hann(win)
+            nf = -(-n // hop)
+            shape = (nf, win)
+            b = backend or "auto"
+            row(pos, "stft", f"stft_split one-sided {b}", shape,
+                lambda: kt.stft_split(x, w, hop, onesided=True,
+                                      backend=backend))
+            fr, fi = kt.stft_split(x, w, hop, backend=backend)
+            row(pos, "stft", f"istft_split {b}", shape,
+                lambda: kt.istft_split(fr, fi, w, hop, length=n,
+                                       backend=backend))
+            wt = torch.as_tensor(w, device=dev)
+            xpad = torch.nn.functional.pad(x, (0, (nf - 1) * hop + win - n))
+            row(pos, "library", "torch.stft", shape,
+                lambda: torch.stft(xpad, win, hop, win, wt, center=False,
+                                   onesided=True, return_complex=True))
+            spec = torch.complex(fr, fi).T.contiguous()
+            row(pos, "library", "torch.istft", shape,
+                lambda: torch.istft(spec, win, hop, win, wt, center=True,
+                                    onesided=False), graph=False)
+            del x, fr, fi, xpad, spec
+
     groups = {"kernel": kernel_rows, "split": split_rows,
               "route": route_rows, "path": path_rows, "dense": dense_rows,
-              "smooth": smooth_rows}
+              "smooth": smooth_rows, "stft": stft_rows}
     for pos, kind in enumerate(args.kinds.split(",")):
         emit({"label": args.label, "pos": pos, "kind": "state", "name": kind,
               "state": smi("clocks.sm,clocks.mem,temperature.gpu,"
