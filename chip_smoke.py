@@ -21,7 +21,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (conj), and the pair against a float64 numpy FFT / inverse FFT, at
    (8, 2^14), 2^20, the smooth 3*2^18, 9*2^14 and 23*2^14 (stage 1 on
    the odd plan), (8, 2^20), 2^22, 2^23 (stage 2's cluster), 2^24,
-   2^25 and 2^26 (stage 1's column four-step); then stage1_real and
+   2^25 and 2^26 (stage 1's column four-step), and phase 7's 2^21 (the
+   DCT/DST fast paths) and (1024, 2^14) (the kernel-path STFT's 1024
+   frames); then stage1_real and
    stage2_half the same way, the pair against the float64 numpy rfft, at
    (4, 2^14) and the same sizes; then stage 1 of every smooth n1 = o * 2^a
    (the 19 lengths at the smallest n that _pow2_split gives each, and
@@ -113,7 +115,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    public goertzel_scan at (64, 2^20) (the kernel's launches on this path
    are read here) with its relative error against the float64 DFT
    magnitude, then the goertzel_scan kernel against its plain version at
-   (64, 4096) (1e-5 relative); last, stft_split (one-sided) and
+   (64, 2^20) (the loop on a host copy) and (64, 4096) (1e-5 relative);
+   last, stft_split (one-sided) and
    istft_split in frames per second at the bench shape and the kernel
    path beside torch.stft / torch.istft, and goertzel_scan at (64, 4096)
    and (64, 2^20) beside its bound.
@@ -389,6 +392,26 @@ def stft_oracle(x, w, hop, onesided, frames=None):
     return np.fft.rfft(seg) if onesided else np.fft.fft(seg)
 
 
+def mel_oracle(n_mags: int, sample_rate: float, num_filters: int):
+    """float64 (n_mags, num_filters) triangular mel weights: filter m rises
+    over bins [b(m-1), b(m)) and falls over [b(m), b(m+1)), with the bin
+    edges b = floor(f * (n_mags + 1) / sample_rate) of num_filters + 2
+    frequencies equally spaced in mel from 0 to sample_rate / 2; a filter
+    with two equal edges is left out (all zero)."""
+    mel_max = 2595.0 * np.log10(1.0 + sample_rate / 2.0 / 700.0)
+    mel = mel_max * np.arange(num_filters + 2) / (num_filters + 1)
+    hz = 700.0 * (10.0 ** (mel / 2595.0) - 1.0)
+    b = np.floor(hz * (n_mags + 1.0) / sample_rate).astype(np.int64)
+    lo, mid, hi = b[:-2], b[1:-1], b[2:]
+    k = np.arange(n_mags)[:, None]
+    up = (k - lo) / np.maximum(mid - lo, 1)
+    down = (hi - k) / np.maximum(hi - mid, 1)
+    w = np.where((k >= lo) & (k < mid), up, 0.0) + np.where(
+        (k >= mid) & (k < hi), down, 0.0)
+    w[:, (mid == lo) | (hi == mid)] = 0.0
+    return w
+
+
 def phase_signal(dev, smi) -> dict:
     """Phase 7: the STFT, its streams and the composite transforms at the
     JAX bench's shapes; returns the goertzel_scan kernel's record."""
@@ -398,7 +421,6 @@ def phase_signal(dev, smi) -> dict:
     from kofft_tpu_torch.ops import goertzel as GZ
     from kofft_tpu_torch.ops import hopper_kernels as HK
     from kofft_tpu_torch.ops import stft as ST
-    from kofft_tpu_torch.ops.cepstrum import mel_filterbank_matrix
     from kofft_tpu_torch.ops.window import hann
 
     log("== phase 7: the signal-processing entries on the card")
@@ -588,7 +610,7 @@ def phase_signal(dev, smi) -> dict:
           snr_db(kt.czt_fast(xz.double(), 4096, wz, az).cpu().numpy(), got),
           FLOOR_DB, b, cplx)
     mags = torch.sqrt(one1[0] ** 2 + one1[1] ** 2)
-    mel = mel_filterbank_matrix(513, 48000.0, 40).astype(np.float64)
+    mel = mel_oracle(513, 48000.0, 40)
     i40 = np.arange(40)
     d40 = np.cos(np.pi * (i40[:, None] + 0.5) * i40[None, :] / 40)
     ref = (np.log(h(mags) @ mel + 1e-12) @ d40)[:, :13]
@@ -621,7 +643,18 @@ def phase_signal(dev, smi) -> dict:
     log(f"signal path counts: launches {launches}")
     assert launches["goertzel_scan"] > 0
 
-    # the kernel against its plain version (launches not counted above)
+    # the kernel against its plain version: the public entry's output at
+    # (64, 2^20) against the plain loop on a host copy, then a launch at
+    # (64, 4096) against the plain loop on the card (neither counted above)
+    coeff_l = float(np.float32(2 * math.cos(2 * math.pi * kb / n)))
+    t0 = time.perf_counter()
+    plain_l = h(GZ.scan_rows_plain(xg.cpu(), coeff_l))
+    errl = float(np.max(np.abs(mag - plain_l)))
+    rell = float(np.max(np.abs(mag - plain_l) / np.abs(plain_l)))
+    log(f"goertzel_scan (64, 2^20) kernel vs plain (host loop, "
+        f"{time.perf_counter() - t0:.1f} s): max abs {errl:.3e}, max "
+        f"relative {rell:.3e}")
+    assert rell <= 1e-5, rell
     xs = xg[:, :4096].contiguous()
     coeff = float(np.float32(2 * math.cos(2 * math.pi * 85 / 4096)))
     kern, plain = GZ.scan_rows(xs, coeff), GZ.scan_rows_plain(xs, coeff)
@@ -630,6 +663,7 @@ def phase_signal(dev, smi) -> dict:
     log(f"goertzel_scan (64, 4096) kernel vs plain: max abs {err:.3e}, "
         f"max relative {relk:.3e}")
     assert relk <= 1e-5, relk
+    err = max(err, errl)
 
     # 7. timing: frames per second of stft_split (one-sided, the JAX
     # bench's stft_frames) and istft_split (its istft_frames) at the bench
@@ -791,10 +825,13 @@ def main() -> int:
     # to 2^22 (2048-point columns), the column four-step from 2^24, the
     # stage-2 cluster from 2^23 (4096-point lines), smooth n1 (the odd
     # plan) at 3*2^18, 9*2^14 and 23*2^14; forward and inverse (conj on
-    # stage 1's load and stage 2's store)
+    # stage 1's load and stage 2's store); phase 7's shapes last: the
+    # DCT/DST fast paths' m = 2^21 and the kernel-path STFT's 1024 frames
+    # of 2^14
     stage_sizes = [(8, 1 << 14), (1, 1 << 20), (1, 3 << 18), (1, 9 << 14),
                    (1, 23 << 14), (8, 1 << 20), (1, 1 << 22), (1, 1 << 23),
-                   (1, 1 << 24), (1, 1 << 25), (1, 1 << 26)]
+                   (1, 1 << 24), (1, 1 << 25), (1, 1 << 26), (1, 1 << 21),
+                   (1024, 1 << 14)]
     err = {"stage1": 0.0, "stage2": 0.0}
     for b, n in stage_sizes:
         n1, n2 = HK._pow2_split(n)

@@ -7,7 +7,7 @@ floats), so each kind reduces to
     extend / chirp-premultiply -> FFT_m -> twiddle postmultiply -> Re/Im
 
 with m = 2n (2(n-1) and 2(n+1) for the type-I transforms), through the
-port's ladders: ``_fft_traced_planes`` and ``_rfft_planes`` (the stage
+port's ladders: ``_fft_norm_planes`` and ``_rfft_planes`` (the stage
 kernels where they serve m, Bluestein for an m whose odd part exceeds
 23, as in the JAX package).
 
@@ -61,9 +61,9 @@ def _pad_to(x, m: int):
 
 def _fft2n_planes(xr, xi, m: int):
     """Engine FFT of planes zero-padded to length m (unnormalized)."""
-    from .fft import _fft_traced_planes, resolve_backend
-    return _fft_traced_planes(_pad_to(xr, m), _pad_to(xi, m), m, False,
-                              None, resolve_backend())
+    from .fft import _fft_norm_planes, resolve_backend
+    return _fft_norm_planes(_pad_to(xr, m), _pad_to(xi, m), m, False, None,
+                            resolve_backend())
 
 
 def _rfft_m_planes(x, m: int):

@@ -207,7 +207,8 @@ def engine_fft_planes(xr, xi, n: int, inverse: bool, dtype: str,
 
 def _fft_norm_planes(xr, xi, n: int, inverse: bool, norm: Optional[str],
                      backend: str, donate: bool = False):
-    """Planes -> planes DFT along the last axis, normalized."""
+    """Planes -> planes DFT along the last axis, normalized: the
+    counterpart of ``kofft_tpu.ops.fft._fft_traced_planes``."""
     yr, yi = engine_fft_planes(xr, xi, n, inverse, dtype_name(xr), backend,
                                donate)
     s = _norm_scale(n, norm, inverse)
@@ -218,14 +219,6 @@ def _fft_norm_planes(xr, xi, n: int, inverse: bool, norm: Optional[str],
         else:
             yr, yi = yr * s, yi * s
     return yr, yi
-
-
-def _fft_traced_planes(xr, xi, n: int, inverse: bool, norm: Optional[str],
-                       backend: str):
-    """Planes -> planes DFT along the last axis through the engine ladder,
-    normalized: the composite transforms' entry
-    (``kofft_tpu.ops.fft._fft_traced_planes``)."""
-    return _fft_norm_planes(xr, xi, n, inverse, norm, backend)
 
 
 # --------------------------------------------------------------------------

@@ -74,15 +74,22 @@ def goertzel(x, sample_rate: float, target_freq: float, device="cuda"):
 
 def scan_rows_plain(x2, coeff: float):
     """The recurrence over the rows of a (rows, n) float32 tensor, one
-    sample at a time for all rows: the kernel's plain version."""
+    sample at a time for all rows: the kernel's plain version. Each step
+    rounds coeff * s1, then x_i + that, then minus s2, into three buffers
+    that rotate. The square root is taken in float64 and rounded to
+    float32, which is correctly rounded as the kernel's ``__fsqrt_rn``:
+    a CPU build's vectorized float32 square root can be one ulp off."""
     c = x2.new_full((), coeff)
-    cols = x2.t()
     s1 = x2.new_zeros(x2.shape[0])
     s2 = x2.new_zeros(x2.shape[0])
-    for i in range(x2.shape[1]):
-        s1, s2 = cols[i] + c * s1 - s2, s1
+    s = torch.empty_like(s1)
+    for col in x2.t().contiguous():
+        torch.mul(c, s1, out=s)
+        torch.add(col, s, out=s)
+        s.sub_(s2)
+        s1, s2, s = s, s1, s2
     power = s2 * s2 + s1 * s1 - c * s1 * s2
-    return torch.sqrt(torch.clamp_min(power, 0.0))
+    return torch.sqrt(torch.clamp_min(power, 0.0).double()).float()
 
 
 def scan_rows(x2, coeff: float):

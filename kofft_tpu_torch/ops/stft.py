@@ -323,15 +323,10 @@ class StftStream:
 
     def next_frame(self):
         """Returns (re, im) planes of the next frame, or None when done."""
-        n = self._sig.shape[0]
-        if self._pos >= n:
+        if self._pos >= self._sig.shape[0]:
             return None
-        win = self._w.shape[0]
-        seg = _pad_last(self._sig[self._pos: self._pos + win], win)
-        self._pos += self._hop
-        fr = seg * const(self._w, seg.device)
-        return _fft_planes(fr, torch.zeros_like(fr), win, False,
-                           self._backend, dtype_name(fr))
+        pos, self._pos = self._pos, self._pos + self._hop
+        return frame_split(self._sig, self._w, pos, self._backend)
 
     def __iter__(self):
         while True:
@@ -502,7 +497,8 @@ class IstftStream:
         self._hop = hop
         self._backend = _resolve_planes_backend(backend)
         self._device = host_device(device)
-        self._wt = const(w, self._device).to(torch.float32)
+        self._w32 = _window_const(w.astype(np.float32))
+        self._wt = const(self._w32, self._device)
         self._reset()
 
     def _reset(self):
@@ -520,11 +516,9 @@ class IstftStream:
         fi = _as_tensor(fi, self._device).to(self._device, torch.float32)
         require(tuple(fr.shape) == (self._win,), MismatchedLengthsError,
                 f"frame must have length {self._win}")
-        win, hop, w = self._win, self._hop, self._wt
-        with _synthesis_tier():
-            tr, _ = _fft_planes(fr, fi.contiguous(), win, True,
-                                self._backend, "float32")
-        buf = self._buf + (tr / win) * w
+        hop, w = self._hop, self._wt
+        buf = self._buf + inverse_frame_split(fr, fi.contiguous(), self._w32,
+                                              self._backend)
         norm = self._norm + w * w
         head = norm[:hop]
         out = torch.where(head > 1e-8,

@@ -301,8 +301,11 @@ def test_mfcc_too_many_coeffs_raises():
 @pytest.mark.parametrize("kind", [1, 2, 3, 4])
 @pytest.mark.parametrize("n", [384, 777, 1024])
 def test_fast_path_matches_matrix(monkeypatch, mod, kind, n):
-    """The FFT-composed route against the matrix route (smooth, rough ->
-    Bluestein, and pow2 n), and against the JAX package's fast route."""
+    """The FFT-composed route against the matrix route and float64 (smooth,
+    rough -> Bluestein, and pow2 n), and at the rough n, whose Bluestein
+    route is the longest, against the JAX package's fast route (each JAX
+    case is one XLA compile; at all three sizes they took most of this
+    file's time)."""
     jmod = JD if mod is D else JS
     x = _sig((3, n), n + kind)
     want = _np(mod.dct(x, kind, **CPU) if mod is D
@@ -316,8 +319,10 @@ def test_fast_path_matches_matrix(monkeypatch, mod, kind, n):
     assert np.abs(got - want).max() < 2e-4 * max(scale, 1.0)
     ref = ref_dct(x, kind) if mod is D else ref_dst(x, kind)
     assert snr_db(ref, got) > SNR
-    jgot = np.asarray(jmod.dct(x, kind) if mod is D else jmod.dst(x, kind))
-    assert snr_db(jgot, got) > SNR
+    if n == 777:
+        jgot = np.asarray(jmod.dct(x, kind) if mod is D
+                          else jmod.dst(x, kind))
+        assert snr_db(jgot, got) > SNR
 
 
 def test_large_dct_runs_without_matrix():
