@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive kofft_tpu_torch's main paths, the 1-D complex and real FFT (on
 float32 and bfloat16 planes, on the `highest` and the `default` tier), the
-dense four-step pair, the N-D FFT and the signal-processing entries (STFT,
-its streams, the composite transforms), on one CUDA card.
+dense four-step pair, the N-D FFT, the signal-processing entries (STFT,
+its streams, the composite transforms), the models' forward passes and
+the streaming spectrogram server, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -80,8 +81,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    8 x 2^20 and 2^24 on the `highest` and the `default` tier, each beside
    its plain version on that tier, beside the two products alone as
    complex64 torch.matmul (TF32 off) and cuFFT; the float32
-   route, the bf16-planes route and the `default` tier in turns at
-   8 x 2^20, 2^24 and 2^26 for both 1-D transforms. Then the N-D rows: the
+   route, the bf16-planes route, the `default` tier and the bf16 planes'
+   plain version (backend='torch') in turns at 8 x 2^20, 2^24 and 2^26
+   for both 1-D transforms. Then the N-D rows: the
    kernel route (fftn_split), its plain version and torch.fft.fft2 / fftn
    at 1024^2, (8, 512, 512), 4096^2, 8192^2 and 128^3 with their bound
    (``nd_bound``); every kernel, bf16 form and dense instance alone at
@@ -119,7 +121,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    last, stft_split (one-sided) and
    istft_split in frames per second at the bench shape and the kernel
    path beside torch.stft / torch.istft, and goertzel_scan at (64, 4096)
-   and (64, 2^20) beside its bound.
+   and (64, 2^20) beside its bound;
+8. the models and the server, every count set to 0 first: entry() (the
+   flagship SpectralNet forward, win 256, hop 128, 32 mel bands, 8
+   classes, a (4, 4096) signal) on the card against the port on the CPU
+   and a float64 numpy forward (90 dB); SpectralNet and SpectralDenoiser
+   (hidden 64) at a serving batch of 256 one-second clips at 16 kHz,
+   weights drawn from the seed, against the port on the CPU (90 dB, the
+   denoiser's interior), each timed per forward back to back and as a
+   CUDA graph, with host enqueue and signals per second, beside the
+   forward's STFT alone and torch.stft at the same frames (context); the
+   path launches no kernel (win 256 lies below the stage kernels), which
+   is asserted; then the streaming spectrogram server on the card
+   (serve_background with its default device), called on 127.0.0.1:
+   /health, four /api/compute_frame pushes of 2048 samples (the rows
+   against the port's StreamingSpectrogram on the CPU, within 1 LSB),
+   one /api/stft of 16384 samples at win 1024 (100 dB against the CPU),
+   /api/set_colormap and /api/reset, each request's latency recorded;
+   the phase's record is printed as one JSON line ({"phase8": ...}).
 
 A bound is the least time the card could take for the work: the larger
 of the bytes the function must move (each input read once, each output
@@ -739,6 +758,219 @@ def phase_signal(dev, smi) -> dict:
             "shape": [64, 4096],
             "long": {"shape": [64, 1 << 20], "ms": tl[1], "graph_ms": gl,
                      "bound_ms": bdl, "bound_by": "operations"}}
+
+
+def spectral_net_oracle(params, x, win, hop):
+    """float64 numpy SpectralNet forward of the (B, N) signal ``x`` with
+    ``params`` = (mel, w_head, b_head): one-sided STFT with a periodic
+    Hann window, sqrt(|X|^2 + 1e-12), the mel product, log(|.| + 1e-6),
+    the DCT-II matrix cos(pi (m + 1/2) c / M), the mean over frames and
+    the head."""
+    mel, w_head, b_head = (np.asarray(p, np.float64) for p in params)
+    w = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(win) / win)
+    m = mel.shape[1]
+    dct = np.cos(np.pi * (np.arange(m)[:, None] + 0.5)
+                 * np.arange(m)[None, :] / m)
+    out = []
+    for row in np.asarray(x, np.float64):
+        spec = stft_oracle(row, w, hop, True)
+        mags = np.sqrt(np.abs(spec) ** 2 + 1e-12)
+        feats = np.log(np.abs(mags @ mel) + 1e-6) @ dct
+        out.append(feats.mean(axis=0) @ w_head + b_head)
+    return np.stack(out)
+
+
+def close_rows(got, want):
+    """RGBA rows of two FFT engines: within 1 LSB and at most 1 byte in
+    1000 apart (a float32 rounding can move a value on a u8 boundary)."""
+    d = np.abs(np.asarray(got, np.int16) - np.asarray(want, np.int16))
+    return (d.shape == np.shape(want) and d.max(initial=0) <= 1
+            and np.count_nonzero(d) <= max(1, d.size // 1000))
+
+
+def phase_models(dev, smi) -> dict:
+    """Phase 8: the models' serving path and the spectrogram server on the
+    card; returns the phase's record."""
+    import urllib.request
+
+    import torch
+    import torch.nn.functional as F
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.entry import entry
+    from kofft_tpu_torch.models import SpectralDenoiser, SpectralNet
+    from kofft_tpu_torch.models import convert
+    from kofft_tpu_torch.models.denoiser import SpectralDenoiserParams
+    from kofft_tpu_torch.models.spectral_net import SpectralNetParams
+    from kofft_tpu_torch.ops import goertzel as GZ
+    from kofft_tpu_torch.ops import hopper_kernels as HK
+    from kofft_tpu_torch.visual import stft_magnitudes
+    from kofft_tpu_torch.web import StreamingSpectrogram
+    from kofft_tpu_torch.web.server import serve_background
+
+    log("== phase 8: the models and the server on the card")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 8)
+    rec = {"card": smi}
+    HK.reset_counts()
+    GZ.launches["goertzel_scan"] = 0
+
+    # 1. entry(): the flagship forward at the JAX entry's arguments
+    fn, args = entry()
+    assert all(a.is_cuda for a in args)
+    with torch.no_grad():
+        got = fn(*args)
+    assert got.is_cuda and got.shape == (4, 8)
+    got = got.double().cpu().numpy()
+    fc, ac = entry("cpu")
+    with torch.no_grad():
+        on_cpu = fc(*ac).double().numpy()
+    oracle = spectral_net_oracle([a.cpu().numpy() for a in args[:3]],
+                                 args[3].cpu().numpy(), 256, 128)
+    rec["entry"] = {"snr_vs_cpu_db": snr_db(on_cpu, got),
+                    "snr_vs_float64_db": snr_db(oracle, got)}
+    log(f"entry() logits (4, 8): {rec['entry']['snr_vs_cpu_db']:.2f} dB "
+        f"against the port on the CPU, "
+        f"{rec['entry']['snr_vs_float64_db']:.2f} dB against float64 "
+        f"(floor 90)")
+    assert np.all(np.isfinite(got))
+    assert min(rec["entry"].values()) >= 90.0, rec["entry"]
+
+    # 2. both models at a serving batch: 256 one-second clips at 16 kHz,
+    # weights drawn from the seed (the denoiser's w2 and b2 too: at init
+    # its mask is the constant sigmoid(2))
+    batch, n, win, hop = 256, 16000, 256, 128
+    x = torch.as_tensor(rng.standard_normal((batch, n), dtype=np.float32),
+                        device=dev)
+    xc = x.cpu()
+    net, den = SpectralNet(), SpectralDenoiser()
+    p0 = net.init(0)
+    convert.load_into(net, SpectralNetParams(
+        p0.mel + 0.01 * rng.standard_normal(p0.mel.shape, np.float32),
+        rng.standard_normal(p0.w_head.shape, np.float32),
+        rng.standard_normal(p0.b_head.shape, np.float32)))
+    d0 = den.init(0)
+    convert.load_into(den, SpectralDenoiserParams(
+        d0.w1, 0.1 * rng.standard_normal(d0.b1.shape, np.float32),
+        rng.standard_normal(d0.w2.shape, np.float32) / 8,
+        rng.standard_normal(d0.b2.shape, np.float32)))
+    rec["models"] = {}
+    for name, model, cls in (("SpectralNet", net, SpectralNet),
+                             ("SpectralDenoiser", den, SpectralDenoiser)):
+        assert all(p.is_cuda for p in model.parameters())
+        cpu = cls(device="cpu")
+        cpu.load_state_dict({k: v.cpu()
+                             for k, v in model.state_dict().items()})
+        with torch.no_grad():
+            y = model(x)
+            want = cpu(xc).double().numpy()
+        assert y.is_cuda and torch.isfinite(y).all()
+        y = y.double().cpu().numpy()
+        if name == "SpectralDenoiser":
+            y, want = y[:, win:-win], want[:, win:-win]
+        s = snr_db(want, y)
+        log(f"{name} ({batch}, {n}): {s:.2f} dB against the port on the "
+            f"CPU (floor 90{', interior' if name != 'SpectralNet' else ''})")
+        assert s >= 90.0, (name, s)
+
+        def fwd(m=model):
+            with torch.no_grad():
+                return m(x)
+        t = time_ms(fwd)
+        g = graph_ms(fwd)
+        rec["models"][name] = {
+            "snr_vs_cpu_db": s, "ms": t[1], "graph_ms": g,
+            "single_call_ms": t[0], "host_ms": t[2],
+            "signals_per_s": batch / (t[1] * 1e-3),
+            "graph_signals_per_s": batch / (g * 1e-3)}
+        log(f"{name} forward ({batch}, {n}): back-to-back {t[1] * 1e3:.1f} "
+            f"us/call ({batch / (t[1] * 1e-3):.4e} signals/s), graph "
+            f"{g * 1e3:.1f} us/call ({batch / (g * 1e-3):.4e} signals/s), "
+            f"single call {t[0] * 1e3:.1f} us, host enqueue "
+            f"{t[2] * 1e3:.1f} us/call [{smi}]")
+    # context, not a claim: the forward's STFT alone and torch.stft at the
+    # same frames (center=False on the zero-padded signal)
+    nf = -(-n // hop)
+    wt = torch.as_tensor(net.window, device=dev)
+    xpad = F.pad(x, (0, (nf - 1) * hop + win - n))
+    for what, f in (
+            ("stft_split (one-sided, SpectralNet's)",
+             lambda: kt.stft_split(x, net.window, hop, onesided=True,
+                                   backend="torch")),
+            ("stft_split (two-sided, the denoiser's)",
+             lambda: kt.stft_split(x, den.window, hop)),
+            ("torch.stft (center=False, padded signal)",
+             lambda: torch.stft(xpad, win, hop, win, wt, center=False,
+                                onesided=True, return_complex=True))):
+        t = time_ms(f)
+        g = graph_ms(f)
+        rec["models"].setdefault("context", {})[what] = {
+            "ms": t[1], "graph_ms": g, "host_ms": t[2]}
+        log(f"context: {what} ({batch} x {nf} frames of {win}): "
+            f"back-to-back {t[1] * 1e3:.1f} us/call, graph "
+            f"{g * 1e3:.1f} us/call, host enqueue {t[2] * 1e3:.1f} us/call "
+            f"[{smi}]")
+    del x, xc, xpad
+
+    launches = {**HK.launches, **GZ.launches}
+    log(f"models path counts: launches {launches}")
+    # win 256 lies below the stage kernels (2^14 <= n): the plain factor
+    # tree, as the JAX package takes its XLA engines there
+    assert not any(launches.values()), launches
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+
+    # 3. the server on the card (default device), called on 127.0.0.1
+    srv, port = serve_background(0)
+    url = f"http://127.0.0.1:{port}"
+    lat = []
+
+    def call(path, obj=None):
+        data = None if obj is None else json.dumps(obj).encode()
+        req = urllib.request.Request(
+            url + path, data=data, method="GET" if obj is None else "POST",
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body, status = r.read(), r.status
+        lat.append({"request": path, "ms": (time.perf_counter() - t0) * 1e3})
+        assert status == 200, (path, status)
+        return json.loads(body) if obj is not None else body
+
+    try:
+        state = srv.RequestHandlerClass.state
+        assert state.device.type == "cuda"
+        ref = StreamingSpectrogram(device="cpu")
+        call("/health")
+        for i in range(4):
+            s = rng.standard_normal(2048, dtype=np.float32)
+            out = call("/api/compute_frame", {"samples": s.tolist()})
+            want = ref.compute_frame(s)
+            assert out["rows"] == want.size // (512 * 4), (i, out["rows"])
+            assert close_rows(out["row"], want), i
+        assert state._stream._buf.is_cuda
+        s = rng.standard_normal(16384, dtype=np.float32)
+        out = call("/api/stft", {"samples": s.tolist(), "win_len": 1024})
+        want, want_max = stft_magnitudes(s, 1024, 512, device="cpu")
+        mags = np.asarray(out["mags"])
+        assert mags.shape == want.shape == (32, 512)
+        stft_db = snr_db(want, mags)
+        log(f"server /api/stft (16384 samples, win 1024): {stft_db:.2f} dB "
+            f"against the port on the CPU (max abs difference "
+            f"{np.abs(mags - want).max():.3e}, largest magnitude "
+            f"{want_max:.3e}; floor 100); the four "
+            f"compute_frame pushes painted the CPU state's rows (within "
+            f"1 LSB)")
+        assert stft_db >= 100.0
+        assert call("/api/set_colormap", {"name": "viridis"})["ok"]
+        assert call("/api/reset", {})["ok"]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    for r in lat:
+        log(f"  {r['request']}: {r['ms']:.2f} ms (host clock, request to "
+            f"response)")
+    rec["server"] = {"requests": lat, "stft_snr_vs_cpu_db": stft_db}
+    log(f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return rec
 
 
 def main() -> int:
@@ -1507,7 +1739,8 @@ def main() -> int:
         torch.cuda.synchronize()
 
     # the bf16 routes beside the float32 route, in turns (f32, bf16 planes,
-    # default tier, then the reverse), each the median of its two runs
+    # default tier, the bf16 planes' plain version, then the reverse),
+    # each the median of its two runs
     for shape in [(8, 1 << 20), (1 << 24,), (1 << 26,)]:
         b = shape[0] if len(shape) == 2 else 1
         n = shape[-1]
@@ -1518,17 +1751,21 @@ def main() -> int:
                 paths = {"float32": lambda: kt.rfft_split(xr),
                          "bf16 planes": lambda: kt.rfft_split(br),
                          "default tier, float32 planes": on_tier(
-                             "default", lambda: kt.rfft_split(xr))}
+                             "default", lambda: kt.rfft_split(xr)),
+                         "bf16 planes, plain version (backend='torch')":
+                             lambda: kt.rfft_split(br, backend="torch")}
             else:
                 paths = {"float32": lambda: kt.fft_split(xr, xi),
                          "bf16 planes": lambda: kt.fft_split(br, bi),
                          "default tier, float32 planes": on_tier(
-                             "default", lambda: kt.fft_split(xr, xi))}
+                             "default", lambda: kt.fft_split(xr, xi)),
+                         "bf16 planes, plain version (backend='torch')":
+                             lambda: kt.fft_split(br, bi, backend="torch")}
             turns = {w: [] for w in paths}
             order = list(paths)
             for w in order + order[::-1]:
                 turns[w].append(time_ms(paths[w]))
-            for w, elt in zip(order, (4, 2, 4)):
+            for w, elt in zip(order, (4, 2, 4, 2)):
                 bd, by = transform_bound(real_fft, b, n, elt)
                 report(shape, f"{k}, {w} (median of 2 in turns; bound "
                        f"{bd * 1e3:.2f} us, {by})",
@@ -1740,6 +1977,9 @@ def main() -> int:
 
     # -- 7. the signal-processing entries --------------------------------
     goertzel = phase_signal(dev, smi)
+
+    # -- 8. the models and the server ------------------------------------
+    log(json.dumps({"phase8": phase_models(dev, smi)}))
 
     stages = "kofft_tpu_torch/ops/csrc/fft_stages.cu"
     odd = "kofft_tpu_torch/ops/csrc/stage1_odd.cu"

@@ -10,8 +10,11 @@ the 1-D transforms and the column and row passes (``col_fft``,
 streaming classes and chunked device-side streams), and the composite
 transforms: DCT and DST I-IV, Hartley, Hilbert, the chirp Z-transform,
 cepstrum and MFCC, Goertzel (its recurrence a CUDA kernel of its own,
-``goertzel_scan``) and the wavelets. Host input goes to the card unless
-the caller passes ``device="cpu"``. It imports torch and never jax.
+``goertzel_scan``) and the wavelets. Above them sit the spectrogram
+utilities (``visual``), the host utilities (``utils``, ``native``), the
+models' forward passes (``models``, ``entry``) and the streaming
+spectrogram server (``web``). Host input goes to the card unless the
+caller passes ``device="cpu"``. It imports torch and never jax.
 """
 
 from .config import (get_config, set_backend, set_dft_cutoff,  # noqa: F401
@@ -42,8 +45,10 @@ from .ops.wavelet import (haar_forward, haar_inverse,  # noqa: F401
                           multi_level_forward, multi_level_inverse,
                           dwt, idwt, dwt_multi, idwt_multi)
 from .ops import window  # noqa: F401
+from . import visual  # noqa: F401
 from .ops.plan_api import FftPlan, fft_strided_split  # noqa: F401
 from .ops.rfft import rfft, irfft, rfft_split, irfft_split  # noqa: F401
 from .utils.transfer import asnumpy, planes_from_numpy  # noqa: F401
+from .utils.observability import enable_compilation_cache, trace  # noqa: F401
 
 __version__ = "0.1.0"

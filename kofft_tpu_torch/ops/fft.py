@@ -246,12 +246,23 @@ def _as_tensor(x, device) -> torch.Tensor:
                            device=host_device(device))
 
 
+def _host_real(x, device) -> torch.Tensor:
+    """The input of a real-signal entry as a tensor: host complex input
+    keeps its real part, as the JAX package's cast to float does; a
+    tensor is taken as it is."""
+    if not isinstance(x, torch.Tensor):
+        x = _np.asarray(x)
+        if _np.iscomplexobj(x):
+            x = x.real
+    return _as_tensor(x, device)
+
+
 def _real_tensor(x, device, what: str) -> torch.Tensor:
     """The input of a composite transform (DCT, DST, DHT, Hilbert, CZT,
-    cepstrum, Goertzel) as a tensor, non-empty along its last axis.
-    bfloat16 computes in float32: the host tables are float32 or
-    float64."""
-    x = _as_tensor(x, device)
+    cepstrum, Goertzel) as a tensor (:func:`_host_real`), non-empty along
+    its last axis. bfloat16 computes in float32: the host tables are
+    float32 or float64."""
+    x = _host_real(x, device)
     require(x.dim() >= 1 and x.shape[-1] >= 1, EmptyInputError,
             f"{what} input must be non-empty")
     return x.float() if x.dtype == torch.bfloat16 else x

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from ..errors import EmptyInputError, InvalidValueError, require
 from ..plan import tables
 from ._complex import const, dtype_name
-from .fft import _as_tensor
+from .fft import _as_tensor, _host_real
 
 __all__ = ["haar_forward", "haar_inverse", "wavelet_forward",
            "wavelet_inverse", "multi_level_forward", "multi_level_inverse",
@@ -199,7 +199,7 @@ def _inverse(a, d, family: str):
 def haar_forward(x, device="cuda"):
     """Single-level Haar: (avg, diff) halves, avg = (x0+x1)/2, diff =
     (x0-x1)/2."""
-    x = _as_tensor(x, device)
+    x = _host_real(x, device)
     require(x.shape[-1] >= 2, EmptyInputError, "haar needs >= 2 samples")
     h = x.shape[-1] // 2
     ev, od = x[..., 0: 2 * h: 2], x[..., 1: 2 * h: 2]
@@ -228,7 +228,7 @@ def wavelet_forward(x, family: str, device="cuda"):
     if family == "haar":
         return haar_forward(x, device)
     _check_family(family)
-    x = _as_tensor(x, device)
+    x = _host_real(x, device)
     require(x.shape[-1] >= 2, EmptyInputError,
             "wavelet needs >= 2 samples")
     return _forward(x, family)
@@ -287,7 +287,7 @@ def dwt(x, family: str = "haar", device="cuda"):
     """Single-level orthogonal DWT, periodic extension, perfect
     reconstruction. Requires an even length."""
     _check_pr_family(family)
-    x = _as_tensor(x, device)
+    x = _host_real(x, device)
     n = x.shape[-1]
     require(n >= 2 and n % 2 == 0, InvalidValueError,
             f"dwt needs even length, got {n}")
@@ -314,7 +314,7 @@ def idwt(approx, detail, family: str = "haar", device="cuda"):
 def dwt_multi(x, levels: int, family: str = "haar", device="cuda"):
     """Multi-level PR decomposition (length divisible by 2^levels)."""
     require(levels >= 1, InvalidValueError, "levels must be >= 1")
-    cur = _as_tensor(x, device)
+    cur = _host_real(x, device)
     require(cur.shape[-1] % (1 << levels) == 0, InvalidValueError,
             f"length {cur.shape[-1]} not divisible by 2^{levels}")
     details = []
@@ -336,7 +336,7 @@ def multi_level_forward(x, levels: int, family: str = "haar",
     """Multi-level decomposition: an odd-length level repeats its last
     sample. Returns (approx, [details...])."""
     require(levels >= 1, InvalidValueError, "levels must be >= 1")
-    cur = _as_tensor(x, device)
+    cur = _host_real(x, device)
     details = []
     for _ in range(levels):
         if cur.shape[-1] % 2 != 0:

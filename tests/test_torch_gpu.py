@@ -570,3 +570,74 @@ def test_goertzel_scan_kernel_matches_plain(cuda, rows, n):
     assert G.launches["goertzel_scan"] == before + 1
     want = G.scan_rows_plain(x, coeff)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def test_models_on_card(cuda):
+    """SpectralNet and SpectralDenoiser at the entry widths with weights
+    drawn from a seed, on the card against the port on the CPU: logits
+    and the denoiser's interior >= 90 dB; entry() on the card likewise."""
+    from kofft_tpu_torch.entry import entry
+    from kofft_tpu_torch.models import SpectralDenoiser, SpectralNet
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((8, 16000)).astype(np.float32)
+    for cls in (SpectralNet, SpectralDenoiser):
+        cpu, card = cls(device="cpu"), cls()
+        with torch.no_grad():
+            for p in cpu.parameters():
+                p.add_(torch.as_tensor(rng.standard_normal(
+                    tuple(p.shape)).astype(np.float32)) * 0.1)
+        card.load_state_dict(cpu.state_dict())
+        assert all(p.is_cuda for p in card.parameters())
+        want = cpu(x).detach().numpy()
+        got = card(x)
+        assert got.is_cuda
+        got = got.detach().cpu().numpy()
+        if cls is SpectralDenoiser:
+            want, got = want[:, 256:-256], got[:, 256:-256]
+        assert snr_db(want, got) > 90.0, cls.__name__
+    fn, args = entry()
+    fc, ac = entry("cpu")
+    assert all(a.is_cuda for a in args)
+    assert snr_db(fc(*ac).numpy(), fn(*args).cpu().numpy()) > 90.0
+
+
+def test_server_on_card(cuda):
+    """The server on the card (default device) answers as the CPU state
+    does: compute_frame rows within 1 LSB, stft magnitudes >= 100 dB."""
+    import json
+    import urllib.request
+    from kofft_tpu_torch.visual import stft_magnitudes
+    from kofft_tpu_torch.web import StreamingSpectrogram
+    from kofft_tpu_torch.web.server import serve_background
+
+    def post(path, obj):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(obj).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read())
+
+    srv, port = serve_background(0)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        assert srv.RequestHandlerClass.state.device.type == "cuda"
+        ref = StreamingSpectrogram(device="cpu")
+        rng = np.random.default_rng(32)
+        for _ in range(3):
+            x = rng.standard_normal(2048).astype(np.float32)
+            got = np.asarray(post("/api/compute_frame",
+                                  {"samples": x.tolist()})["row"], np.int16)
+            want = ref.compute_frame(x).astype(np.int16)
+            assert got.shape == want.shape
+            d = np.abs(got - want)
+            assert d.max(initial=0) <= 1 and np.count_nonzero(d) <= \
+                max(1, d.size // 1000)
+        x = rng.standard_normal(16384).astype(np.float32)
+        out = post("/api/stft", {"samples": x.tolist(), "win_len": 1024})
+        want, _ = stft_magnitudes(x, 1024, 512, device="cpu")
+        assert snr_db(want, np.asarray(out["mags"])) > 100.0
+        assert post("/api/set_colormap", {"name": "viridis"})["ok"]
+        assert post("/api/reset", {})["ok"]
+    finally:
+        srv.shutdown()
+        srv.server_close()

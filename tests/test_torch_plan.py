@@ -7,8 +7,10 @@ route shapes must give the same answers for every size class.
 """
 
 import os
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -127,12 +129,21 @@ def test_config_setters_revert():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, kofft_tpu_torch, kofft_tpu_torch.ops.hopper_fft, "
-            "kofft_tpu_torch.ops.rfft, kofft_tpu_torch.ops._cuda_build; "
+    """Every module of the port (each subpackage: ops, models, visual,
+    utils, native, web, and entry) imports neither jax nor kofft_tpu, and
+    no source file of the port names either in an import."""
+    code = ("import importlib, pkgutil, sys, kofft_tpu_torch as k; "
+            "mods = [m.name for m in pkgutil.walk_packages(k.__path__, "
+            "'kofft_tpu_torch.')]; "
+            "[importlib.import_module(m) for m in mods]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'kofft_tpu.'))]; print(bad); "
-            "sys.exit(1 if bad else 0)")
+            "m.startswith(('jax.', 'kofft_tpu.'))]; print(len(mods), bad); "
+            "sys.exit(1 if bad or len(mods) < 40 else 0)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|kofft_tpu)\b", re.M)
+    srcs = list(Path(root, "kofft_tpu_torch").rglob("*.py"))
+    assert len(srcs) >= 40
+    assert not [str(f) for f in srcs if pattern.search(f.read_text())]
     env = dict(os.environ, PYTHONPATH=root)
     r = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                        capture_output=True, text=True, timeout=120)

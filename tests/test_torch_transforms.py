@@ -402,3 +402,43 @@ def test_kernel_path_at_2_14():
         tk.set_backend(old)
     assert snr_db(np.asarray(jk.dct2(x)), c2) > SNR
     assert snr_db(np.asarray(jk.dst4(x)), s4) > SNR
+
+
+# host complex input to the real-signal entries: the JAX package casts it
+# to float (``host_float``), which keeps the real part
+_HOST_COMPLEX = {
+    "dct2": (), "dct4": (), "idct": (), "dst2": (), "dht": (),
+    "hilbert": (), "real_cepstrum": (), "mel_filterbank": (8000.0, 4),
+    "goertzel": (8000.0, 1000.0), "goertzel_bins": ([1, 3, 5],),
+    "dwt": ("haar",), "haar_forward": (), "wavelet_forward": ("db2",),
+    "dwt_multi": (2, "db2"), "multi_level_forward": (2, "haar")}
+
+
+def _flat(out):
+    if isinstance(out, (tuple, list)):
+        return [a for o in out for a in _flat(o)]
+    return [out]
+
+
+@pytest.mark.parametrize("name", sorted(_HOST_COMPLEX))
+def test_host_complex_input_takes_real_part(name):
+    """A numpy complex64 array of 16 points: the port transforms its real
+    part, as kofft_tpu does, and returns what kofft_tpu returns (100 dB;
+    float32 output)."""
+    import warnings
+    rng = np.random.default_rng(16)
+    x = (rng.standard_normal(16) + 1j * rng.standard_normal(16)).astype(
+        np.complex64)
+    if name == "mel_filterbank":
+        x = np.abs(x) + 1j * x.imag
+    args = _HOST_COMPLEX[name]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", np.exceptions.ComplexWarning)
+        want = getattr(jk, name)(x, *args)
+    got = getattr(tk, name)(x, *args, **CPU)
+    want, got = _flat(want), _flat(got)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert str(g.dtype) == f"torch.{w.dtype}", (g.dtype, w.dtype)
+        assert snr_db(w, _np(g)) > SNR
