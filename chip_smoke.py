@@ -2,8 +2,9 @@
 """Drive kofft_tpu_torch's main paths, the 1-D complex and real FFT (on
 float32 and bfloat16 planes, on the `highest` and the `default` tier), the
 dense four-step pair, the N-D FFT, the signal-processing entries (STFT,
-its streams, the composite transforms), the models' forward passes and
-the streaming spectrogram server, on one CUDA card.
+its streams, the composite transforms), the models' forward passes, the
+streaming spectrogram server, the models' training and the sanity-check
+CLI, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -138,7 +139,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the port's StreamingSpectrogram on the CPU, within 1 LSB),
    one /api/stft of 16384 samples at win 1024 (100 dB against the CPU),
    /api/set_colormap and /api/reset, each request's latency recorded;
-   the phase's record is printed as one JSON line ({"phase8": ...}).
+   the phase's record is printed as one JSON line ({"phase8": ...});
+9. the models' training, every count set to 0 first: (a) SpectralNet at
+   the entry widths from init(0) (six empty mel bands: JAX's derivative
+   of |x| at 0) on (256, 16000) with seeded labels: step 0's loss and
+   gradients against the port on the CPU and against a float64 autograd
+   reference (``spectral_net_loss_f64``) (loss >= 110 dB, mel >= 80,
+   w_head and b_head >= 100); 10 steps at lr 1e-3, every loss finite and
+   each step held against the CPU port's step from the same parameters
+   (parameters >= 80 dB, loss >= 110), the free-running trajectories of
+   the card, the CPU port and float64 recorded; (b) the denoiser (hidden
+   64) on (256, 16000) of tones plus interferers in other bins
+   (``denoiser_batch``): step 0 against the CPU port (>= 110 / 100 dB),
+   60 steps at lr 1 must bring the loss below 0.3 of its first value;
+   neither launches a kernel (asserted); (c) the denoiser at win 2^14,
+   hop 2^13 on (16, 2^18) under backend "cuda": stage1 and stage2 must
+   launch in the forward and inside backward() (counts reset between),
+   the gradients against backend "torch" on the card (>= 100 dB on
+   `highest`), `default` against `highest` recorded; (d) the
+   sanity-check CLI as a subprocess on the card (defaults, and log scale
+   with 16-bit viridis) on a seeded 10 s WAV, each PNG within one colour
+   level of the CPU port's render, with its wall time and the share of
+   differing pixels. (a), (b) and (c) time a step by CUDA events after 3
+   warm-up steps, back to back with host enqueue and as a CUDA graph of
+   10 steps where the step captures, in µs per step and signals per
+   second; the record is printed as {"phase9": ...}, and phase 9(c)'s
+   launches per step go on the stage1 and stage2 rows of the kernels'
+   record under ``training_launches``.
 
 A bound is the least time the card could take for the work: the larger
 of the bytes the function must move (each input read once, each output
@@ -970,6 +997,410 @@ def phase_models(dev, smi) -> dict:
             f"response)")
     rec["server"] = {"requests": lat, "stft_snr_vs_cpu_db": stft_db}
     log(f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return rec
+
+
+def spectral_net_loss_f64(params, x, labels, win, hop):
+    """(loss, [d loss / d mel, w_head, b_head]) of SpectralNet in float64 by
+    torch autograd on the CPU: frames gathered by index from the
+    zero-extended (B, N) signal ``x``, a periodic Hann window,
+    torch.fft.rfft, sqrt(|X|^2 + 1e-12), the mel product, log(|.| + 1e-6)
+    with |x| as where(x >= 0, x, -x) (JAX's derivative, +1 at 0), the
+    DCT-II matrix cos(pi (m + 1/2) c / M), the mean over frames, the head,
+    log-softmax and the mean cross-entropy against a one-hot built by
+    comparison (a row of zeros outside [0, C))."""
+    import torch
+    f64 = torch.float64
+    leaves = [torch.tensor(np.asarray(p, np.float64), requires_grad=True)
+              for p in params]
+    mel, w_head, b_head = leaves
+    xs = torch.tensor(np.asarray(x, np.float64))
+    n = xs.shape[-1]
+    nf = -(-n // hop)
+    pad = torch.zeros(xs.shape[0], (nf - 1) * hop + win, dtype=f64)
+    pad[:, :n] = xs
+    idx = torch.arange(nf)[:, None] * hop + torch.arange(win)[None, :]
+    w = 0.5 - 0.5 * torch.cos(2 * math.pi * torch.arange(win, dtype=f64)
+                              / win)
+    spec = torch.fft.rfft(pad[:, idx] * w)
+    mags = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-12)
+    m = mags @ mel
+    nm = mel.shape[1]
+    dct = torch.cos(math.pi * (torch.arange(nm, dtype=f64)[:, None] + 0.5)
+                    * torch.arange(nm, dtype=f64)[None, :] / nm)
+    feats = torch.log(torch.where(m >= 0, m, -m) + 1e-6) @ dct
+    logits = feats.mean(dim=1) @ w_head + b_head
+    logp = torch.log_softmax(logits, dim=-1)
+    onehot = (torch.as_tensor(np.asarray(labels))[:, None]
+              == torch.arange(logits.shape[-1])).to(f64)
+    loss = -(onehot * logp).sum(dim=-1).mean()
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.item(), [g.numpy() for g in grads]
+
+
+def denoiser_batch(rng, batch: int, n: int, win: int):
+    """(noisy, clean) float32 (batch, n), tests/test_models.py's maskable
+    objective for a batch: each clean signal a tone on a seeded bin
+    (2 ... 31 cycles per win) with a seeded phase, plus an interferer of
+    0.8 its amplitude on a seeded bin of the upper half (64 ... 119), so
+    the two never share a bin."""
+    t = np.arange(n)
+    kc = rng.integers(2, 32, batch)[:, None]
+    ki = rng.integers(64, 120, batch)[:, None]
+    pc = rng.uniform(0, 2 * np.pi, batch)[:, None]
+    pi = rng.uniform(0, 2 * np.pi, batch)[:, None]
+    clean = np.sin(2 * np.pi * kc * t / win + pc).astype(np.float32)
+    interf = (0.8 * np.sin(2 * np.pi * ki * t / win + pi)).astype(np.float32)
+    return clean + interf, clean
+
+
+def chirp_wav(path, seed: int, seconds: float = 10.0, rate: int = 16000):
+    """A 16-bit mono WAV: a 100 Hz -> 7 kHz linear chirp, tones at 440 Hz
+    and 3 kHz and seeded noise at 0.01."""
+    import wave
+    t = np.arange(int(seconds * rate)) / rate
+    sweep = (7000.0 - 100.0) / (2 * seconds)
+    x = (0.4 * np.sin(2 * np.pi * (100 * t + sweep * t * t))
+         + 0.2 * np.sin(2 * np.pi * 440 * t)
+         + 0.1 * np.sin(2 * np.pi * 3000 * t)
+         + 0.01 * np.random.default_rng(seed).standard_normal(t.size))
+    pcm = np.clip(np.round(x * 32767), -32768, 32767).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
+
+
+def spectrogram_f64(samples, win, colormap, scale_mode, dynamic_range):
+    """The sanity-check CLI's RGB16 image of ``samples`` from a float64
+    numpy STFT (periodic Hann, frames of the zero-extended signal every
+    win/2), coloured as the CLI's ``render`` colours it."""
+    from kofft_tpu_torch.visual.spectrogram import (
+        Colormap, color_from_magnitude_u16, log_scale_bins)
+    x = np.asarray(samples, np.float64)
+    hop = h = win // 2
+    nf = -(-x.size // hop)
+    pad = np.zeros((nf - 1) * hop + win)
+    pad[:x.size] = x
+    w = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(win) / win)
+    mags = np.abs(np.fft.rfft(
+        pad[np.arange(nf)[:, None] * hop + np.arange(win)] * w))[:, :h]
+    top = float(mags.max())
+    if scale_mode == "log":
+        mags = log_scale_bins(mags, h - 1)
+    img = color_from_magnitude_u16(mags, top, -dynamic_range,
+                                   Colormap.parse(colormap))
+    return img.transpose(1, 0, 2)[::-1]
+
+
+def level_diff(got, want):
+    """(largest difference, share of pixels that differ) of two RGB
+    images in colour levels 0 ... 255 (a 16-bit image's channels are the
+    8-bit level times 257)."""
+    def levels(img):
+        return np.asarray(img).astype(np.int64) // (
+            257 if np.asarray(img).dtype == np.uint16 else 1)
+    d = np.abs(levels(got) - levels(want))
+    return (int(d.max(initial=0)),
+            np.count_nonzero(d.any(axis=-1)) / d[..., 0].size)
+
+
+def grad_snrs(want, got, fields) -> dict:
+    """{field: snr_db} of two lists of gradient (or parameter) arrays."""
+    return {f: snr_db(np.asarray(w, np.float64), np.asarray(g, np.float64))
+            for f, w, g in zip(fields, want, got)}
+
+
+def step_times(step, batch: int, smi: str) -> dict:
+    """A training step timed by CUDA events after 3 warm-up steps: back to
+    back with its host enqueue (``time_ms``), and as a CUDA graph of 10
+    steps (``graph_ms``) where the step captures (else None with the
+    reason); µs per step and signals per second."""
+    t = time_ms(step)
+    try:
+        g, why = graph_ms(step, runs=10), None
+    except Exception as e:   # a step that syncs or allocates on the host
+        import torch
+        torch.cuda.synchronize()
+        g, why = None, f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    rec = {"us": t[1] * 1e3, "single_call_us": t[0] * 1e3,
+           "host_enqueue_us": t[2] * 1e3,
+           "signals_per_s": batch / (t[1] * 1e-3),
+           "graph_us": None if g is None else g * 1e3,
+           "graph_signals_per_s": None if g is None else batch / (g * 1e-3),
+           "graph_failed": why, "card": smi}
+    log(f"  step: back-to-back {rec['us']:.1f} us ({rec['signals_per_s']:.4e}"
+        f" signals/s), host enqueue {rec['host_enqueue_us']:.1f} us, single "
+        f"call {rec['single_call_us']:.1f} us, graph "
+        + ("not captured: " + why if g is None else
+           f"{rec['graph_us']:.1f} us ({rec['graph_signals_per_s']:.4e} "
+           f"signals/s)") + f" [{smi}]")
+    return rec
+
+
+def phase_training(dev, smi, batch: int = 256, kernel_batch: int = 16) \
+        -> dict:
+    """Phase 9: the models' training on the card (SpectralNet and the
+    denoiser at the entry widths on ``batch`` one-second clips, the
+    denoiser through the stage kernels' backward at win 2^14 on
+    ``kernel_batch`` signals of 2^18) and the sanity-check CLI; returns the
+    phase's record. Smaller batches serve a rehearsal."""
+    import os
+    import torch
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.cli.sanity_check import render
+    from kofft_tpu_torch.models import (SpectralDenoiser, SpectralNet,
+                                        denoiser_train_step, train_step)
+    from kofft_tpu_torch.models import denoiser as TD
+    from kofft_tpu_torch.models import spectral_net as TS
+    from kofft_tpu_torch.ops import goertzel as GZ
+    from kofft_tpu_torch.ops import hopper_kernels as HK
+    from kofft_tpu_torch.utils.audio import read_audio
+    from kofft_tpu_torch.utils.image import decode_png
+
+    log("== phase 9: the models' training on the card")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 9)
+    rec = {"card": smi}
+    n = 16000
+
+    def grads(loss, model, params, a, b):
+        """(loss, gradients as float64 numpy) of ``loss`` at ``params`` on
+        the model's device."""
+        leaves = type(params)(*(torch.as_tensor(np.asarray(p),
+                                                device=model.device)
+                                .requires_grad_() for p in params))
+        lv = loss(model, leaves, a, b)
+        gs = torch.autograd.grad(lv, leaves)
+        return lv.item(), [g.double().cpu().numpy() for g in gs]
+
+    def hold(what, want, got, fields, floor_of=None):
+        """SNRs of loss and gradients; each at its floor unless only
+        recorded (``floor_of`` None)."""
+        s = grad_snrs(want[1], got[1], fields)
+        s["loss"] = snr_db(want[0], got[0])
+        log(f"  {what}: " + ", ".join(f"{k} {v:.2f} dB" for k, v in
+                                      s.items()))
+        for k, v in s.items():
+            assert floor_of is None or v >= floor_of(k), (what, k, v)
+        return s
+
+    def no_launch():
+        launches = {**HK.launches, **GZ.launches}
+        assert not any(launches.values()), launches
+
+    # (a) SpectralNet at the entry widths from init(0) (6 of its 32 mel
+    # bands empty: the |x| derivative at 0), labels seeded
+    net, net_cpu = SpectralNet(), SpectralNet(device="cpu")
+    p0 = net.init(0)
+    assert np.count_nonzero(~p0.mel.any(axis=0)) == 6
+    x_host = rng.standard_normal((batch, n), dtype=np.float32)
+    y_host = rng.integers(0, 8, batch).astype(np.int32)
+    x, y = torch.as_tensor(x_host, device=dev), torch.as_tensor(
+        y_host, device=dev)
+    HK.reset_counts()
+    GZ.launches["goertzel_scan"] = 0
+    on_card = grads(TS.loss_fn, net, p0, x, y)
+    on_cpu = grads(TS.loss_fn, net_cpu, p0, x_host, y_host)
+    oracle = spectral_net_loss_f64(p0, x_host, y_host, 256, 128)
+    fields = list(p0._fields)
+
+    def net_floor(k):
+        return {"loss": 110.0, "mel": 80.0}.get(k, 100.0)
+    log(f"SpectralNet step 0 at ({batch}, {n}), init(0), loss "
+        f"{on_card[0]:.6f} (floors: loss 110, mel 80, others 100 dB)")
+    a = {"vs_cpu_db": hold("card vs the port on the CPU", on_cpu, on_card,
+                           fields, net_floor),
+         "vs_float64_db": hold("card vs float64", oracle, on_card, fields,
+                               net_floor),
+         "cpu_vs_float64_db": grad_snrs(oracle[1], on_cpu[1], fields)}
+    # 10 steps at lr 1e-3 on the card. Each step is held against the CPU
+    # port's step from the same parameters (the card's before it). The
+    # free-running trajectories are recorded, not held: from init(0) the
+    # float32 steps leave a float64 run after 3-5 steps (the log-mel's
+    # |x| kink and a saturated softmax amplify rounding; ROADMAP C.3)
+    pg, pc, p64, losses = p0, p0, [np.asarray(q, np.float64) for q in p0], []
+    forced = []
+    for _ in range(10):
+        nxt, lv = train_step(net, pg, x, y, 1e-3)
+        want, wl = train_step(net_cpu, pg, x_host, y_host, 1e-3)
+        forced.append(grad_snrs([q.double().numpy() for q in want],
+                                [q.double().cpu().numpy() for q in nxt],
+                                fields))
+        forced[-1]["loss"] = snr_db(wl.item(), lv.item())
+        pg = nxt
+        losses.append(lv.item())
+        pc, _ = train_step(net_cpu, pc, x_host, y_host, 1e-3)
+        g64 = spectral_net_loss_f64(p64, x_host, y_host, 256, 128)[1]
+        p64 = [q - 1e-3 * g for q, g in zip(p64, g64)]
+    assert all(math.isfinite(v) for v in losses), losses
+    a["losses"] = losses
+    a["step_vs_cpu_db"] = forced
+    a["params_after_10_db"] = forced[-1]
+    card_p = [q.double().cpu().numpy() for q in pg]
+    a["free_run_after_10_db"] = {
+        "card_vs_cpu": grad_snrs([q.double().numpy() for q in pc], card_p,
+                                 fields),
+        "card_vs_float64": grad_snrs(p64, card_p, fields),
+        "cpu_vs_float64": grad_snrs(p64, [q.double().numpy() for q in pc],
+                                    fields)}
+    worst = min(min(v for k, v in f.items() if k != "loss") for f in forced)
+    worst_loss = min(f["loss"] for f in forced)
+    log(f"  10 steps at lr 1e-3: losses {losses[0]:.4f} ... "
+        f"{losses[-1]:.4f}; each step against the CPU port's step from the "
+        f"same parameters: parameters worst {worst:.2f} dB (floor 80), "
+        f"loss worst {worst_loss:.2f} dB (floor 110); after 10 steps "
+        + ", ".join(f"{k} {v:.2f} dB" for k, v in forced[-1].items()))
+    for what, snrs in a["free_run_after_10_db"].items():
+        log(f"  free-running after 10 steps, {what} (recorded): "
+            + ", ".join(f"{k} {v:.2f} dB" for k, v in snrs.items()))
+    assert worst >= 80.0 and worst_loss >= 110.0, forced
+    no_launch()
+    pt = tuple(torch.as_tensor(q, device=dev) for q in p0)
+    a["time"] = step_times(lambda: train_step(net, pt, x, y, 1e-3), batch,
+                           smi)
+    no_launch()
+    rec["spectral_net"] = a
+    del x, pt
+
+    # (b) the denoiser at the entry widths: the maskable objective
+    den, den_cpu = SpectralDenoiser(), SpectralDenoiser(device="cpu")
+    d0 = den.init(0)
+    noisy_h, clean_h = denoiser_batch(rng, batch, n, 256)
+    noisy, clean = (torch.as_tensor(noisy_h, device=dev),
+                    torch.as_tensor(clean_h, device=dev))
+    HK.reset_counts()
+    on_card = grads(TD.loss_fn, den, d0, noisy, clean)
+    on_cpu = grads(TD.loss_fn, den_cpu, d0, noisy_h, clean_h)
+    log(f"SpectralDenoiser step 0 at ({batch}, {n}), init(0), loss "
+        f"{on_card[0]:.6f} (floors: loss 110, gradients 100 dB; w1 and b1 "
+        f"are exactly 0 at init, w2 = 0)")
+    b_rec = {"vs_cpu_db": hold("card vs the port on the CPU", on_cpu,
+                               on_card, list(d0._fields),
+                               lambda k: 110.0 if k == "loss" else 100.0)}
+    pg, losses = d0, []
+    for _ in range(60):
+        pg, lv = denoiser_train_step(den, pg, noisy, clean, lr=1.0)
+        losses.append(lv.item())
+    b_rec["losses"] = losses
+    log(f"  60 steps at lr 1: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+        f"({losses[-1] / losses[0]:.4f} of the first; must be < 0.3)")
+    assert all(math.isfinite(v) for v in losses)
+    assert losses[-1] < 0.3 * losses[0], losses
+    no_launch()
+    dt = tuple(torch.as_tensor(q, device=dev) for q in d0)
+    b_rec["time"] = step_times(
+        lambda: denoiser_train_step(den, dt, noisy, clean, lr=1.0), batch,
+        smi)
+    no_launch()
+    rec["denoiser"] = b_rec
+    del noisy, clean, dt
+
+    # (c) the kernel path: win 2^14, hop 2^13, (16, 2^18): 512 two-sided
+    # frames of 2^14 per STFT and ISTFT through the stage kernels; weights
+    # drawn off init (at init w1 and b1 get no gradient)
+    win, kb, kn = 1 << 14, kernel_batch, 1 << 18
+    big = SpectralDenoiser(win, win // 2, 64)
+    k0 = big.init(0)
+    kp = type(k0)(k0.w1,
+                  0.1 * rng.standard_normal(k0.b1.shape, np.float32),
+                  rng.standard_normal(k0.w2.shape, np.float32) / 8,
+                  rng.standard_normal(k0.b2.shape, np.float32))
+    kx = torch.as_tensor(rng.standard_normal((kb, kn), dtype=np.float32),
+                         device=dev)
+    kc = torch.as_tensor(rng.standard_normal((kb, kn), dtype=np.float32),
+                         device=dev)
+    c_rec, got = {}, {}
+    try:
+        for backend, tier in (("cuda", "highest"), ("torch", "highest"),
+                              ("cuda", "default")):
+            kt.set_backend(backend)
+            kt.set_precision(tier)
+            leaves = type(kp)(*(torch.as_tensor(q, device=dev)
+                                .requires_grad_() for q in kp))
+            HK.reset_counts()
+            lv = TD.loss_fn(big, leaves, kx, kc)
+            fwd = dict(HK.launches)
+            HK.reset_counts()
+            lv.backward()
+            torch.cuda.synchronize()
+            bwd = dict(HK.launches)
+            got[backend, tier] = (lv.item(), [q.grad.double().cpu().numpy()
+                                              for q in leaves])
+            if backend == "cuda":
+                for k in ("stage1", "stage2"):
+                    assert fwd[k] > 0 and bwd[k] > 0, (tier, fwd, bwd)
+                c_rec[f"launches_{tier}"] = {
+                    "forward": {k: v for k, v in fwd.items() if v},
+                    "backward": {k: v for k, v in bwd.items() if v}}
+                log(f"kernel path ({kb}, {kn}), win {win}, {tier}: launches "
+                    f"per step, forward {c_rec[f'launches_{tier}']['forward']}"
+                    f", backward() {c_rec[f'launches_{tier}']['backward']}")
+            else:
+                assert not any(fwd.values()) and not any(bwd.values())
+        fields = list(kp._fields)
+        c_rec["vs_plain_db"] = hold(
+            "backend cuda vs torch on the card, highest",
+            got["torch", "highest"], got["cuda", "highest"], fields,
+            lambda k: 100.0)
+        c_rec["default_vs_highest_db"] = hold(
+            "backend cuda, default vs highest (recorded)",
+            got["cuda", "highest"], got["cuda", "default"], fields)
+        kt.set_backend("cuda")
+        kt.set_precision("highest")
+        kpt = tuple(torch.as_tensor(q, device=dev) for q in kp)
+        HK.reset_counts()
+        c_rec["time"] = step_times(
+            lambda: denoiser_train_step(big, kpt, kx, kc), kb, smi)
+    finally:
+        kt.set_backend(None)
+        kt.set_precision(None)
+    rec["kernel_path"] = c_rec
+    del kx, kc
+
+    # (d) the CLI on the card against the port's render on the CPU
+    work = ROOT / "build" / "phase9"
+    work.mkdir(parents=True, exist_ok=True)
+    wav = work / "chirp.wav"
+    chirp_wav(wav, SEED + 9)
+    samples = read_audio(wav)[0]
+    win_cli = 1024
+    env = {k: v for k, v in os.environ.items()
+           if k != "KOFFT_TPU_TORCH_PLATFORM"}
+    d_rec = {}
+    for name, flags, args in (
+            ("defaults", [], (win_cli, "inferno", "linear", 120.0)),
+            ("log16", ["--scale-mode", "log", "--png-depth", "sixteen",
+                       "--colormap", "viridis"],
+             (win_cli, "viridis", "log", 120.0))):
+        out = work / f"{name}.png"
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "kofft_tpu_torch.cli.sanity_check", str(wav),
+                            str(out), *flags], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        assert r.returncode == 0, r.stderr
+        img = decode_png(out.read_bytes())
+        assert img.shape == (win_cli // 2, -(-samples.size * 2 // win_cli),
+                             3), img.shape
+        big, share = level_diff(img, render(samples, *args, device="cpu"))
+        big64, share64 = level_diff(img, spectrogram_f64(samples, *args))
+        d_rec[name] = {"wall_s": wall, "shape": list(img.shape),
+                       "dtype": str(img.dtype), "max_level_diff": big,
+                       "differing_pixel_share": share,
+                       "vs_float64": {"max_level_diff": big64,
+                                      "differing_pixel_share": share64}}
+        log(f"CLI {name} on the card: {img.shape} {img.dtype}, wall "
+            f"{wall:.2f} s (process start, torch import and the read "
+            f"included); against the port's render on the CPU: max {big} "
+            f"colour level, {share:.3e} of the pixels differ (must be "
+            f"within 1 level); against the float64 render (recorded): max "
+            f"{big64}, {share64:.3e}")
+        assert big <= 1, name
+    rec["cli"] = d_rec
+    log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return rec
 
 
@@ -1981,6 +2412,10 @@ def main() -> int:
     # -- 8. the models and the server ------------------------------------
     log(json.dumps({"phase8": phase_models(dev, smi)}))
 
+    # -- 9. the models' training and the CLI -----------------------------
+    phase9 = phase_training(dev, smi)
+    log(json.dumps({"phase9": phase9}))
+
     stages = "kofft_tpu_torch/ops/csrc/fft_stages.cu"
     odd = "kofft_tpu_torch/ops/csrc/stage1_odd.cu"
     dense = "kofft_tpu_torch/ops/csrc/dense_dft.cu"
@@ -2029,6 +2464,12 @@ def main() -> int:
         "source": "kofft_tpu_torch/ops/csrc/goertzel.cu",
         "replaces": "kofft_tpu/ops/goertzel.py:109", "also_replaces": [],
         **goertzel})
+    per_step = phase9["kernel_path"]["launches_highest"]
+    for k in record["kernels"]:
+        if k["name"] in ("stage1", "stage2"):
+            k["training_launches"] = {
+                part: per_step[part].get(k["name"], 0)
+                for part in ("forward", "backward")}
     names = {k["name"] for k in record["kernels"]}
     assert set(replaces) | {"goertzel_scan"} == names == set(
         HK.launches) | set(GZ.launches), (set(HK.launches)

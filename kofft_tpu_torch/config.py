@@ -24,6 +24,7 @@ KOFFT_TPU_TORCH_MAX_FACTOR     largest smooth prime factor before Bluestein
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass, field
 from typing import Optional
@@ -102,6 +103,21 @@ def set_precision(p: Optional[str]) -> None:
     if p not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, got {p!r}")
     _config.precision = p
+
+
+@contextlib.contextmanager
+def precision_scope(p: str):
+    """Precision tier ``p`` for the block; the current tier is restored
+    after, also when the block raises."""
+    prev = _config.precision
+    if prev == p:
+        yield
+        return
+    set_precision(p)
+    try:
+        yield
+    finally:
+        set_precision(prev)
 
 
 def trace_key() -> tuple:

@@ -1,7 +1,7 @@
 """SpectralDenoiser: an analysis-mask-synthesis pipeline.
 
-The counterpart of ``kofft_tpu.models.denoiser`` (the forward pass;
-training comes later):
+The counterpart of ``kofft_tpu.models.denoiser``, its forward pass and
+its training step:
 
     noisy (B, N) -- STFT (two-sided planes)
                  -> log-power features 0.1 * log(|X|^2 + 1e-3) (B, F, K)
@@ -11,6 +11,9 @@ training comes later):
 
 The parameters keep the JAX layout (``w1`` (K, H), ``w2`` (H, K)); the
 products are float32 ``torch.matmul``s on every precision tier.
+``loss_fn`` is the MSE over the overlap-add interior and ``train_step``
+one plain SGD step; its gradients reach the mask MLP through the ISTFT's
+inverse transforms, the overlap-add and the window-square division.
 """
 
 from __future__ import annotations
@@ -21,10 +24,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..errors import InvalidValueError, require
 from ..ops import stft as _stft
 from ..ops import window as _window
 from ..ops._complex import host_device
-from .spectral_net import _on
+from .spectral_net import _compute_device, _on, _sgd
 
 
 class SpectralDenoiserParams(NamedTuple):
@@ -88,3 +92,30 @@ class SpectralDenoiser(nn.Module):
 
     def forward(self, noisy):
         return self.apply(self.params(), noisy)
+
+
+def loss_fn(model: SpectralDenoiser, params: SpectralDenoiserParams,
+            noisy, clean):
+    """MSE over the overlap-add interior [win:-win]. The first and last
+    window of a masked ISTFT are ill-conditioned (the window-square norm
+    goes to 0 at the edges), so the loss scores the interior only, as the
+    JAX package's does; a signal no longer than 2 * win_len leaves no
+    interior and raises."""
+    require(np.shape(noisy)[-1] > 2 * model.win_len, InvalidValueError,
+            f"denoiser loss needs signals longer than 2*win_len = "
+            f"{2 * model.win_len} (the scored OLA interior would be "
+            f"empty, yielding a silent NaN loss)")
+    out = model.apply(params, noisy)
+    ref = torch.as_tensor(clean, dtype=out.dtype, device=out.device)
+    w = model.win_len
+    return torch.mean((out[..., w:-w] - ref[..., w:-w]) ** 2)
+
+
+def train_step(model: SpectralDenoiser, params: SpectralDenoiserParams,
+               noisy, clean, lr: float = 1e-2):
+    """One SGD step: (new_params, loss), as SpectralNet's ``train_step``
+    (params as numpy, tensors or ``model.params()``; the step computes on
+    ``noisy``'s device, the model's for host input)."""
+    return _sgd(lambda p: loss_fn(model, p, noisy, clean),
+                SpectralDenoiserParams, params, _compute_device(model, noisy),
+                lr)

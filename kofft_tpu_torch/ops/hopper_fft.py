@@ -19,6 +19,12 @@ pallas_fft.py:115-128): each op's ``vmap`` rule moves the mapped dim to
 the front (or expands an unmapped input) and folds it into the batch of
 one call, so the kernels see plain tensors with a real ``data_ptr()``;
 the all-axes route keeps that dim out of its transformed axes.
+
+A backward or forward-mode derivative runs at the precision tier its
+forward ran at, stored in ``ctx`` and set by ``config.precision_scope``:
+autograd calls ``backward`` after a scoped tier change such as the
+ISTFT's synthesis lift has been undone, and the routes read the tier
+(the `default` tier's bf16 casts).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from ..config import get_config, precision_scope
 from .hopper_kernels import (_pow2_split, fused_fft2_big_planes,
                              fused_fft2_planes, fused_multilevel_fft,
                              fused_multilevel_rfft, fused_ndfft_planes)
@@ -62,19 +69,22 @@ class _KernelFFT(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         ctx.n, ctx.inverse = inputs[2], inputs[3]
         ctx.like = inputs[0].detach()
+        ctx.tier = get_config().precision
 
     @staticmethod
     def backward(ctx, gr, gi):
         gr = _zeros_if_none(gr, ctx.like)
         gi = _zeros_if_none(gi, ctx.like)
-        yr, yi = _KernelFFT.apply(gr, gi, ctx.n, not ctx.inverse)
+        with precision_scope(ctx.tier):
+            yr, yi = _KernelFFT.apply(gr, gi, ctx.n, not ctx.inverse)
         return yr, yi, None, None
 
     @staticmethod
     def jvp(ctx, tr, ti, _n, _inverse):
         tr = _zeros_if_none(tr, ctx.like)
         ti = _zeros_if_none(ti, ctx.like)
-        return fused_multilevel_fft(tr, ti, ctx.n, ctx.inverse)
+        with precision_scope(ctx.tier):
+            return fused_multilevel_fft(tr, ti, ctx.n, ctx.inverse)
 
     @staticmethod
     def vmap(info, in_dims, xr, xi, n, inverse):
@@ -127,6 +137,7 @@ class _KernelRFFT(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.n = inputs[1]
+        ctx.tier = get_config().precision
 
     @staticmethod
     def backward(ctx, gr, gi):
@@ -134,15 +145,17 @@ class _KernelRFFT(torch.autograd.Function):
         # (materialized by autograd) to the full spectrum, then the real
         # plane of the unnormalized inverse
         pad = (0, ctx.n - gr.shape[-1])
-        xr, _ = _KernelFFT.apply(torch.nn.functional.pad(gr, pad),
-                                 torch.nn.functional.pad(gi, pad), ctx.n,
-                                 True)
+        with precision_scope(ctx.tier):
+            xr, _ = _KernelFFT.apply(torch.nn.functional.pad(gr, pad),
+                                     torch.nn.functional.pad(gi, pad),
+                                     ctx.n, True)
         return xr, None
 
     @staticmethod
     def jvp(ctx, t, _n):
         # x is the only tensor input, so its tangent is never None here
-        return fused_multilevel_rfft(t.contiguous(), ctx.n)
+        with precision_scope(ctx.tier):
+            return fused_multilevel_rfft(t.contiguous(), ctx.n)
 
     @staticmethod
     def vmap(info, in_dims, x, n):
@@ -183,18 +196,22 @@ class _KernelND(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         ctx.route, ctx.inverse, ctx.lead = inputs[2:]
         ctx.like = inputs[0].detach()
+        ctx.tier = get_config().precision
 
     @staticmethod
     def backward(ctx, gr, gi):
-        yr, yi = _KernelND.apply(_zeros_if_none(gr, ctx.like),
-                                 _zeros_if_none(gi, ctx.like), ctx.route,
-                                 not ctx.inverse, ctx.lead)
+        with precision_scope(ctx.tier):
+            yr, yi = _KernelND.apply(_zeros_if_none(gr, ctx.like),
+                                     _zeros_if_none(gi, ctx.like), ctx.route,
+                                     not ctx.inverse, ctx.lead)
         return yr, yi, None, None, None
 
     @staticmethod
     def jvp(ctx, tr, ti, _route, _inverse, _lead):
-        return _nd_route(ctx.route, _zeros_if_none(tr, ctx.like),
-                         _zeros_if_none(ti, ctx.like), ctx.inverse, ctx.lead)
+        with precision_scope(ctx.tier):
+            return _nd_route(ctx.route, _zeros_if_none(tr, ctx.like),
+                             _zeros_if_none(ti, ctx.like), ctx.inverse,
+                             ctx.lead)
 
     @staticmethod
     def vmap(info, in_dims, xr, xi, route, inverse, lead):

@@ -33,14 +33,13 @@ frame. ``StftPushStream`` runs exactly the k frames a push completes
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import get_config, set_precision
+from ..config import get_config, precision_scope
 from ..errors import (EmptyInputError, InvalidHopSizeError,
                       MismatchedLengthsError, require)
 from ..plan import tables
@@ -168,7 +167,6 @@ def _ola_add(y, win: int, hop: int, nf: int):
     return out3.reshape(*lead, (nf + k - 1) * hop)
 
 
-@contextlib.contextmanager
 def _synthesis_tier():
     """ISTFT synthesis never runs below the `high` tier: OLA turns each
     frame's error straight into signal error, so the `default` tier is
@@ -176,12 +174,7 @@ def _synthesis_tier():
     when the call raises. On the port the tier changes the `default`
     tier's bf16 casts of the kernel routes and the d2 route's zone."""
     prev = get_config().precision
-    if prev == "default":
-        set_precision("high")
-    try:
-        yield
-    finally:
-        set_precision(prev)
+    return precision_scope("high" if prev == "default" else prev)
 
 
 def _synthesis(fr, fi, w, win: int, backend: str):

@@ -641,3 +641,76 @@ def test_server_on_card(cuda):
     finally:
         srv.shutdown()
         srv.server_close()
+
+
+@pytest.mark.parametrize("which", ["net", "denoiser"])
+def test_train_step_on_card(cuda, which):
+    """One train_step of each model at the entry widths on the card against
+    the same step of the port on the CPU, from init(0) (SpectralNet's six
+    empty mel bands: the |x| derivative at 0) on an (8, 16000) batch:
+    loss >= 110 dB, new parameters >= 100 dB (mel >= 80), no kernel
+    launched (win 256 lies below the stage kernels)."""
+    from kofft_tpu_torch.models import (SpectralDenoiser, SpectralNet,
+                                        denoiser_train_step, train_step)
+    rng = np.random.default_rng(33)
+    x = rng.standard_normal((8, 16000)).astype(np.float32)
+    if which == "net":
+        cls, step, lr = SpectralNet, train_step, 1e-3
+        b = rng.integers(0, 8, 8).astype(np.int32)
+    else:
+        cls, step, lr = SpectralDenoiser, denoiser_train_step, 1.0
+        b = rng.standard_normal((8, 16000)).astype(np.float32)
+    cpu, card = cls(device="cpu"), cls()
+    params = cpu.init(0)
+    want, want_l = step(cpu, params, x, b, lr)
+    HK.reset_counts()
+    got, got_l = step(card, params, torch.as_tensor(x, device=cuda),
+                      torch.as_tensor(b, device=cuda), lr)
+    assert not any(HK.launches.values()), HK.launches
+    assert got_l.is_cuda and got_l.dim() == 0
+    assert snr_db(want_l.item(), got_l.item()) >= 110.0
+    for f, w, g in zip(params._fields, want, got):
+        assert g.is_cuda
+        floor = 80.0 if f == "mel" else 100.0
+        assert snr_db(w.numpy(), g.cpu().numpy()) >= floor, f
+
+
+def test_training_backward_launches_stage_kernels(cuda):
+    """chip_smoke.py phase 9(c) at a smaller batch: the denoiser at win
+    2^14 under backend "cuda"; stage1 and stage2 launch during backward()
+    itself (counts reset after the forward), and the gradients match the
+    plain backend on the card >= 100 dB on `highest`."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.models import SpectralDenoiser
+    from kofft_tpu_torch.models import denoiser as TD
+    win = 1 << 14
+    model = SpectralDenoiser(win, win // 2, 64)
+    rng = np.random.default_rng(34)
+    p0 = model.init(0)
+    params = type(p0)(p0.w1, 0.1 * rng.standard_normal(64).astype(np.float32),
+                      rng.standard_normal((64, win)).astype(np.float32) / 8,
+                      rng.standard_normal(win).astype(np.float32))
+    x = torch.as_tensor(rng.standard_normal((2, 1 << 17)).astype(np.float32),
+                        device=cuda)
+    c = torch.as_tensor(rng.standard_normal((2, 1 << 17)).astype(np.float32),
+                        device=cuda)
+    grads = {}
+    try:
+        for backend in ("cuda", "torch"):
+            kt.set_backend(backend)
+            leaves = type(params)(*(torch.as_tensor(p, device=cuda)
+                                    .requires_grad_() for p in params))
+            loss = TD.loss_fn(model, leaves, x, c)
+            HK.reset_counts()
+            loss.backward()
+            torch.cuda.synchronize()
+            if backend == "cuda":
+                assert HK.launches["stage1"] > 0, HK.launches
+                assert HK.launches["stage2"] > 0, HK.launches
+            else:
+                assert not any(HK.launches.values()), HK.launches
+            grads[backend] = [p.grad.cpu().numpy() for p in leaves]
+    finally:
+        kt.set_backend(None)
+    for w, g in zip(grads["torch"], grads["cuda"]):
+        assert snr_db(w, g) >= 100.0

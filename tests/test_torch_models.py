@@ -199,7 +199,13 @@ def test_default_device_is_the_card():
 
 
 def test_models_surface():
-    """The forward names only; training comes with its own slice."""
-    assert {n for n in vars(TM) if not n.startswith("_")} >= {
-        "SpectralNet", "SpectralDenoiser"}
-    assert not hasattr(TM, "train_step")
+    """The JAX package's names: the two models and their training steps
+    (kofft_tpu/models/__init__.py)."""
+    import kofft_tpu.models as JM
+    from kofft_tpu_torch.models import denoiser, spectral_net
+    public = {n for n in vars(JM) if not n.startswith("_")}
+    assert public >= {"SpectralNet", "SpectralDenoiser", "train_step",
+                      "denoiser_train_step"}
+    assert {n for n in vars(TM) if not n.startswith("_")} >= public
+    assert TM.train_step is spectral_net.train_step
+    assert TM.denoiser_train_step is denoiser.train_step
