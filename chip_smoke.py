@@ -4,7 +4,7 @@ float32 and bfloat16 planes, on the `highest` and the `default` tier), the
 dense four-step pair, the N-D FFT, the signal-processing entries (STFT,
 its streams, the composite transforms), the models' forward passes, the
 streaming spectrogram server, the models' training and the sanity-check
-CLI, on one CUDA card.
+CLI, and the sharded programs of ``parallel``, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -165,7 +165,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    10 steps where the step captures, in µs per step and signals per
    second; the record is printed as {"phase9": ...}, and phase 9(c)'s
    launches per step go on the stage1 and stage2 rows of the kernels'
-   record under ``training_launches``.
+   record under ``training_launches``;
+10. the parallel programs (``phase_parallel``) on a world of one NCCL
+   rank on the card (NCCL refuses two ranks on one device: the
+   all_to_alls are device copies, no halo is sent), every count set to
+   0 just before each driven call and read just after: (a)
+   fft_sharded at 2^28 (2 GiB of planes), restore_layout False and
+   True, overlap 1 and 4, forward and inverse, against a complex128
+   torch.fft oracle on the card (100 dB; digit order undone for False),
+   no kernel launched (its local DFTs run the plain engine, as
+   kofft_tpu's), timed beside fft_split (cuFFT above 2^26) and the plain
+   engine; (b) fftn_sharded on 512^3 with backend "cuda" and "torch",
+   sequential and overlap=4, against complex128 fftn (100 dB), the
+   sequential "cuda" run launching col_fft and row_fft (its 512^2 slabs
+   are in fused_2d_zone), timed beside fftn_split and torch.fft.fftn;
+   (c) stft_sharded / istft_sharded on 2^26 samples at hann(1024)/hop
+   256 and hann(16384)/hop 4096 against the two-sided stft_split and
+   istft_split (110 dB, the ISTFTs on the interior) and the push
+   region's interior against the signal (90 dB), timed beside them; (d)
+   the hierarchical programs on a (1, 1) mesh at those sizes; (e) the
+   auto entries at d = 1 take the single-card entries: fft_auto 2^26
+   (stage1, stage2) and fftn_auto 8192^2 (col_fft, row_fft) against
+   complex128, stft_auto / istft_auto against stft_split / istft_split;
+   (f) calibrate_shard_threshold() returns the current threshold; (g)
+   check_fft_sharded_comm_volume on NCCL: the canonical bytes,
+   cross_chip_bytes 0, independent_sources 2 and 2K; (h)
+   entry.dryrun_multichip(4) on 4 gloo ranks of the host's CPU (not a
+   card result). The record is printed as {"phase10": ...}; the driven
+   calls' launches go on the kernels' record as ``sharded_launches``.
 
 A bound is the least time the card could take for the work: the larger
 of the bytes the function must move (each input read once, each output
@@ -175,7 +202,8 @@ complex line of length m (half for real input or one-sided output) over
 Goertzel recurrence's operations are a dependent chain: its bound is
 three float32 operations per sample, one after the other, at 4 cycles
 each and the card's highest SM clock (nvidia-smi clocks.max.sm). The line
-before the last is the kernels' JSON record (launches on the main paths,
+before the last is the kernels' JSON record (launches on the main paths and, as
+``sharded_launches``, in phase 10,
 max abs error against the plain version, and at (1, 1024, 1024) the bound
 and the device ms per call of kernel, plain version and library call (or
 null): back to back under ``ms``, ``plain_ms`` and ``library_ms``, as
@@ -1404,6 +1432,321 @@ def phase_training(dev, smi, batch: int = 256, kernel_batch: int = 16) \
     return rec
 
 
+def phase_parallel(dev, smi, n_fft: int = 1 << 28, cube: int = 512,
+                   n_stft: int = 1 << 26, n_auto: int = 1 << 26,
+                   side: int = 8192, dryrun: int = 4) -> dict:
+    """Phase 10: the parallel programs on the card, on a world of one
+    NCCL rank on ``dev`` (NCCL refuses two ranks on one device, so the
+    all_to_alls are device copies; the buffers, the NCCL calls, the local
+    DFTs and the kernels are real, at full size). Every count is set to 0
+    just before each driven call and read just after; the launches of the
+    driven calls are the phase's ``sharded_launches`` (the timing loops
+    are not counted). Returns (the phase's record, sharded_launches).
+    Smaller sizes serve a rehearsal."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch import parallel as P
+    from kofft_tpu_torch.entry import dryrun_multichip
+    from kofft_tpu_torch.ops import hopper_kernels as HK
+    from kofft_tpu_torch.parallel import validate as V
+    from kofft_tpu_torch.parallel.fft_sharded import _split_for_mesh
+    from kofft_tpu_torch.plan import tables
+
+    log("== phase 10: the parallel programs on the card (a world of one "
+        "NCCL rank)")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 10)
+    started = not dist.is_initialized()
+    mesh = P.make_mesh(device=dev)
+    hmesh = P.make_hier_mesh(1, 1, device=dev)
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1, \
+        (dist.get_backend(), dist.get_world_size())
+    rec = {"card": smi, "world": dist.get_world_size(),
+           "backend": dist.get_backend(), "mesh": str(mesh),
+           "hier_mesh": str(hmesh)}
+    sharded = {k: 0 for k in HK.launches}
+
+    def drive(fn):
+        """(fn()'s planes as local tensors, its launches)."""
+        torch.cuda.synchronize()
+        HK.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in HK.launches.items() if v}
+        for k, v in got.items():
+            sharded[k] += v
+        out = out if isinstance(out, tuple) else (out,)
+        return tuple(p.to_local() if isinstance(p, DTensor) else p
+                     for p in out), got
+
+    def timed(label, fn, runs=3):
+        t = time_ms(fn, runs=runs, warm=1)
+        log(f"  {label}: single {t[0]:.3f} ms, back-to-back {t[1]:.3f} "
+            f"ms/call (host enqueue {t[2]:.3f}) [{smi}]")
+        return {"single_ms": t[0], "ms": t[1], "host_ms": t[2]}
+
+    def held(label, ref, got, floor, launches):
+        s = snr_db_card(ref, got)
+        log(f"  {label}: {s:.2f} dB (floor {floor}), launches {launches}")
+        assert s >= floor, (label, s)
+        return {"snr_db": s, "launches": launches}
+
+    def plane(shape):
+        return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32),
+                               device=dev)
+
+    # -- (a) the 1-D four-step at n_fft, (d) its hierarchical form ---------
+    n = n_fft
+    n1, n2 = _split_for_mesh(n, 1)
+    log(f"(a) fft_sharded at n = {n} = {n1} x {n2} ({8 * n >> 20} MiB of "
+        f"planes): its local DFTs run on the plain engine _fft_planes "
+        f"whatever the backend, as kofft_tpu's do; the complex128 "
+        f"torch.fft oracle on the card")
+    xr, xi = plane(n), plane(n)
+    big = torch.fft.fft(torch.complex(xr.double(), xi.double()))
+    ref = (big.real, big.imag)
+    a, d = {"n": n, "split": [n1, n2]}, {}
+
+    def digits(p):                      # [k1, k2] holds X[k1 + n1 k2]
+        return p.reshape(n1, n2).t().reshape(n)
+
+    for restore, k in ((False, 1), (True, 1), (True, 4)):
+        (yr, yi), got = drive(lambda: P.fft_sharded(
+            xr, xi, mesh=mesh, restore_layout=restore, overlap=k))
+        if not restore:
+            yr, yi = digits(yr), digits(yi)
+        a[f"forward restore={restore} overlap={k}"] = held(
+            f"fft_sharded restore_layout={restore} overlap={k}", ref,
+            (yr, yi), FLOOR_DB, got)
+        assert not got, "the 1-D sharded program launched a kernel"
+        del yr, yi
+    for k in (1, 4):
+        (yr, yi), got = drive(lambda: P.fft_sharded_hier(
+            xr, xi, mesh=hmesh, overlap=k))
+        d[f"fft_sharded_hier n={n} overlap={k}"] = held(
+            f"(d) fft_sharded_hier (1, 1) overlap={k}", ref, (yr, yi),
+            FLOOR_DB, got)
+        del yr, yi
+    spec = (big.real.float(), big.imag.float())
+    del big, ref
+    inv = torch.fft.ifft(torch.complex(spec[0].double(), spec[1].double()))
+    iref = (inv.real, inv.imag)
+    for restore, k in ((False, 1), (True, 1), (True, 4)):
+        (zr, zi), got = drive(lambda: P.ifft_sharded(
+            *spec, mesh=mesh, restore_layout=restore, overlap=k))
+        if not restore:
+            zr, zi = digits(zr), digits(zi)
+        a[f"inverse restore={restore} overlap={k}"] = held(
+            f"ifft_sharded restore_layout={restore} overlap={k}", iref,
+            (zr, zi), FLOOR_DB, got)
+        del zr, zi
+    (zr, zi), got = drive(lambda: P.ifft_sharded_hier(*spec, mesh=hmesh))
+    d[f"ifft_sharded_hier n={n}"] = held("(d) ifft_sharded_hier (1, 1)",
+                                         iref, (zr, zi), FLOOR_DB, got)
+    del inv, iref, spec, zr, zi
+    a["times"] = {
+        "fft_sharded restore_layout=False": timed(
+            "fft_sharded restore_layout=False",
+            lambda: P.fft_sharded(xr, xi, mesh=mesh)),
+        "fft_sharded restore_layout=True": timed(
+            "fft_sharded restore_layout=True",
+            lambda: P.fft_sharded(xr, xi, mesh=mesh, restore_layout=True)),
+        "fft_sharded overlap=4": timed(
+            "fft_sharded restore_layout=True overlap=4",
+            lambda: P.fft_sharded(xr, xi, mesh=mesh, restore_layout=True,
+                                  overlap=4)),
+        "fft_sharded_hier (1, 1)": timed(
+            "fft_sharded_hier (1, 1)",
+            lambda: P.fft_sharded_hier(xr, xi, mesh=hmesh)),
+        "fft_split (auto: cuFFT above 2^26)": timed(
+            "fft_split (auto: cuFFT above 2^26)",
+            lambda: kt.fft_split(xr, xi)),
+        "fft_split plain engine (backend='torch')": timed(
+            "fft_split plain engine (backend='torch')",
+            lambda: kt.fft_split(xr, xi, backend="torch"))}
+    a["bound_ms"], a["bound_by"] = transform_bound(False, 1, n)
+    rec["a"] = a
+    del xr, xi
+    tables.clear()                      # the 2^28 twiddle tables
+    torch.cuda.empty_cache()
+
+    # -- (b) the N-D slab program on cube^3, (d) its hierarchical form ---
+    shape = (cube,) * 3
+    log(f"(b) fftn_sharded on {shape}: local slabs of {cube}^2 in "
+        f"fused_2d_zone ({HK.fused_2d_zone(shape, (1, 2))}) take col_fft + "
+        f"row_fft under backend='cuda'")
+    br, bi = plane(shape), plane(shape)
+    big = torch.fft.fftn(torch.complex(br.double(), bi.double()))
+    ref = (big.real, big.imag)
+    b = {"shape": list(shape)}
+    for backend in ("cuda", "torch"):
+        for restore, k in ((False, 1), (True, 4)):
+            out, got = drive(lambda: P.fftn_sharded(
+                br, bi, mesh=mesh, backend=backend, restore_layout=restore,
+                overlap=k))
+            b[f"{backend} overlap={k}"] = held(
+                f"fftn_sharded backend={backend!r} restore_layout={restore} "
+                f"overlap={k}", ref, out, FLOOR_DB, got)
+            if backend == "cuda" and k == 1:
+                assert got.get("col_fft") and got.get("row_fft"), got
+            del out
+    for restore in (False, True):
+        out, got = drive(lambda: P.fftn_sharded_hier(
+            br, bi, mesh=hmesh, backend="cuda", restore_layout=restore))
+        d[f"fftn_sharded_hier {shape} cuda restore={restore}"] = held(
+            f"(d) fftn_sharded_hier (1, 1) backend='cuda' "
+            f"restore_layout={restore}", ref, out, FLOOR_DB, got)
+        assert got.get("col_fft") and got.get("row_fft"), got
+        del out
+    del big, ref
+    bc = torch.complex(br, bi)
+    b["times"] = {
+        "fftn_sharded cuda": timed(
+            "fftn_sharded backend='cuda'",
+            lambda: P.fftn_sharded(br, bi, mesh=mesh, backend="cuda")),
+        "fftn_sharded torch": timed(
+            "fftn_sharded backend='torch'",
+            lambda: P.fftn_sharded(br, bi, mesh=mesh)),
+        "fftn_sharded cuda overlap=4": timed(
+            "fftn_sharded backend='cuda' overlap=4",
+            lambda: P.fftn_sharded(br, bi, mesh=mesh, backend="cuda",
+                                   restore_layout=True, overlap=4)),
+        "fftn_split": timed("fftn_split (auto)",
+                            lambda: kt.fftn_split(br, bi)),
+        "torch.fft.fftn": timed("torch.fft.fftn (cuFFT)",
+                                lambda: torch.fft.fftn(bc))}
+    b["bound_ms"], b["bound_by"] = nd_bound(shape)
+    rec["b"] = b
+    del br, bi, bc
+    torch.cuda.empty_cache()
+
+    # -- (c) the STFT/ISTFT with the halo, (d) their hierarchical forms --
+    c = {"samples": n_stft}
+    x = plane(n_stft)
+    for win, hop in ((1024, 256), (16384, 4096)):
+        w = kt.window.hann(win)
+        nf = n_stft // hop
+        key = f"hann({win}) hop {hop}"
+        log(f"(c) stft_sharded / istft_sharded, {n_stft} samples, {key}: "
+            f"{nf} frames")
+        want = kt.stft_split(x, w, hop)
+        (fr, fi), got = drive(lambda: P.stft_sharded(x, w, hop, mesh=mesh))
+        c[f"stft {key}"] = held(f"stft_sharded {key} against stft_split",
+                                want, (fr, fi), AXIS_DB, got)
+        (hr, hi), got = drive(lambda: P.stft_sharded_hier(x, w, hop,
+                                                          mesh=hmesh))
+        d[f"stft_sharded_hier {key}"] = held(
+            f"(d) stft_sharded_hier {key} against stft_split", want,
+            (hr, hi), AXIS_DB, got)
+        del want, hr, hi
+        # the ISTFTs on the interior (samples win ... N - win): at the
+        # ends the window-square sum nears 0, and dividing by it magnifies
+        # the rounding of whichever engine made the frames
+        iwant = kt.istft_split(fr, fi, w, hop,
+                               length=nf * hop)[win:-win]
+        (out,), got = drive(lambda: P.istft_sharded(fr, fi, w, hop,
+                                                    mesh=mesh))
+        c[f"istft {key}"] = held(f"istft_sharded {key} against "
+                                 f"istft_split, interior", (iwant,),
+                                 (out[win:-win],), AXIS_DB, got)
+        c[f"istft push region {key}"] = held(
+            f"istft_sharded {key}: the push region's interior against the "
+            f"signal", (x[win:-win],), (out[win:-win],), 90.0, {})
+        (out,), got = drive(lambda: P.istft_sharded_hier(fr, fi, w, hop,
+                                                         mesh=hmesh))
+        d[f"istft_sharded_hier {key}"] = held(
+            f"(d) istft_sharded_hier {key} against istft_split, interior",
+            (iwant,), (out[win:-win],), AXIS_DB, got)
+        del iwant, out
+        c[f"times {key}"] = {
+            "stft_sharded": timed(f"stft_sharded {key}",
+                                  lambda: P.stft_sharded(x, w, hop,
+                                                         mesh=mesh)),
+            "stft_split": timed(f"stft_split {key}",
+                                lambda: kt.stft_split(x, w, hop)),
+            "istft_sharded": timed(f"istft_sharded {key}",
+                                   lambda: P.istft_sharded(fr, fi, w, hop,
+                                                           mesh=mesh)),
+            "istft_split": timed(f"istft_split {key}",
+                                 lambda: kt.istft_split(fr, fi, w, hop,
+                                                        length=nf * hop))}
+        del fr, fi
+        torch.cuda.empty_cache()
+    rec["c"], rec["d"] = c, d
+
+    # -- (e) the auto entries at d = 1 take the single-card entries -------
+    log("(e) the auto entries at d = 1: should_shard is False, so each "
+        "takes its single-card entry")
+    e = {}
+    ar, ai = plane(n_auto), plane(n_auto)
+    (yr, yi), got = drive(lambda: P.fft_auto(ar, ai))
+    assert not isinstance(yr, DTensor)
+    big = torch.fft.fft(torch.complex(ar.double(), ai.double()))
+    e["fft_auto"] = held(f"fft_auto {n_auto}", (big.real, big.imag),
+                         (yr, yi), FLOOR_DB, got)
+    assert got.get("stage1") and got.get("stage2"), got
+    del ar, ai, yr, yi, big
+    gr, gi = plane((side, side)), plane((side, side))
+    out, got = drive(lambda: P.fftn_auto(gr, gi))
+    big = torch.fft.fft2(torch.complex(gr.double(), gi.double()))
+    e["fftn_auto"] = held(f"fftn_auto {side}^2", (big.real, big.imag), out,
+                          FLOOR_DB, got)
+    assert got.get("col_fft") and got.get("row_fft"), got
+    del gr, gi, out, big
+    w, hop = kt.window.hann(1024), 256
+    (fr, fi), got = drive(lambda: P.stft_auto(x, w, hop))
+    assert not isinstance(fr, DTensor)
+    want = kt.stft_split(x, w, hop)
+    e["stft_auto"] = held("stft_auto hann(1024) hop 256 against stft_split",
+                          want, (fr, fi), AXIS_DB, got)
+    (out,), got = drive(lambda: P.istft_auto(fr, fi, w, hop))
+    assert not isinstance(out, DTensor)
+    e["istft_auto"] = held(
+        "istft_auto against istft_split", (kt.istft_split(
+            fr, fi, w, hop, length=fr.shape[0] * hop)[1024:-1024],),
+        (out[1024:-1024],), AXIS_DB, got)
+    rec["e"] = e
+    del x, fr, fi, out, want
+    torch.cuda.empty_cache()
+
+    # -- (f) calibration at d = 1; (g) the communication audit on NCCL ----
+    thr = kt.get_config().shard_threshold
+    assert P.calibrate_shard_threshold() == thr
+    rec["f"] = {"calibrated": thr, "current": thr}
+    log(f"(f) calibrate_shard_threshold() at d = 1 returns the current "
+        f"threshold {thr}")
+    g = {}
+    for restore, k in ((False, 1), (True, 1), (True, 4)):
+        rep = V.check_fft_sharded_comm_volume(1 << 20, mesh,
+                                              restore_layout=restore,
+                                              overlap=k)
+        assert rep["cross_chip_bytes"] == 0
+        assert rep["independent_sources"] == 2 * k, rep
+        g[f"restore={restore} overlap={k}"] = rep
+        log(f"(g) check_fft_sharded_comm_volume on NCCL: {rep}")
+    rec["g"] = g
+
+    # -- (h) the multi-rank dry run on the host's CPU ---------------------
+    log(f"(h) dryrun_multichip({dryrun}) on {dryrun} gloo ranks of the "
+        f"host's CPU (not a card result):")
+    t0 = time.perf_counter()
+    dr = dryrun_multichip(dryrun)
+    rec["h"] = {"ranks": dryrun, "where": "host CPU, gloo",
+                "loss": dr["loss"], "dp": dr["dp"], "tp": dr["tp"],
+                "wall_s": time.perf_counter() - t0}
+    tables.clear()
+    torch.cuda.empty_cache()
+    rec["sharded_launches"] = {k: v for k, v in sharded.items() if v}
+    if started:                         # the world of one this phase made
+        dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 10 took {rec['seconds']:.1f} s; launches of the driven "
+        f"calls {rec['sharded_launches']}")
+    return rec, sharded
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2416,6 +2759,10 @@ def main() -> int:
     phase9 = phase_training(dev, smi)
     log(json.dumps({"phase9": phase9}))
 
+    # -- 10. the parallel programs ----------------------------------------
+    phase10, sharded = phase_parallel(dev, smi)
+    log(json.dumps({"phase10": phase10}))
+
     stages = "kofft_tpu_torch/ops/csrc/fft_stages.cu"
     odd = "kofft_tpu_torch/ops/csrc/stage1_odd.cu"
     dense = "kofft_tpu_torch/ops/csrc/dense_dft.cu"
@@ -2466,6 +2813,7 @@ def main() -> int:
         **goertzel})
     per_step = phase9["kernel_path"]["launches_highest"]
     for k in record["kernels"]:
+        k["sharded_launches"] = sharded.get(k["name"], 0)
         if k["name"] in ("stage1", "stage2"):
             k["training_launches"] = {
                 part: per_step[part].get(k["name"], 0)

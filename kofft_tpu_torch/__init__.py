@@ -13,12 +13,14 @@ cepstrum and MFCC, Goertzel (its recurrence a CUDA kernel of its own,
 ``goertzel_scan``) and the wavelets. Above them sit the spectrogram
 utilities (``visual``), the host utilities (``utils``, ``native``), the
 models' forward passes (``models``, ``entry``) and the streaming
-spectrogram server (``web``). Host input goes to the card unless the
+spectrogram server (``web``). ``parallel`` shards the 1-D, N-D and STFT
+programs over a ``torch.distributed`` device mesh (NCCL on the card,
+gloo on the CPU). Host input goes to the card unless the
 caller passes ``device="cpu"``. It imports torch and never jax.
 """
 
 from .config import (get_config, set_backend, set_dft_cutoff,  # noqa: F401
-                     set_precision)
+                     set_overlap_chunks, set_precision, set_shard_threshold)
 from .errors import (KofftError, EmptyInputError,  # noqa: F401
                      MismatchedLengthsError, InvalidStrideError,
                      InvalidHopSizeError, InvalidValueError)
@@ -46,6 +48,7 @@ from .ops.wavelet import (haar_forward, haar_inverse,  # noqa: F401
                           dwt, idwt, dwt_multi, idwt_multi)
 from .ops import window  # noqa: F401
 from . import visual  # noqa: F401
+from . import parallel  # noqa: F401
 from .ops.plan_api import FftPlan, fft_strided_split  # noqa: F401
 from .ops.rfft import rfft, irfft, rfft_split, irfft_split  # noqa: F401
 from .utils.transfer import asnumpy, planes_from_numpy  # noqa: F401

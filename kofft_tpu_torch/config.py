@@ -20,6 +20,13 @@ KOFFT_TPU_TORCH_PRECISION      highest | high | default. The hand-written
                                mode does: 3xTF32 on highest and high, one
                                bf16 pass on default.
 KOFFT_TPU_TORCH_MAX_FACTOR     largest smooth prime factor before Bluestein
+KOFFT_TPU_TORCH_SHARD_THRESHOLD
+                               points per rank below which the auto entries
+                               of ``parallel`` stay on one card (default
+                               1 << 16)
+KOFFT_TPU_TORCH_OVERLAP_CHUNKS chunk count of the sharded programs' overlap
+                               pipeline that the auto entries use when the
+                               shapes divide (default 4; 1 = sequential)
 """
 
 from __future__ import annotations
@@ -65,6 +72,10 @@ class _Config:
                                          _PRECISIONS))
     max_factor: int = field(
         default_factory=lambda: _env_int("MAX_FACTOR", 13))
+    shard_threshold: int = field(
+        default_factory=lambda: _env_int("SHARD_THRESHOLD", 1 << 16))
+    overlap_chunks: int = field(
+        default_factory=lambda: _env_int("OVERLAP_CHUNKS", 4))
 
 
 _config = _Config()
@@ -103,6 +114,27 @@ def set_precision(p: Optional[str]) -> None:
     if p not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, got {p!r}")
     _config.precision = p
+
+
+def set_shard_threshold(n: Optional[int]) -> None:
+    """Points per rank gating the sharded routes of the auto entries;
+    ``None``/0 reverts to the env/default."""
+    if n is None or n == 0:
+        _config.shard_threshold = _env_defaults.shard_threshold
+        return
+    _config.shard_threshold = int(n)
+
+
+def set_overlap_chunks(k: Optional[int]) -> None:
+    """Chunk count of the sharded programs' overlap pipeline in the auto
+    entries; ``None``/0 reverts to the env/default, 1 is the sequential
+    program."""
+    if k is None or k == 0:
+        _config.overlap_chunks = _env_defaults.overlap_chunks
+        return
+    if k < 1:
+        raise ValueError("overlap_chunks must be >= 1")
+    _config.overlap_chunks = int(k)
 
 
 @contextlib.contextmanager

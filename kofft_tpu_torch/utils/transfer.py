@@ -4,16 +4,21 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..ops._complex import host_device
 
 
 def asnumpy(x) -> np.ndarray:
-    """A tensor (any device, bfloat16 read as float32) as host numpy."""
+    """A tensor (any device, bfloat16 read as float32) as host numpy; a
+    ``DTensor`` of ``parallel`` is gathered first (``full_tensor()``, a
+    collective: every rank of its mesh calls it)."""
     if isinstance(x, np.ndarray):
         return x
     if not isinstance(x, torch.Tensor):
         return np.asarray(x)
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     x = x.detach()
     if x.dtype == torch.bfloat16:
         x = x.float()

@@ -714,3 +714,84 @@ def test_training_backward_launches_stage_kernels(cuda):
         kt.set_backend(None)
     for w, g in zip(grads["torch"], grads["cuda"]):
         assert snr_db(w, g) >= 100.0
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A 1-D mesh on a world of one NCCL rank (NCCL refuses two ranks on
+    one device), torn down after the module if this fixture started it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run "
+                    "python -m pytest -m gpu --noconftest "
+                    "tests/test_torch_gpu.py")
+    import torch.distributed as dist
+    from kofft_tpu_torch.parallel import make_mesh
+    started = not dist.is_initialized()
+    mesh = make_mesh(device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    if started:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("restore,overlap", [(False, 1), (True, 1),
+                                             (True, 4)])
+def test_fft_sharded_nccl_against_fft_split(cuda, nccl_mesh, restore,
+                                            overlap):
+    """fft_sharded at 2^22 on the NCCL world (all_to_alls as device
+    copies, the plain engine's local DFTs) against fft_split and float64
+    (digit order undone for restore_layout=False)."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.parallel import fft_sharded
+    from kofft_tpu_torch.parallel.fft_sharded import _split_for_mesh
+    n = 1 << 22
+    xr, xi = _planes((n,), cuda, 40)
+    yr, yi = (p.to_local() for p in fft_sharded(
+        xr, xi, mesh=nccl_mesh, restore_layout=restore, overlap=overlap))
+    if not restore:
+        n1, n2 = _split_for_mesh(n, 1)
+        yr, yi = (p.reshape(n1, n2).t().reshape(n) for p in (yr, yi))
+    want = kt.fft_split(xr, xi)
+    assert snr_db(_np(*want), _np(yr, yi)) >= PORT_DB
+    assert snr_db(np.fft.fft(_np(xr, xi)), _np(yr, yi)) > ORACLE_DB
+
+
+@pytest.mark.parametrize("restore,overlap", [(False, 1), (True, 4)])
+def test_fftn_sharded_nccl_cuda_backend(cuda, nccl_mesh, restore, overlap):
+    """fftn_sharded with backend='cuda' on (256, 512, 512) on the NCCL
+    world against fftn_split and float64; the sequential program's local
+    512^2 slabs launch col_fft and row_fft."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.parallel import fftn_sharded
+    xr, xi = _planes((256, 512, 512), cuda, 41)
+    HK.reset_counts()
+    yr, yi = (p.to_local() for p in fftn_sharded(
+        xr, xi, mesh=nccl_mesh, backend="cuda", restore_layout=restore,
+        overlap=overlap))
+    torch.cuda.synchronize()
+    if overlap == 1:
+        assert HK.launches["col_fft"] and HK.launches["row_fft"], HK.launches
+    want = kt.fftn_split(xr, xi)
+    assert snr_db(_np(*want), _np(yr, yi)) >= PORT_DB
+    assert snr_db(np.fft.fftn(_np(xr, xi)), _np(yr, yi)) > ORACLE_DB
+
+
+@pytest.mark.parametrize("win,hop", [(1024, 256), (16384, 4096)])
+def test_stft_sharded_nccl_against_stft_split(cuda, nccl_mesh, win, hop):
+    """stft_sharded / istft_sharded on 2^22 samples on the NCCL world
+    against the two-sided stft_split and istft_split (the interior:
+    dividing by the window-square sum near 0 at the ends magnifies the
+    engines' rounding)."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.parallel import istft_sharded, stft_sharded
+    x = torch.as_tensor(np.random.default_rng(42).standard_normal(
+        1 << 22).astype(np.float32), device=cuda)
+    w = kt.window.hann(win)
+    fr, fi = (p.to_local() for p in stft_sharded(x, w, hop, mesh=nccl_mesh))
+    assert snr_db(_np(*kt.stft_split(x, w, hop)), _np(fr, fi)) >= PORT_DB
+    out = istft_sharded(fr, fi, w, hop, mesh=nccl_mesh).to_local()
+    want = kt.istft_split(fr, fi, w, hop, length=fr.shape[0] * hop)
+    assert snr_db(want[win:-win].cpu().numpy(),
+                  out[win:-win].cpu().numpy()) >= PORT_DB
+    assert snr_db(x[win:-win].cpu().numpy(),
+                  out[win:-win].cpu().numpy()) >= 90.0

@@ -206,3 +206,23 @@ def test_prewarm_runs_the_entries():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TO.prewarm([64])
+
+
+def test_asnumpy_gathers_a_dtensor(rng):
+    """asnumpy of the sharded programs' DTensor output is the gathered
+    global value (a world of one gloo rank in this process, torn down
+    after)."""
+    import torch.distributed as dist
+    from kofft_tpu_torch.parallel import fftn_sharded, make_mesh
+    started = not dist.is_initialized()
+    try:
+        mesh = make_mesh(device="cpu")
+        xr = rng.standard_normal((8, 16)).astype(np.float32)
+        yr, yi = fftn_sharded(xr, np.zeros_like(xr), mesh=mesh)
+        got = tk.asnumpy(yr) + 1j * tk.asnumpy(yi)
+        assert got.shape == (8, 16)
+        np.testing.assert_allclose(got, np.fft.fft2(xr), rtol=1e-4,
+                                   atol=1e-4)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
