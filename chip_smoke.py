@@ -4,7 +4,8 @@ float32 and bfloat16 planes, on the `highest` and the `default` tier), the
 dense four-step pair, the N-D FFT, the signal-processing entries (STFT,
 its streams, the composite transforms), the models' forward passes, the
 streaming spectrogram server, the models' training and the sanity-check
-CLI, and the sharded programs of ``parallel``, on one CUDA card.
+CLI, the sharded programs of ``parallel``, and the bench harness, on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -192,7 +193,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    cross_chip_bytes 0, independent_sources 2 and 2K; (h)
    entry.dryrun_multichip(4) on 4 gloo ranks of the host's CPU (not a
    card result). The record is printed as {"phase10": ...}; the driven
-   calls' launches go on the kernels' record as ``sharded_launches``.
+   calls' launches go on the kernels' record as ``sharded_launches``;
+11. the bench harness (``phase_bench``, ``kofft_tpu_torch.bench``) at
+   bench.py's shapes, every count set to 0 just before (a) and read just
+   after (b): (a) the headline, ``fft_split`` at 2^20 chained unscaled
+   through ``timeit_chained`` (a CUDA graph of the chain, timed by CUDA
+   events; slope between two chain lengths), printed as
+   c32_fft_2^20_points_per_sec_per_chip beside ``graph_ms`` of the same
+   call (they must agree within 15 %) and >= 100 dB against float64, a
+   ``torch.fft`` row (``torch.fft.fft`` on complex64) and ``fft_split``
+   at 2^26 (the chain's device-memory bound at its largest); (b) the
+   SNR-policy rows on the `default` tier: complex and real 2^20
+   (``single_fast``), complex 8 x 2^20 (``batch8_fast``),
+   ``fft_split_tiled`` on bf16 planes (``batch8_tiled_bf16``), ``fft2d``
+   1024^2, ``fft3d`` 128^3, ``stft_frames`` and ``istft_frames`` (full
+   and interior) at 2^20 samples, hann(1024), hop 256 through
+   ``timeit_chained_scalar``, each SNR against float64 numpy, then
+   ``check_snr_policy``; (c) ``run_history`` twice into a fresh
+   build/phase11_history, the second run re-measuring (a) only: the
+   rotation to previous.json and the stale carry-forward are asserted.
+   Every row is logged with its chain (N1, delta, the graphs' pools);
+   the record is printed as {"phase11": ...} and the launches of (a)
+   and (b) go on the kernels' record as ``bench_launches``.
 
 A bound is the least time the card could take for the work: the larger
 of the bytes the function must move (each input read once, each output
@@ -203,8 +225,10 @@ Goertzel recurrence's operations are a dependent chain: its bound is
 three float32 operations per sample, one after the other, at 4 cycles
 each and the card's highest SM clock (nvidia-smi clocks.max.sm). The line
 before the last is the kernels' JSON record (launches on the main paths and, as
-``sharded_launches``, in phase 10,
-max abs error against the plain version, and at (1, 1024, 1024) the bound
+``sharded_launches``, in phase 10, and as ``bench_launches`` in phase 11
+(each wrapper call counts once: a graph replay runs the captured launches
+again without passing the wrapper), max abs error against the plain
+version, and at (1, 1024, 1024) the bound
 and the device ms per call of kernel, plain version and library call (or
 null): back to back under ``ms``, ``plain_ms`` and ``library_ms``, as
 since the first slice, and replayed from a CUDA graph under
@@ -1747,6 +1771,240 @@ def phase_parallel(dev, smi, n_fft: int = 1 << 28, cube: int = 512,
     return rec, sharded
 
 
+def phase_bench(dev, smi, n: int = 1 << 20, batch: int = 8,
+                side: int = 1024, cube: int = 128, n_big: int = 1 << 26,
+                win: int = 1024, hop: int = 256):
+    """Phase 11: the bench harness (``kofft_tpu_torch.bench``) on the
+    card, at bench.py's shapes. (a) the headline: ``fft_split`` at ``n``
+    chained unscaled through ``timeit_chained`` (bench.py:219), held
+    within 15 % of ``graph_ms`` of the same call, with ``torch.fft.fft``
+    on complex64 beside it and ``fft_split`` at ``n_big`` (the chain's
+    memory bound at its largest); (b) the SNR-policy rows on the
+    `default` tier (bench.py:537-590, :648-732), each SNR against float64
+    numpy, then ``check_snr_policy``; (c) ``run_history`` twice into a
+    fresh folder under build/, the second run re-measuring (a) only: the
+    rotation to previous.json and the stale carry-forward are asserted.
+    Every count is set to 0 just before (a) and read just after (b).
+    Returns (the phase's record, its launches). Smaller sizes serve a
+    rehearsal."""
+    import shutil
+
+    import torch
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch import bench as KB
+    from kofft_tpu_torch.bench import BenchRecord
+    from kofft_tpu_torch.bench import harness as KH
+    from kofft_tpu_torch.ops import hopper_kernels as HK
+    from kofft_tpu_torch.ops import window as W
+
+    log("== phase 11: the bench harness on the card")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    platform = dev.type
+    rec = {"card": smi, "rows": []}
+
+    def plane(shape, dtype=torch.float32):
+        return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32),
+                               device=dev).to(dtype)
+
+    def f64(*p):
+        """(re, im) planes -> a complex128 host array."""
+        return (p[0].double().cpu().numpy()
+                + (1j * p[1].double().cpu().numpy() if len(p) > 1 else 0))
+
+    def row(library, transform, size, mode, t, snr=None, per=1):
+        """A BenchRecord of ``t`` seconds per op (``per`` items each),
+        logged with the chain it was measured on."""
+        r = BenchRecord(library, transform, size, mode, t * 1e9 / per,
+                        per / t, platform, snr_db=snr)
+        chain = dict(KH.last_chain)
+        log(f"  {library} {transform} {mode} n={size}: {t * 1e6:.2f} us/op "
+            f"({r.measurement_mode}), {per / t:.6g} per s"
+            + (f", SNR {snr:.2f} dB" if snr is not None else "")
+            + f"; chain {chain} [{smi}]")
+        rec["rows"].append({**r.to_dict(), "chain": chain})
+        return r
+
+    def measure_a(check: bool):
+        """The rows of (a); ``check`` also holds the headline against
+        graph_ms and float64."""
+        xr, xi = plane(n), plane(n)
+        t = KB.timeit_chained(lambda p: kt.fft_split(p[0], p[1]), (xr, xi),
+                              iters=200)
+        snr = None
+        if check:
+            snr = snr_db(np.fft.fft(f64(xr, xi)), f64(*kt.fft_split(xr, xi)))
+            assert snr >= FLOOR_DB, ("fft_split headline", snr)
+            g = graph_ms(lambda: kt.fft_split(xr, xi)) * 1e-3
+            log(f"c32_fft_2^20_points_per_sec_per_chip {n / t:.6g} "
+                f"(timeit_chained {t * 1e6:.2f} us/op, "
+                f"{KB.last_measurement_mode()}); graph_ms "
+                f"{g * 1e6:.2f} us/call, ratio {t / g:.4f} [{smi}]")
+            rec["headline"] = {"points_per_sec": n / t, "chained_s": t,
+                               "graph_s": g, "ratio": t / g}
+            assert abs(t / g - 1) <= 0.15, ("chained vs graph_ms", t, g)
+        rows = [row("kofft_tpu_torch", "complex", n, "single", t, snr)]
+        xc = torch.complex(xr, xi)
+        tj = KB.timeit_chained(torch.fft.fft, xc, iters=200)
+        rows.append(row("torch.fft", "complex", n, "single", tj))
+        del xr, xi, xc
+        br, bi = plane(n_big), plane(n_big)
+        tb = KB.timeit_chained(lambda p: kt.fft_split(p[0], p[1]), (br, bi),
+                               iters=10, target_time=0.2)
+        rows.append(row("kofft_tpu_torch", "complex", n_big, "single", tb))
+        if dev.type == "cuda":
+            c = KH.last_chain                 # the chain's memory bound
+            assert c["pool_bytes"] <= KH._POOL_SHARE * c["free_bytes"], c
+        del br, bi
+        torch.cuda.empty_cache()
+        return rows
+
+    def scaled(fn):
+        """``fn``'s planes times 1e-3: a chain that stays finite."""
+        return lambda q: tuple(a * 1e-3 for a in fn(q[0], q[1]))
+
+    # -- (a) and (b), counted -------------------------------------------
+    torch.cuda.synchronize()
+    HK.reset_counts()
+    records = measure_a(True)
+    kt.set_precision("default")
+    try:
+        # complex single_fast (bench.py:584-592)
+        xr, xi = plane(n), plane(n)
+        t = KB.timeit_chained(scaled(kt.fft_split), (xr, xi), iters=100)
+        s = snr_db(np.fft.fft(f64(xr, xi)), f64(*kt.fft_split(xr, xi)))
+        records.append(row("kofft_tpu_torch", "complex", n, "single_fast",
+                           t, s))
+        del xr, xi
+        # real single_fast: the ping-pong chain of bench.py:500-504
+        xrr = plane(n)
+
+        def rfft_pp(p):
+            yr, yi = kt.rfft_split(p[0])
+            return (torch.cat([yr[..., : n // 2], yi[..., : n // 2]],
+                              -1) * 1e-3,)
+
+        t = KB.timeit_chained(rfft_pp, (xrr,), iters=100)
+        s = snr_db(np.fft.rfft(f64(xrr).real), f64(*kt.rfft_split(xrr)))
+        records.append(row("kofft_tpu_torch", "real", n, "single_fast", t,
+                           s))
+        del xrr
+        # batch8_fast, unscaled (bench.py:606-618)
+        xrb, xib = plane((batch, n)), plane((batch, n))
+        t = KB.timeit_chained(lambda q: kt.fft_split(q[0], q[1]),
+                              (xrb, xib), iters=30)
+        s = snr_db(np.fft.fft(f64(xrb, xib)), f64(*kt.fft_split(xrb, xib)))
+        records.append(row("kofft_tpu_torch", "complex", n, "batch8_fast",
+                           t, s))
+        # batch8_tiled_bf16: fft_split_tiled on bf16 planes (:623-636)
+        m2 = kt.tiled_shape(n)
+        art = xrb.reshape(batch, *m2).to(torch.bfloat16)
+        ait = xib.reshape(batch, *m2).to(torch.bfloat16)
+        t = KB.timeit_chained(lambda q: kt.fft_split_tiled(q[0], q[1]),
+                              (art, ait), iters=30)
+        tyr, tyi = kt.fft_split_tiled(art, ait)
+        assert tyr.dtype == torch.bfloat16, tyr.dtype
+        s = snr_db(np.fft.fft(f64(xrb, xib)),
+                   f64(tyr, tyi).reshape(batch, n))
+        records.append(row("kofft_tpu_torch", "complex", n,
+                           "batch8_tiled_bf16", t, s))
+        del xrb, xib, art, ait, tyr, tyi
+        # fft2d and fft3d single_fast, unscaled (bench.py:361-372, :390-400)
+        for transform, shape in (("fft2d", (side, side)),
+                                 ("fft3d", (cube, cube, cube))):
+            ar, ai = plane(shape), plane(shape)
+            t = KB.timeit_chained(lambda q: kt.fftn_split(q[0], q[1]),
+                                  (ar, ai))
+            s = snr_db(np.fft.fftn(f64(ar, ai)),
+                       f64(*kt.fftn_split(ar, ai)))
+            records.append(row("kofft_tpu_torch", transform,
+                               math.prod(shape), "single_fast", t, s))
+            del ar, ai
+        # the STFT and ISTFT through the scalar chain (bench.py:648-732)
+        w = W.hann(win)
+        sig = plane(n)
+        nframes = n // hop
+
+        def stft_step(x, acc):
+            fr, _ = kt.stft_split(x * (1.0 + 1e-9 * acc), w, hop,
+                                  onesided=True)
+            return acc + fr[0, 0] * 1e-20
+
+        t = KB.timeit_chained_scalar(stft_step, sig)
+        s64 = sig.double().cpu().numpy()
+        pad64 = np.zeros((nframes + win // hop - 1) * hop)
+        pad64[:n] = s64
+        fidx = np.arange(nframes)[:, None] * hop + np.arange(win)[None, :]
+        st64 = np.fft.rfft(pad64[fidx] * w.astype(np.float64))
+        s = snr_db(st64, f64(*kt.stft_split(sig, w, hop, onesided=True)))
+        records.append(row("kofft_tpu_torch", "stft_frames", nframes,
+                           "single_fast", t, s, nframes))
+        sfr, sfi = kt.stft_split(sig, w, hop, onesided=False)
+
+        def istft_step(p, acc):
+            y = kt.istft_split(p[0] * (1.0 + 1e-9 * acc), p[1], w, hop,
+                               length=n)
+            return acc + y[0] * 1e-20
+
+        t = KB.timeit_chained_scalar(istft_step, (sfr, sfi))
+        y = kt.istft_split(sfr, sfi, w, hop, length=n).double().cpu().numpy()
+        records.append(row("kofft_tpu_torch", "istft_frames", nframes,
+                           "single_fast", t, snr_db(s64, y), nframes))
+        records.append(row("kofft_tpu_torch", "istft_frames", nframes,
+                           "single_fast_interior", t,
+                           snr_db(s64[win:-win], y[win:-win]), nframes))
+        del sig, sfr, sfi
+    finally:
+        kt.set_precision(None)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in HK.launches.items() if v}
+    log(f"(a)+(b) launches {launches}")
+    for k in ("stage1", "stage2", "col_fft", "row_fft"):
+        assert launches.get(k, 0) > 0, (k, launches)
+    KB.check_snr_policy(records)
+    policed = [r for r in records if (r.transform, r.mode)
+               in KB.SNR_POLICY_DB]
+    assert {(r.transform, r.mode) for r in policed} == set(
+        KB.SNR_POLICY_DB), policed
+    log(f"check_snr_policy: {len(policed)} rows clear their floors")
+
+    # -- (c) the history -------------------------------------------------
+    hist = ROOT / "build" / "phase11_history"
+    shutil.rmtree(hist, ignore_errors=True)
+    doc1 = KB.run_history(records, out_dir=hist)
+    again = measure_a(False)
+    doc2 = KB.run_history(again, out_dir=hist)
+    assert json.loads((hist / "previous.json").read_text()) == doc1
+    assert json.loads((hist / "latest.json").read_text()) == doc2
+    assert doc2["environment"]["nvidia_smi"] == smi, doc2["environment"]
+    first = {(r["library"], r["transform"], r["size"], r["mode"]): r
+             for r in doc1["records"]}
+    fresh = [r for r in doc2["records"] if not r.get("stale")]
+    stale = [r for r in doc2["records"] if r.get("stale")]
+    assert len(fresh) == len(again) and len(stale) == len(records) - len(
+        again), (len(fresh), len(stale))
+    for r in fresh:
+        old = first[(r["library"], r["transform"], r["size"], r["mode"])]
+        assert r["prev_time_per_op_ns"] == old["time_per_op_ns"], r
+        same = r["measurement_mode"] == old["measurement_mode"]
+        assert (r["change_vs_prev"] is not None) == same, r
+    assert stale == [dict(r, stale=True) for r in doc1["records"]
+                     if (r["library"], r["transform"], r["size"], r["mode"])
+                     not in {(a.library, a.transform, a.size, a.mode)
+                             for a in again}], stale
+    rec["history"] = {"path": str(hist), "fresh": len(fresh),
+                      "stale": len(stale),
+                      "change_vs_prev": [r["change_vs_prev"] for r in fresh]}
+    log(f"history {hist}: previous.json = the first latest.json; "
+        f"{len(fresh)} rows re-measured (change_vs_prev "
+        f"{rec['history']['change_vs_prev']}), {len(stale)} carried "
+        f"forward as stale")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 11 took {rec['seconds']:.1f} s")
+    return rec, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2763,6 +3021,10 @@ def main() -> int:
     phase10, sharded = phase_parallel(dev, smi)
     log(json.dumps({"phase10": phase10}))
 
+    # -- 11. the bench harness --------------------------------------------
+    phase11, bench = phase_bench(dev, smi)
+    log(json.dumps({"phase11": phase11}))
+
     stages = "kofft_tpu_torch/ops/csrc/fft_stages.cu"
     odd = "kofft_tpu_torch/ops/csrc/stage1_odd.cu"
     dense = "kofft_tpu_torch/ops/csrc/dense_dft.cu"
@@ -2814,6 +3076,7 @@ def main() -> int:
     per_step = phase9["kernel_path"]["launches_highest"]
     for k in record["kernels"]:
         k["sharded_launches"] = sharded.get(k["name"], 0)
+        k["bench_launches"] = bench.get(k["name"], 0)
         if k["name"] in ("stage1", "stage2"):
             k["training_launches"] = {
                 part: per_step[part].get(k["name"], 0)

@@ -1,1 +1,3 @@
 """Host helpers of the port."""
+
+from .transfer import asnumpy  # noqa: F401

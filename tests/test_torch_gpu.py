@@ -795,3 +795,33 @@ def test_stft_sharded_nccl_against_stft_split(cuda, nccl_mesh, win, hop):
                   out[win:-win].cpu().numpy()) >= PORT_DB
     assert snr_db(x[win:-win].cpu().numpy(),
                   out[win:-win].cpu().numpy()) >= 90.0
+
+
+def test_timeit_chained_agrees_with_graph_time(cuda):
+    """timeit_chained of fft_split 2^20 on the card (a CUDA graph of the
+    chain, the slope between two lengths) within 15 % of the same call's
+    CUDA-graph time (chip_smoke.graph_ms), measured as a slope."""
+    import kofft_tpu_torch as kt
+    from chip_smoke import graph_ms
+    from kofft_tpu_torch.bench import last_measurement_mode, timeit_chained
+    xr, xi = _planes((1 << 20,), cuda, seed=14)
+    t = timeit_chained(lambda p: kt.fft_split(p[0], p[1]), (xr, xi),
+                       iters=200)
+    assert last_measurement_mode() == "slope"
+    g = graph_ms(lambda: kt.fft_split(xr, xi)) * 1e-3
+    assert abs(t / g - 1) <= 0.15, (t, g)
+
+
+def test_timeit_chained_raises_on_an_op_it_cannot_capture(cuda):
+    """An op that waits on the host cannot be captured in a CUDA graph:
+    timeit_chained raises instead of timing it eagerly."""
+    from kofft_tpu_torch.bench import timeit_chained
+
+    def waits(p):
+        return (p[0] + float(p[0].sum().item()) * 0.0,)
+
+    with pytest.raises(RuntimeError):
+        timeit_chained(waits, (torch.zeros(1024, device=cuda),), iters=4,
+                       target_time=0.001)
+    torch.cuda.synchronize()
+    assert float((torch.ones(8, device=cuda) * 2).sum()) == 16.0
