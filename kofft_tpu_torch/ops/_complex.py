@@ -68,8 +68,12 @@ def const(arr: np.ndarray, device) -> torch.Tensor:
     key = (id(arr), str(torch.device(device)))
     hit = _CONST.get(key)
     if hit is None:
-        hit = (arr, torch.as_tensor(np.ascontiguousarray(arr),
-                                    device=device))
+        # a miss: counted and timed by utils.observability, imported here
+        # because the utils package imports this module
+        from ..utils import observability
+        hit = (arr, observability.table_build(
+            lambda: torch.as_tensor(np.ascontiguousarray(arr),
+                                    device=device)))
         _CONST[key] = hit
     return hit[1]
 

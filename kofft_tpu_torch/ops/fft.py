@@ -22,12 +22,14 @@ from typing import Optional
 
 import numpy as _np
 import torch
+from torch.autograd import profiler as _prof
 
 from ..config import get_config
 from ..errors import (EmptyInputError, InvalidValueError,
                       MismatchedLengthsError, require)
 from ..plan import (DftLeaf, FourStepNode, balanced_split,
                     build_factor_tree, is_smooth, tables)
+from ..utils import observability as _obs
 from ._complex import (cmatmul_last, cmul, const, dtype_name,
                        host_device, host_float_dtype, merge, split)
 
@@ -113,9 +115,20 @@ def _fft_planes(xr, xi, n: int, inverse: bool, backend: str, dtype: str,
     the plain engines (inverse = n * ifft, by the conjugation identity).
     ``strategy`` pins the algorithm: 'dft' the single matmul, 'four_step'
     the factor tree (smooth n), 'bluestein' the chirp-Z, 'auto' the
-    size-based dispatch."""
+    size-based dispatch. Timed as a ``tree`` span."""
+    sp = (_obs.begin("tree")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    try:
+        return _plain_planes(xr, xi, n, inverse, backend, dtype, strategy)
+    finally:
+        if sp:
+            _obs.end(sp)
+
+
+def _plain_planes(xr, xi, n: int, inverse: bool, backend: str, dtype: str,
+                  strategy: str):
     if inverse:
-        yr, yi = _fft_planes(xr, -xi, n, False, backend, dtype, strategy)
+        yr, yi = _plain_planes(xr, -xi, n, False, backend, dtype, strategy)
         return yr, -yi
     require(strategy in _STRATEGIES, InvalidValueError,
             f"strategy must be one of {_STRATEGIES}, got {strategy!r}")
@@ -185,24 +198,36 @@ def engine_fft_planes(xr, xi, n: int, inverse: bool, dtype: str,
     resolved here). The JAX order (``kofft_tpu.ops.fft``:256-277): the
     kernels take bfloat16 planes as they are (their bf16 forms), and only
     engines without a bf16 kernel compute in float32 and round back;
-    float64 planes take the plain engines on either device."""
-    b = resolve_backend(backend)
-    if b == "auto":
-        b = "cufft" if _cufft_zone(xr.shape, n) else "cuda"
-    if b == "cuda":
-        from .hopper_fft import kernel_fft_planes, kernel_supported
-        if kernel_supported(n, dtype):
-            return kernel_fft_planes(xr, xi, n, inverse, donate)
-        b = "torch"
-    if dtype == "bfloat16":
-        yr, yi = engine_fft_planes(xr.float(), xi.float(), n, inverse,
-                                   "float32", b)
-        return yr.to(xr.dtype), yi.to(xr.dtype)
-    if b == "cufft":
-        x = merge(xr, xi)
-        y = torch.fft.ifft(x) * n if inverse else torch.fft.fft(x)
-        return y.real.contiguous(), y.imag.contiguous()
-    return _fft_planes(xr, xi, n, inverse, b, dtype)
+    float64 planes take the plain engines on either device. Timed as a
+    ``ladder`` span, the ``torch.fft`` branch as a ``cufft`` span in it."""
+    sp = (_obs.begin("ladder")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    try:
+        b = resolve_backend(backend)
+        if b == "auto":
+            b = "cufft" if _cufft_zone(xr.shape, n) else "cuda"
+        if b == "cuda":
+            from .hopper_fft import kernel_fft_planes, kernel_supported
+            if kernel_supported(n, dtype):
+                return kernel_fft_planes(xr, xi, n, inverse, donate)
+            b = "torch"
+        if dtype == "bfloat16":
+            yr, yi = engine_fft_planes(xr.float(), xi.float(), n, inverse,
+                                       "float32", b)
+            return yr.to(xr.dtype), yi.to(xr.dtype)
+        if b == "cufft":
+            sc = (_obs.begin("cufft")
+                  if _prof._is_profiler_enabled or _obs.switch else None)
+            x = merge(xr, xi)
+            y = torch.fft.ifft(x) * n if inverse else torch.fft.fft(x)
+            yr, yi = y.real.contiguous(), y.imag.contiguous()
+            if sc:
+                _obs.end(sc)
+            return yr, yi
+        return _fft_planes(xr, xi, n, inverse, b, dtype)
+    finally:
+        if sp:
+            _obs.end(sp)
 
 
 def _fft_norm_planes(xr, xi, n: int, inverse: bool, norm: Optional[str],
@@ -314,14 +339,26 @@ def fft(x, n: Optional[int] = None, axis: int = -1,
         device="cuda"):
     """Complex DFT along ``axis``. Returns a complex tensor on the device
     of ``x`` (a numpy input is placed on ``device`` first)."""
-    return _dispatch(x, n, axis, norm, False, backend, device)
+    sp = (_obs.begin("fft")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    try:
+        return _dispatch(x, n, axis, norm, False, backend, device)
+    finally:
+        if sp:
+            _obs.end(sp)
 
 
 def ifft(x, n: Optional[int] = None, axis: int = -1,
          norm: Optional[str] = None, backend: Optional[str] = None,
          device="cuda"):
     """Inverse complex DFT along ``axis`` (1/n backward normalization)."""
-    return _dispatch(x, n, axis, norm, True, backend, device)
+    sp = (_obs.begin("ifft")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    try:
+        return _dispatch(x, n, axis, norm, True, backend, device)
+    finally:
+        if sp:
+            _obs.end(sp)
 
 
 def _planes(xr, xi, device):
@@ -341,6 +378,16 @@ def _planes(xr, xi, device):
     return xr, xi
 
 
+def _fft_split(xr, xi, inverse: bool, norm: Optional[str],
+               backend: Optional[str], donate: bool, device):
+    xr, xi = _planes(xr, xi, device)
+    require(xr.dim() >= 1 and xr.shape[-1] >= 1, EmptyInputError,
+            "FFT input must be non-empty")
+    n = xr.shape[-1]
+    return _fft_norm_planes(xr, xi, n, inverse, norm,
+                            resolve_backend(backend), bool(donate))
+
+
 def fft_split(xr, xi, inverse: bool = False, norm: Optional[str] = None,
               backend: Optional[str] = None, donate: bool = False,
               device="cuda"):
@@ -350,19 +397,25 @@ def fft_split(xr, xi, inverse: bool = False, norm: Optional[str] = None,
     on the kernel path stage 2 reads only the inter-stage matrix C, so it
     writes the output into the input planes (no output allocation). The
     caller must not use the inputs afterwards."""
-    xr, xi = _planes(xr, xi, device)
-    require(xr.dim() >= 1 and xr.shape[-1] >= 1, EmptyInputError,
-            "FFT input must be non-empty")
-    n = xr.shape[-1]
-    return _fft_norm_planes(xr, xi, n, inverse, norm,
-                            resolve_backend(backend), bool(donate))
+    sp = (_obs.begin("fft_split")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    try:
+        return _fft_split(xr, xi, inverse, norm, backend, donate, device)
+    finally:
+        if sp:
+            _obs.end(sp)
 
 
 def ifft_split(xr, xi, norm: Optional[str] = None,
                backend: Optional[str] = None, donate: bool = False,
                device="cuda"):
-    return fft_split(xr, xi, inverse=True, norm=norm, backend=backend,
-                     donate=donate, device=device)
+    sp = (_obs.begin("ifft_split")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    try:
+        return _fft_split(xr, xi, True, norm, backend, donate, device)
+    finally:
+        if sp:
+            _obs.end(sp)
 
 
 def tiled_shape(n: int) -> tuple:

@@ -23,15 +23,19 @@ import math
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _prof
 
 from ..errors import InvalidValueError, require
 from ..plan import tables
+from ..utils import observability as _obs
 from ._complex import const, dtype_name
 from .fft import _real_tensor
 
 __all__ = ["goertzel", "goertzel_bins", "goertzel_scan"]
 
-launches = {"goertzel_scan": 0}
+# a group of the port's counter registry (utils/observability.py)
+launches = _obs.counter_group("goertzel_launches")
+launches["goertzel_scan"] = 0
 
 
 def _bin_of(n: int, sample_rate: float, target_freq: float) -> int:
@@ -107,10 +111,19 @@ def scan_rows(x2, coeff: float):
     from ._cuda_build import check, lib
     from .hopper_kernels import _stream
     rows, n = x2.shape
+    sp = (_obs.begin("alloc")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     out = torch.empty(rows, dtype=torch.float32, device=x2.device)
+    if sp:
+        _obs.end(sp)
+    _obs.counts["alloc_bytes"] += out.nbytes
+    sp = (_obs.begin("launch")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     check(lib().kofft_goertzel_scan(
         x2.data_ptr(), out.data_ptr(), rows, n, coeff, x2.device.index,
         _stream(x2.device)), "goertzel_scan launch")
+    if sp:
+        _obs.end(sp)
     launches["goertzel_scan"] += 1
     return out
 

@@ -76,10 +76,12 @@ import math
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _prof
 
 from ..config import get_config
 from ..errors import InvalidValueError, require
 from ..plan import tables
+from ..utils import observability as _obs
 from ._complex import const
 
 _TILE = 128
@@ -113,21 +115,27 @@ _FORM_NAMES = {(base, _LETTER_DTYPE[f[0]], _LETTER_DTYPE[f[1]]):
                base if f == "ff" else f"{base}_{f}"
                for base, forms in _IO_FORMS.items() for f in forms}
 
-launches = {"stage1": 0, "stage2": 0, "stage1_real": 0, "stage2_half": 0,
-            "col_fft": 0, "row_fft": 0, "dense_stage_a": 0,
-            "dense_stage_b": 0, "dense_stage_a_bf16x1": 0,
-            "dense_stage_b_bf16x1": 0}
+# the launch and class counts are two groups of the port's one counter
+# registry (utils/observability.py)
+launches = _obs.counter_group("launches")
+launches.update({"stage1": 0, "stage2": 0, "stage1_real": 0,
+                 "stage2_half": 0, "col_fft": 0, "row_fft": 0,
+                 "dense_stage_a": 0, "dense_stage_b": 0,
+                 "dense_stage_a_bf16x1": 0, "dense_stage_b_bf16x1": 0})
 launches.update({name: 0 for name in _FORM_NAMES.values()})
-classes = {"phased_flat": 0, "phased_tiled": 0, "ml": 0,
-           "phased_flat_real": 0, "phased_tiled_real": 0, "ml_real": 0,
-           "fft2": 0, "fft2_big": 0, "fused_nd": 0, "four_step": 0}
+classes = _obs.counter_group("classes")
+classes.update({"phased_flat": 0, "phased_tiled": 0, "ml": 0,
+                "phased_flat_real": 0, "phased_tiled_real": 0, "ml_real": 0,
+                "fft2": 0, "fft2_big": 0, "fused_nd": 0, "four_step": 0})
+# table_builds and alloc_bytes (bytes of the buffers allocated here)
+_COUNTS = _obs.counts
 
 
 def reset_counts() -> None:
-    """Set every launch and class count to 0."""
-    for d in (launches, classes):
-        for k in d:
-            d[k] = 0
+    """Set every count of the port's counter registry (``launches``,
+    ``classes``, ``utils.observability.counts``, ...) and the span totals
+    to 0."""
+    _obs.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -799,11 +807,22 @@ def _static_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
       and P = 0 for a power-of-two m, (T, P) of ``_odd_tile`` for a
       smooth one, and ``_axis_plan``.
     The host side of a launch is on the 2^20 critical path (the transform
-    was host-bound there), so nothing is rebuilt per call."""
+    was host-bound there), so nothing is rebuilt per call. Timed as an
+    ``args`` span; a build is a ``table`` span in it."""
+    sp = (_obs.begin("args")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     key = (kind, b, n1, n2, dev.index)
     hit = _ARGS.get(key)
-    if hit is not None:
-        return hit
+    if hit is None:
+        hit = _ARGS[key] = _obs.table_build(_build_args, kind, b, n1, n2,
+                                            dev)
+    if sp:
+        _obs.end(sp)
+    return hit
+
+
+def _build_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
+    """The entry of ``_static_args`` for (kind, b, n1, n2, dev)."""
     if kind in ("col", "row"):
         m, count = (n1, n2) if kind == "col" else (n2, b * n1)
         t, e = _axis_tile(kind, m, count)
@@ -827,7 +846,6 @@ def _static_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
                           None if tw is None else const(tw, dev).data_ptr(),
                           tw_div, swap))
         hit = (wb, wc, tuple(views))
-    _ARGS[key] = hit
     return hit
 
 
@@ -847,24 +865,36 @@ def _stage1_kernel(ar, ai, conj: bool, c_dtype):
     real = ai is None
     in_bf = int(ar.dtype == _BF16)
     wb, wc, views = _static_args("stage1", b, n1, n2, dev)
+    # the flags read once for the alloc and launch spans: the 2^20 path's
+    # host time counts every bytecode
+    on = _prof._is_profiler_enabled or _obs.switch
+    sp = _obs.begin("alloc") if on else None
     cr = torch.empty(ar.shape, dtype=c_dtype, device=dev)
     ci = torch.empty(ar.shape, dtype=c_dtype, device=dev)
-    src = (ar.data_ptr(), None if real else ai.data_ptr())
+    nbytes = 2 * cr.nbytes
     if len(views) == 2:
         mid = (torch.empty(ar.shape, dtype=_F32, device=dev),
                torch.empty(ar.shape, dtype=_F32, device=dev))
+        nbytes += 2 * mid[0].nbytes
         outs = [mid, (cr, ci)]
     else:
         outs = [(cr, ci)]
+    if sp:
+        _obs.end(sp)
+    _COUNTS["alloc_bytes"] += nbytes
+    src = (ar.data_ptr(), None if real else ai.data_ptr())
     for i, (view, (yr, yi)) in enumerate(zip(views, outs)):
         rows, m, inner, t, groups, steps, npass, tab, tw, tw_div, swap = view
         last = i == len(views) - 1
+        sp = _obs.begin("launch") if on else None
         check(lib().kofft_stage1(
             *src, yr.data_ptr(), yi.data_ptr(), b * rows, m, inner, t,
             groups, steps, npass, tab, int(conj and i == 0), tw, tw_div, swap,
             wb if last else None, wc if last else None, min(_ML_TILE, n1),
             int(real and i == 0), in_bf if i == 0 else 0,
             int(yr.dtype == _BF16), dev.index, _stream(dev)), "stage1 launch")
+        if sp:
+            _obs.end(sp)
         src = (yr.data_ptr(), yi.data_ptr())
     return cr, ci
 
@@ -876,11 +906,15 @@ def _stage2_kernel(cr, ci, yr, yi, conj: bool, half: bool) -> None:
     b, n1, n2 = cr.shape
     dev = cr.device
     t, tc, steps, npass, tab = _static_args("stage2", b, n1, n2, dev)
+    sp = (_obs.begin("launch")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     check(lib().kofft_stage2(
         cr.data_ptr(), ci.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n1,
         n2, t, tc, steps, npass, tab, int(conj), int(half),
         int(cr.dtype == _BF16), int(yr.dtype == _BF16), dev.index,
         _stream(dev)), "stage2 launch")
+    if sp:
+        _obs.end(sp)
 
 
 def stage1(ar, ai, conj: bool = False, c_dtype=_F32):
@@ -918,8 +952,13 @@ def stage2(cr, ci, conj: bool = False, out=None, dtype=_F32):
         yi.copy_(pi)
         return yr, yi
     if out is None:
+        sp = (_obs.begin("alloc")
+              if _prof._is_profiler_enabled or _obs.switch else None)
         yr = torch.empty((b, n2, n1), dtype=dtype, device=cr.device)
         yi = torch.empty((b, n2, n1), dtype=dtype, device=cr.device)
+        if sp:
+            _obs.end(sp)
+        _COUNTS["alloc_bytes"] += 2 * yr.nbytes
     _stage2_kernel(cr, ci, yr, yi, conj, False)
     launches[name] += 1
     return yr, yi
@@ -950,8 +989,13 @@ def stage2_half(cr, ci, dtype=_F32):
         return stage2_half_plain(cr, ci, dtype)
     b, n1, n2 = cr.shape
     h = n1 * n2 // 2 + 1
+    sp = (_obs.begin("alloc")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     yr = torch.empty((b, h), dtype=dtype, device=cr.device)
     yi = torch.empty((b, h), dtype=dtype, device=cr.device)
+    if sp:
+        _obs.end(sp)
+    _COUNTS["alloc_bytes"] += 2 * yr.nbytes
     _stage2_kernel(cr, ci, yr, yi, False, True)
     launches[name] += 1
     return yr, yi
@@ -966,11 +1010,28 @@ def _col_launch(ar, ai, yr, yi, conj: bool, tw=None, tw_div: int = 1,
     b, m, inner = ar.shape
     dev = ar.device
     t, e, steps, npass, tab = _static_args("col", b, m, inner, dev)
+    sp = (_obs.begin("launch")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     err = lib().kofft_col_fft(
         ar.data_ptr(), ai.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, m,
         inner, t, e, steps, npass, tab, int(conj), tw, tw_div, swap,
         dev.index, _stream(dev))
     check(err, "col_fft launch")
+    if sp:
+        _obs.end(sp)
+
+
+def _alloc_like(ar, ai):
+    """New planes like ``ar`` and ``ai``, as an ``alloc`` span, counted in
+    ``alloc_bytes``."""
+    sp = (_obs.begin("alloc")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    yr = torch.empty_like(ar)
+    yi = torch.empty_like(ai)
+    if sp:
+        _obs.end(sp)
+    _COUNTS["alloc_bytes"] += yr.nbytes + yi.nbytes
+    return yr, yi
 
 
 def _col_fft_kernel(ar, ai, conj: bool, split):
@@ -980,22 +1041,24 @@ def _col_fft_kernel(ar, ai, conj: bool, split):
     lines of m2 over the (b*m1, m2, inner) view stored to row k2*m1 + k1.
     """
     b, m, inner = ar.shape
-    yr = torch.empty_like(ar)
-    yi = torch.empty_like(ai)
+    yr, yi = _alloc_like(ar, ai)
     if split is None:
         _col_launch(ar, ai, yr, yi, conj)
         return yr, yi
     m1, m2 = split
+    sp = (_obs.begin("args")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     key = ("splittw", m1, m2, ar.device.index)
     tw = _ARGS.get(key)
     if tw is None:
-        tw = const(_split_twiddle(m1, m2), ar.device).data_ptr()
-        _ARGS[key] = tw
+        tw = _ARGS[key] = _obs.table_build(
+            lambda: const(_split_twiddle(m1, m2), ar.device).data_ptr())
+    if sp:
+        _obs.end(sp)
     _col_launch(ar.view(b, m1, m2 * inner), ai.view(b, m1, m2 * inner),
                 yr.view(b, m1, m2 * inner), yi.view(b, m1, m2 * inner), conj,
                 tw, inner)
-    zr = torch.empty_like(ar)
-    zi = torch.empty_like(ai)
+    zr, zi = _alloc_like(ar, ai)
     _col_launch(yr.view(b * m1, m2, inner), yi.view(b * m1, m2, inner),
                 zr, zi, False, swap=m1)
     return zr, zi
@@ -1030,13 +1093,16 @@ def row_fft(xr, xi, conj: bool = False):
         return row_fft_plain(xr, xi, conj)
     from ._cuda_build import check, lib
     dev = xr.device
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
+    yr, yi = _alloc_like(xr, xi)
     t, e, steps, npass, tab = _static_args("row", b, n1, m, dev)
+    sp = (_obs.begin("launch")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     err = lib().kofft_row_fft(
         xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), b * n1,
         m, t, e, steps, npass, tab, int(conj), dev.index, _stream(dev))
     check(err, "row_fft launch")
+    if sp:
+        _obs.end(sp)
     launches["row_fft"] += 1
     return yr, yi
 
@@ -1095,7 +1161,11 @@ def fused_multilevel_fft(xr, xi, n: int, inverse: bool = False,
     ``donate=True`` writes the result into the input planes' storage
     (stage 2 reads only C), and the inputs must not be used afterwards."""
     batch, b = _batch(xr)
+    sp = (_obs.begin("route")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     cls, in_dt, c_dt = _route(n, b, batch == (), xr.dtype)
+    if sp:
+        _obs.end(sp)
     if cls is None:
         # pallas_kernels.py:1177-1179; the float32 copies are temporaries
         yr, yi = fused_multilevel_fft(xr.float(), xi.float(), n, inverse,
@@ -1134,7 +1204,11 @@ def fused_multilevel_rfft(x, n: int):
     ``ml_real``; bf16 planes that the phased grid does not serve run the
     float32 route and round back (pallas_kernels.py:1268-1271)."""
     batch, b = _batch(x)
+    sp = (_obs.begin("route")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     cls, in_dt, c_dt = _route(n, b, batch == (), x.dtype, real=True)
+    if sp:
+        _obs.end(sp)
     if cls is None:
         yr, yi = fused_multilevel_rfft(x.float(), n)
         return yr.to(x.dtype), yi.to(x.dtype)
@@ -1274,14 +1348,17 @@ def dense_stage_a(ar, ai):
     mode = _dense_mode()
     f = const(_dense_tables(n1, mode), dev)
     wr, wi = (const(a, dev) for a in tables.twiddle(n1, n2))
-    cr = torch.empty_like(ar)
-    ci = torch.empty_like(ai)
+    cr, ci = _alloc_like(ar, ai)
     name = _dense_name("dense_stage_a", mode)
+    sp = (_obs.begin("launch")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     err = lib().kofft_dense_stage_a(
         ar.data_ptr(), ai.data_ptr(), f.data_ptr(), wr.data_ptr(),
         wi.data_ptr(), cr.data_ptr(), ci.data_ptr(), b, n1, n2,
         int(mode == "bf16x1"), dev.index, _stream(dev))
     check(err, f"{name} launch")
+    if sp:
+        _obs.end(sp)
     launches[name] += 1
     return cr, ci
 
@@ -1300,14 +1377,23 @@ def dense_stage_b(cr, ci):
     dev = cr.device
     mode = _dense_mode()
     f = const(_dense_tables(n2, mode), dev)
+    sp = (_obs.begin("alloc")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     yr = torch.empty((b, n2, n1), dtype=cr.dtype, device=dev)
     yi = torch.empty((b, n2, n1), dtype=cr.dtype, device=dev)
+    if sp:
+        _obs.end(sp)
+    _COUNTS["alloc_bytes"] += 2 * yr.nbytes
     name = _dense_name("dense_stage_b", mode)
+    sp = (_obs.begin("launch")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     err = lib().kofft_dense_stage_b(
         cr.data_ptr(), ci.data_ptr(), f.data_ptr(), yr.data_ptr(),
         yi.data_ptr(), b, n1, n2, int(mode == "bf16x1"), dev.index,
         _stream(dev))
     check(err, f"{name} launch")
+    if sp:
+        _obs.end(sp)
     launches[name] += 1
     return yr, yi
 

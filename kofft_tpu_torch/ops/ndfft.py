@@ -22,9 +22,11 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+from torch.autograd import profiler as _prof
 
 from ..errors import EmptyInputError, InvalidValueError, require
 from ..plan import tables
+from ..utils import observability as _obs
 from ._complex import const, dtype_name, merge, split
 from .fft import (_as_tensor, _fft_planes, _planes, engine_fft_planes,
                   resolve_backend)
@@ -98,6 +100,19 @@ def _inverse_rescale(yr, yi, shape: tuple, axes: tuple, inverse: bool):
 
 
 def _fftn_planes(xr, xi, axes: tuple, inverse: bool, backend: str):
+    """The N-D ladder (:func:`_fftn_route`) as a ``ladder`` span."""
+    sp = (_obs.begin("ladder")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    try:
+        return _fftn_route(xr, xi, axes, inverse, backend)
+    finally:
+        if sp:
+            _obs.end(sp)
+
+
+def _fftn_route(xr, xi, axes: tuple, inverse: bool, backend: str):
+    """The routes of the module docstring, in order; the ``torch.fft``
+    route as a ``cufft`` span, the einsums as a ``tree`` span."""
     dtype = dtype_name(xr)
     if dtype == "bfloat16":
         yr, yi = _fftn_planes(xr.float(), xi.float(), axes, inverse, backend)
@@ -120,12 +135,21 @@ def _fftn_planes(xr, xi, axes: tuple, inverse: bool, backend: str):
                 return _inverse_rescale(yr, yi, shape, axes, inverse)
     if backend == "cufft" or (backend == "auto"
                               and _nd_cufft_zone(shape, axes)):
+        sp = (_obs.begin("cufft")
+              if _prof._is_profiler_enabled or _obs.switch else None)
         x = merge(xr, xi)
         y = (torch.fft.ifftn(x, dim=axes) if inverse
              else torch.fft.fftn(x, dim=axes))
-        return y.real.contiguous(), y.imag.contiguous()
+        yr, yi = y.real.contiguous(), y.imag.contiguous()
+        if sp:
+            _obs.end(sp)
+        return yr, yi
     if backend in ("auto", "torch", "cuda") and _small_axes_zone(shape, axes):
+        sp = (_obs.begin("tree")
+              if _prof._is_profiler_enabled or _obs.switch else None)
         yr, yi = _axis_einsum_planes(xr, xi, axes, inverse, dtype)
+        if sp:
+            _obs.end(sp)
         return _inverse_rescale(yr, yi, shape, axes, inverse)
     for ax in axes:
         a = ax % nd
@@ -160,10 +184,17 @@ def fftn_split(xr, xi, axes: Optional[Sequence[int]] = None,
                device="cuda"):
     """N-D FFT over ``axes`` (default: all) on (re, im) planes; the
     inverse scales by 1/N."""
-    xr, xi = _planes(xr, xi, device)
-    require(xr.dim() >= 1, EmptyInputError, "fftn input must have >= 1 dim")
-    axes = _norm_axes(xr.dim(), axes)
-    return _fftn_planes(xr, xi, axes, inverse, resolve_backend(backend))
+    sp = (_obs.begin("fftn_split")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    try:
+        xr, xi = _planes(xr, xi, device)
+        require(xr.dim() >= 1, EmptyInputError,
+                "fftn input must have >= 1 dim")
+        axes = _norm_axes(xr.dim(), axes)
+        return _fftn_planes(xr, xi, axes, inverse, resolve_backend(backend))
+    finally:
+        if sp:
+            _obs.end(sp)
 
 
 def _dispatch_nd(x, axes, inverse: bool, backend, device):

@@ -23,8 +23,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as _prof
 
 from ..errors import EmptyInputError, InvalidValueError, require
+from ..utils import observability as _obs
 from ._complex import dtype_name, merge, split
 from .fft import (_NORMS, _as_tensor, _cufft_zone, _fft_planes, _norm_scale,
                   _planes, _prep, engine_fft_planes, resolve_backend)
@@ -36,25 +38,38 @@ def _rfft_planes(x, n: int, backend: str):
     """real (..., n) -> one-sided planes (..., n//2+1), unnormalized. The
     JAX order (``kofft_tpu.ops.rfft``:53-72): bfloat16 input skips the
     cufft-zone reroute and reaches the real kernels' bf16 forms; only
-    engines without a bf16 kernel compute in float32 and round back."""
-    dtype = dtype_name(x)
-    b = backend
-    if b == "auto":
-        b = ("cufft" if dtype != "bfloat16" and _cufft_zone(x.shape, n)
-             else "cuda")
-    if b == "cuda":
-        from .hopper_fft import kernel_rfft_planes, kernel_supported
-        if kernel_supported(n, dtype):
-            return kernel_rfft_planes(x, n)
-        b = "torch"
-    if dtype == "bfloat16":
-        yr, yi = _rfft_planes(x.float(), n, b)
-        return yr.to(x.dtype), yi.to(x.dtype)
-    if b == "cufft":
-        y = torch.fft.rfft(x)
-        return y.real.contiguous(), y.imag.contiguous()
-    yr, yi = _fft_planes(x, torch.zeros_like(x), n, False, b, dtype)
-    return yr[..., : n // 2 + 1], yi[..., : n // 2 + 1]
+    engines without a bf16 kernel compute in float32 and round back.
+    Timed as a ``ladder`` span, the ``torch.fft`` branch as a ``cufft``
+    span in it."""
+    sp = (_obs.begin("ladder")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    try:
+        dtype = dtype_name(x)
+        b = backend
+        if b == "auto":
+            b = ("cufft" if dtype != "bfloat16" and _cufft_zone(x.shape, n)
+                 else "cuda")
+        if b == "cuda":
+            from .hopper_fft import kernel_rfft_planes, kernel_supported
+            if kernel_supported(n, dtype):
+                return kernel_rfft_planes(x, n)
+            b = "torch"
+        if dtype == "bfloat16":
+            yr, yi = _rfft_planes(x.float(), n, b)
+            return yr.to(x.dtype), yi.to(x.dtype)
+        if b == "cufft":
+            sc = (_obs.begin("cufft")
+                  if _prof._is_profiler_enabled or _obs.switch else None)
+            y = torch.fft.rfft(x)
+            yr, yi = y.real.contiguous(), y.imag.contiguous()
+            if sc:
+                _obs.end(sc)
+            return yr, yi
+        yr, yi = _fft_planes(x, torch.zeros_like(x), n, False, b, dtype)
+        return yr[..., : n // 2 + 1], yi[..., : n // 2 + 1]
+    finally:
+        if sp:
+            _obs.end(sp)
 
 
 def _irfft_planes(yr, yi, n: int, backend: str):
@@ -136,10 +151,16 @@ def irfft(y, n: Optional[int] = None, axis: int = -1,
 def rfft_split(x, norm: Optional[str] = None, backend: Optional[str] = None,
                device="cuda"):
     """Real FFT along the last axis with (re, im) plane outputs."""
-    _check_norm(norm)
-    x, n = _prep_real(x, None, -1, device)
-    yr, yi = _rfft_planes(x.contiguous(), n, resolve_backend(backend))
-    return _scaled(yr, n, norm, False), _scaled(yi, n, norm, False)
+    sp = (_obs.begin("rfft_split")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    try:
+        _check_norm(norm)
+        x, n = _prep_real(x, None, -1, device)
+        yr, yi = _rfft_planes(x.contiguous(), n, resolve_backend(backend))
+        return _scaled(yr, n, norm, False), _scaled(yi, n, norm, False)
+    finally:
+        if sp:
+            _obs.end(sp)
 
 
 def irfft_split(yr, yi, n: Optional[int] = None, norm: Optional[str] = None,

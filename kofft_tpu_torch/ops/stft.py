@@ -38,11 +38,13 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import profiler as _prof
 
 from ..config import get_config, precision_scope
 from ..errors import (EmptyInputError, InvalidHopSizeError,
                       MismatchedLengthsError, require)
 from ..plan import tables
+from ..utils import observability as _obs
 from ._complex import (const, dtype_name, host_device, host_float, merge,
                        split)
 from .fft import (_as_tensor, _fft_planes, _planes, engine_fft_planes,
@@ -132,9 +134,12 @@ def _stft_planes(x, window_np: np.ndarray, hop: int, onesided: bool,
                  backend: str, nf: Optional[int] = None):
     """real (..., N) -> frame spectra planes (..., F, K). ``nf``
     overrides the frame count (default ceil(N/hop)): the chunked streams
-    compute exactly the frames of a segment."""
+    compute exactly the frames of a segment. The framing and the window
+    product are a ``frame`` span."""
     win = window_np.shape[0]
     nf = nf if nf is not None else num_frames(x.shape[-1], hop)
+    sp = (_obs.begin("frame")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     w = const(window_np, x.device)
     if win % hop == 0:
         frames = _frame_matrix(x, win, hop, nf) * w
@@ -142,6 +147,8 @@ def _stft_planes(x, window_np: np.ndarray, hop: int, onesided: bool,
         x = _pad_last(x, (nf - 1) * hop + win)
         idx = const(_frame_indices(nf, win, hop), x.device)
         frames = x[..., idx] * w                     # (..., F, win)
+    if sp:
+        _obs.end(sp)
     if onesided:
         return _rfft_planes(frames, win, backend)
     return engine_fft_planes(frames, torch.zeros_like(frames), win, False,
@@ -187,12 +194,18 @@ def _synthesis(fr, fi, w, win: int, backend: str):
 
 def _istft_planes(fr, fi, window_np: np.ndarray, hop: int, length: int,
                   backend: str):
-    """frame spectra planes (..., F, win) -> real signal (..., length)."""
+    """frame spectra planes (..., F, win) -> real signal (..., length).
+    The overlap-add and its normalization are a ``frame`` span."""
     win = window_np.shape[0]
     nf = fr.shape[-2]
-    out = _ola_add(_synthesis(fr, fi, window_np, win, backend), win, hop, nf)
-    out = _pad_last(out, length)[..., :length]
-    return out / const(_ola_den(window_np, nf, hop, length), out.device)
+    frames = _synthesis(fr, fi, window_np, win, backend)
+    sp = (_obs.begin("frame")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    out = _pad_last(_ola_add(frames, win, hop, nf), length)[..., :length]
+    out = out / const(_ola_den(window_np, nf, hop, length), out.device)
+    if sp:
+        _obs.end(sp)
+    return out
 
 
 def _resolve_planes_backend(backend: Optional[str]) -> str:
@@ -225,10 +238,20 @@ def stft_split(signal, window, hop: int, onesided: bool = False,
                backend: Optional[str] = None, device="cuda"):
     """STFT returning (re, im) planes (..., F, K), F = ceil(N/hop), K =
     win_len (or win_len//2 + 1 when ``onesided``)."""
-    _check_hop(hop)
-    w = _window_const(window)
-    return _stft_planes(_signal(signal, device), w, hop, onesided,
-                        _resolve_planes_backend(backend))
+    sp = (_obs.begin("stft_split")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    try:
+        _check_hop(hop)
+        sf = (_obs.begin("frame")
+              if _prof._is_profiler_enabled or _obs.switch else None)
+        w = _window_const(window)
+        if sf:
+            _obs.end(sf)
+        return _stft_planes(_signal(signal, device), w, hop, onesided,
+                            _resolve_planes_backend(backend))
+    finally:
+        if sp:
+            _obs.end(sp)
 
 
 def stft(signal, window, hop: int, onesided: bool = False,
@@ -242,16 +265,28 @@ def istft_split(fr, fi, window, hop: int, length: Optional[int] = None,
                 backend: Optional[str] = None, device="cuda"):
     """Inverse STFT from (re, im) planes (..., F, win) -> real (...,
     length), default length (F-1)*hop + win_len."""
-    _check_hop(hop)
-    w = _window_const(window)
-    fr, fi = _planes(fr, fi, device)
-    require(fr.dim() >= 2, EmptyInputError, "frames must be (..., F, win)")
-    require(fr.shape[-1] == w.shape[0], MismatchedLengthsError,
-            f"frame length {fr.shape[-1]} != window length {w.shape[0]}")
-    nf = fr.shape[-2]
-    length = length if length is not None else (nf - 1) * hop + w.shape[0]
-    return _istft_planes(fr.contiguous(), fi.contiguous(), w, hop, length,
-                         _resolve_planes_backend(backend))
+    sp = (_obs.begin("istft_split")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    try:
+        _check_hop(hop)
+        sf = (_obs.begin("frame")
+              if _prof._is_profiler_enabled or _obs.switch else None)
+        w = _window_const(window)
+        if sf:
+            _obs.end(sf)
+        fr, fi = _planes(fr, fi, device)
+        require(fr.dim() >= 2, EmptyInputError,
+                "frames must be (..., F, win)")
+        require(fr.shape[-1] == w.shape[0], MismatchedLengthsError,
+                f"frame length {fr.shape[-1]} != window length {w.shape[0]}")
+        nf = fr.shape[-2]
+        length = (length if length is not None
+                  else (nf - 1) * hop + w.shape[0])
+        return _istft_planes(fr.contiguous(), fi.contiguous(), w, hop,
+                             length, _resolve_planes_backend(backend))
+    finally:
+        if sp:
+            _obs.end(sp)
 
 
 def istft(frames, window, hop: int, length: Optional[int] = None,

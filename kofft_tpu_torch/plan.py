@@ -172,7 +172,11 @@ class _TableCache:
             hit = self._store.get(key)
         if hit is not None:
             return hit
-        val = builder()
+        # a miss: counted and timed by utils.observability, imported here
+        # because the utils package imports ops._complex, which imports
+        # this module
+        from .utils import observability
+        val = observability.table_build(builder)
         with self._lock:
             # a double build is benign; keep the first
             return self._store.setdefault(key, val)

@@ -825,3 +825,31 @@ def test_timeit_chained_raises_on_an_op_it_cannot_capture(cuda):
                        target_time=0.001)
     torch.cuda.synchronize()
     assert float((torch.ones(8, device=cuda) * 2).sum()) == 16.0
+
+
+@pytest.mark.parametrize("n, mib, launch_spans",
+                         [(1 << 20, 16, 2), (1 << 24, 384, 3)])
+def test_fft_split_alloc_bytes_and_launch_spans(cuda, n, mib,
+                                                launch_spans):
+    """One fft_split after a warm call allocates exactly C and the output
+    (2^20: 8 + 8 MiB), and at 2^24 the column four-step's mid planes too
+    (128 + 128 + 128 MiB), builds no table, and opens one ``launch`` span
+    per native launch (2^24: stage 1's two and stage 2's), in one call."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.utils import observability as obs
+    xr, xi = _planes((n,), cuda, seed=19)
+    kt.fft_split(xr, xi)
+    torch.cuda.synchronize()
+    HK.reset_counts()
+    with obs.record_spans():
+        kt.fft_split(xr, xi)
+    torch.cuda.synchronize()
+    snap = obs.snapshot()
+    assert snap["counters"]["alloc_bytes"] == mib << 20
+    assert snap["counters"]["table_builds"] == 0
+    assert snap["spans"]["launch"]["count"] == launch_spans
+    assert snap["spans"]["alloc"]["count"] == 2
+    assert snap["roots"]["count"] == 1
+    assert sum(s["self_ns"] for s in snap["spans"].values()) == \
+        snap["roots"]["incl_ns"]
+    assert HK.launches["stage1"] == HK.launches["stage2"] == 1
