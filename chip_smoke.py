@@ -54,7 +54,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    float32 and 70 dB where it stores bf16;
 4. main paths: the public entries (complex, then real, then N-D, then
    the dense pair, bf16 planes and the `default` tier, the dense pair on
-   it included; the complex and the real path include the smooth 3*2^18,
+   it included, then the one-sided STFT at hann(1024), hop 256 on the
+   frame kernel; the complex and the real path include the smooth 3*2^18,
    whose stage-1 launches on the odd plan are read apart) with every count
    set to 0 just before each path; each case checks its output against a
    float64 oracle and that its TPU-kernel class count rose; the kernel
@@ -100,11 +101,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    version, torch.fft.fft along the same axis, bound); the smooth-n1
    stage 1 (the odd plan) alone at the splits of 3*2^18, 9*2^14,
    23*2^14, 5*2^16 and 3*2^23, and fft_split at 3*2^18 and 5*2^16 beside
-   torch.fft.fft; and col_fft at lines of 2048 as one launch and as the
-   column four-step;
+   torch.fft.fft; col_fft at lines of 2048 as one launch and as the
+   column four-step; and the frame kernel alone at the STFT cell's shape
+   (8 clips of 2^20 samples, hann(1024), hop 256) against its plain
+   version on the same card tensors (110 dB), then kernel, plain version
+   and torch.stft back to back and in CUDA graphs, with the bound of
+   portbench.roofline.stft_bound;
 7. the signal-processing entries, every count set to 0 first: the STFT at
    the JAX bench's shape (2^20 samples, hann(1024), hop 256, 4096 frames;
-   the plain factor tree, no kernel launched), one-sided and full, against
+   one-sided one launch of the frame kernel, full the plain factor tree
+   and no stage kernel), one-sided and full, against
    the float64 numpy STFT (100 dB), and its ISTFT's interior on the
    `highest` and the `default` tier (90 dB); 2^24 samples, hann(4096), hop
    1024 (the torch.fft zone) and its ISTFT; 2^22 samples, hann(16384), hop
@@ -234,7 +240,9 @@ null): back to back under ``ms``, ``plain_ms`` and ``library_ms``, as
 since the first slice, and replayed from a CUDA graph under
 ``graph_ms``, ``plain_graph_ms`` and ``library_graph_ms``; the
 goertzel_scan kernel's at (64, 4096), with its (64, 2^20) figures under
-``long``); the last line
+``long``; the frame kernel's at the STFT cell's shape, 8 clips of 2^20
+samples, hann(1024), hop 256, against its plain version, beside
+``torch.stft`` and with the registers ptxas reports); the last line
 is {"ok": true, "device": {...}}. Without a CUDA device the script exits non-zero before it prints
 any result.
 """
@@ -549,11 +557,13 @@ def phase_signal(dev, smi) -> dict:
     GZ.launches["goertzel_scan"] = 0
 
     # 1. the bench shape: 2^20 samples, hann(1024), hop 256, 4096 frames;
-    # under auto the plain factor tree, no kernel
+    # under auto one-sided on the frame kernel, full on the plain factor
+    # tree; no stage kernel
     log("-- STFT at the bench shape (2^20 samples, hann(1024), hop 256)")
     x1n, x1 = sig(1 << 20)
     w1 = hann(1024)
     one1 = kt.stft_split(x1, w1, 256, onesided=True)
+    assert HK.launches["stft_frames"] == 1, HK.launches
     full1 = kt.stft_split(x1, w1, 256)
     check("stft one-sided vs float64", snr_db(
         stft_oracle(x1n, w1.astype(np.float64), 256, True), h(*one1)),
@@ -567,7 +577,8 @@ def phase_signal(dev, smi) -> dict:
         check(f"istft interior on `{tier}`", snr_db(
             x1n[1024:-1024], h(back)[1024:-1024]), 90.0)
     assert not any(counts().values()), counts()
-    log("bench-shape STFT/ISTFT launched no kernel (plain factor tree)")
+    log("bench-shape STFT/ISTFT launched no stage kernel (one-sided: the "
+        "frame kernel; full and inverse: the plain factor tree)")
 
     # 2. a long recording: 2^24 samples, hann(4096), hop 1024, 16384 frames
     # (256 MB of frames; the torch.fft zone under auto); every 64th frame
@@ -837,6 +848,61 @@ def phase_signal(dev, smi) -> dict:
             "shape": [64, 4096],
             "long": {"shape": [64, 1 << 20], "ms": tl[1], "graph_ms": gl,
                      "bound_ms": bdl, "bound_by": "operations"}}
+
+
+def frames_row(dev, smi, build_log: str) -> dict:
+    """The frame kernel alone at the STFT cell's shape: 8 clips of 2^20
+    samples, hann(1024), hop 256 (32 768 frames). ``HK.stft_frames`` on
+    card tensors against ``HK.stft_frames_plain`` on the same tensors
+    (110 dB: two float32 evaluations of one function), then back to back
+    and in CUDA graphs the kernel, its plain version and the library call,
+    ``torch.stft`` on the same frames (the padded signal, center=False);
+    the bound is ``portbench.roofline.stft_bound``'s; registers and spills
+    from the build's ptxas output. Returns the kernel's record fields."""
+    import torch
+    import torch.nn.functional as F
+    from kofft_tpu_torch.ops import hopper_kernels as HK
+    from kofft_tpu_torch.ops.window import hann
+    from portbench.roofline import stft_bound
+    b, n, win, hop = 8, 1 << 20, 1024, 256
+    nf = -(-n // hop)
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+    x = torch.randn((b, n), generator=g, device=dev)
+    wt = torch.as_tensor(hann(win), device=dev)
+    kern = HK.stft_frames(x, wt, hop)
+    plain = HK.stft_frames_plain(x, wt, hop, nf)
+    snr = snr_db_card(plain, kern)
+    err = max(float((k - p).abs().max()) for k, p in zip(kern, plain))
+    log(f"({b}, 2^20), hann({win}), hop {hop} stft_frames vs its plain "
+        f"version: {snr:.2f} dB (floor 110), max abs {err:.3e}")
+    assert snr >= 110.0, snr
+    del kern, plain
+    xpad = F.pad(x, (0, (nf - 1) * hop + win - n))
+    calls = {
+        "kernel": (lambda: HK.stft_frames(x, wt, hop), 20),
+        "plain": (lambda: HK.stft_frames_plain(x, wt, hop, nf), 5),
+        "library": (lambda: torch.stft(xpad, win, hop, win, wt, center=False,
+                                       onesided=True, return_complex=True),
+                    20)}
+    t = {k: time_ms(fn) for k, (fn, _) in calls.items()}
+    gr = {k: graph_ms(fn, runs) for k, (fn, runs) in calls.items()}
+    bd, by = stft_bound(b, n, win, hop)
+    regs = ptxas_summary(build_log, "stft_frames_kernel")
+    for k in calls:
+        log(f"({b}, 2^20) stft_frames {k}: back-to-back {t[k][1] * 1e3:.1f} "
+            f"us/call (host enqueue {t[k][2] * 1e3:.1f}), graph "
+            f"{gr[k] * 1e3:.1f} us/call [{smi}]")
+    log(f"({b}, 2^20) stft_frames: bound {bd * 1e3:.2f} us ({by}), "
+        f"{bd / gr['kernel'] * 100:.1f} % of it by the graph time; ptxas "
+        f"(registers, spill stores, spill loads) {list(regs.values())}")
+    return {"max_abs_err": err, "snr_vs_plain_db": snr, "ms": t["kernel"][1],
+            "plain_ms": t["plain"][1], "bound_ms": bd, "bound_by": by,
+            "library_ms": t["library"][1], "graph_ms": gr["kernel"],
+            "plain_graph_ms": gr["plain"],
+            "library_graph_ms": gr["library"], "shape": [b, n],
+            "win": win, "hop": hop,
+            "ptxas": [list(v) for v in regs.values()]}
 
 
 def spectral_net_oracle(params, x, win, hop):
@@ -2548,6 +2614,16 @@ def main() -> int:
         assert pair[0].dtype == pair[1].dtype == dtype, (pair[0].dtype, dtype)
         return host(*pair)
 
+    from kofft_tpu_torch.ops.window import hann
+    xs = real((2, 1 << 18))
+    xsh = xs.double().cpu().numpy()
+    ws = hann(1024)
+    case("stft_split one-sided (2, 2^18), hann(1024), hop 256",
+         "stft_frames",
+         lambda: host(*kt.stft_split(xs, ws, 256, onesided=True)),
+         lambda: np.stack([stft_oracle(r, ws.astype(np.float64), 256, True)
+                           for r in xsh]))
+    del xs, xsh
     for shape in [(1 << 20,), (8, 1 << 20)]:
         xr, xi = planes(shape)
         x = host(xr, xi)
@@ -2614,6 +2690,7 @@ def main() -> int:
     new = [k for k in HK.launches if k not in launches]
     launches.update({k: HK.launches[k] for k in new})
     classes["four_step"] = HK.classes["four_step"]
+    classes["stft_frames"] = HK.classes["stft_frames"]
     log(f"dense, bf16 and default-tier path counts: launches {HK.launches}, "
         f"classes {HK.classes}")
     log(f"main path counts: launches {launches}, classes {classes}")
@@ -3007,6 +3084,9 @@ def main() -> int:
         f"{HK._COL_SPLIT_ABOVE} [{smi}]")
     del vr, vi
 
+    # the frame kernel alone at the STFT cell's shape
+    frames = frames_row(dev, smi, B.build_info["log"])
+
     # -- 7. the signal-processing entries --------------------------------
     goertzel = phase_signal(dev, smi)
 
@@ -3073,6 +3153,14 @@ def main() -> int:
         "source": "kofft_tpu_torch/ops/csrc/goertzel.cu",
         "replaces": "kofft_tpu/ops/goertzel.py:109", "also_replaces": [],
         **goertzel})
+    # nor this: the JAX package frames and windows the STFT's frames and
+    # transforms them on XLA's engines
+    record["kernels"].append({
+        "name": "stft_frames", "route": "cuda",
+        "source": "kofft_tpu_torch/ops/csrc/stft_frames.cu",
+        "replaces": "kofft_tpu/ops/stft.py (frame matrix, window product "
+                    "and rfft on XLA's engines)", "also_replaces": [],
+        "launches": launches["stft_frames"], **frames})
     per_step = phase9["kernel_path"]["launches_highest"]
     for k in record["kernels"]:
         k["sharded_launches"] = sharded.get(k["name"], 0)
@@ -3082,7 +3170,7 @@ def main() -> int:
                 part: per_step[part].get(k["name"], 0)
                 for part in ("forward", "backward")}
     names = {k["name"] for k in record["kernels"]}
-    assert set(replaces) | {"goertzel_scan"} == names == set(
+    assert set(replaces) | {"goertzel_scan", "stft_frames"} == names == set(
         HK.launches) | set(GZ.launches), (set(HK.launches)
                                           | set(GZ.launches)) ^ names
     log(json.dumps(record))

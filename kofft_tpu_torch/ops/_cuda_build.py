@@ -2,8 +2,8 @@
 with ctypes.
 
 Every ``csrc/*.cu`` source (``fft_stages.cu``, ``stage1_odd.cu``,
-``axis_fft.cu``, ``dense_dft.cu`` and ``goertzel.cu``, with the headers
-they include) is
+``axis_fft.cu``, ``dense_dft.cu``, ``goertzel.cu`` and ``stft_frames.cu``,
+with the headers they include) is
 compiled for ``sm_90a`` by its own nvcc process, all started together,
 and the objects are linked into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). The library
@@ -49,6 +49,7 @@ SIGNATURES = {
     "kofft_dense_stage_b": [_P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _P],
     "kofft_goertzel_scan": [_P, _P, _I, _L, _F, _I, _P],
+    "kofft_stft_frames": [_P, _P, _P, _I, _L, _I, _L, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -121,12 +121,14 @@ launches = _obs.counter_group("launches")
 launches.update({"stage1": 0, "stage2": 0, "stage1_real": 0,
                  "stage2_half": 0, "col_fft": 0, "row_fft": 0,
                  "dense_stage_a": 0, "dense_stage_b": 0,
-                 "dense_stage_a_bf16x1": 0, "dense_stage_b_bf16x1": 0})
+                 "dense_stage_a_bf16x1": 0, "dense_stage_b_bf16x1": 0,
+                 "stft_frames": 0})
 launches.update({name: 0 for name in _FORM_NAMES.values()})
 classes = _obs.counter_group("classes")
 classes.update({"phased_flat": 0, "phased_tiled": 0, "ml": 0,
                 "phased_flat_real": 0, "phased_tiled_real": 0, "ml_real": 0,
-                "fft2": 0, "fft2_big": 0, "fused_nd": 0, "four_step": 0})
+                "fft2": 0, "fft2_big": 0, "fused_nd": 0, "four_step": 0,
+                "stft_frames": 0})
 # table_builds and alloc_bytes (bytes of the buffers allocated here)
 _COUNTS = _obs.counts
 
@@ -1534,3 +1536,156 @@ def fused_ndfft_planes(xr, xi, inverse: bool = False, lead: int = 0):
     yr, yi = row_fft(yr.reshape(1, rows, shape[-1]),
                      yi.reshape(1, rows, shape[-1]), conj=inverse)
     return yr.reshape(shape), yi.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# the one-sided STFT's frame kernel (csrc/stft_frames.cu): framing, window,
+# the real line FFT by the half-length trick and the one-sided store in one
+# pass, for power-of-two windows below _cufft_zone and the stage kernels
+# ---------------------------------------------------------------------------
+
+_FRAMES_THREADS = 128       # threads per block: T frames of m/16 threads
+_FRAMES_MIN_WIN = 1 << 6     # m = win/2 >= 32: a line of two radix passes
+_FRAMES_MAX_WIN = 1 << 11    # below _cufft_zone (2^12) and kernel_supported
+
+
+def _frames_tile(win: int) -> tuple:
+    """(T, S) of a frame-kernel launch at window ``win``, m = win/2 complex
+    points and tpl = m/16 threads per frame: T = 128/tpl frames per block
+    (4 at win 1024), and S, the stride in words between the lines of the
+    split pass's half-line buffer: m/2 where a warp holds one line (tpl >=
+    32), else the least S >= m/2 with S = tpl (mod 32), so that the 32/tpl
+    lines of a warp fall on distinct banks."""
+    m = win // 2
+    tpl = m // _STAGE_E
+    s = m // 2
+    if tpl < 32:
+        s += (tpl - s) % 32
+    return _FRAMES_THREADS // tpl, s
+
+
+def _frames_twiddle(win: int) -> np.ndarray:
+    """The split pass's w^k = exp(-2 pi i k / win), k < win/4, float2-
+    interleaved float32: built in float64 (k < win, so the phase needs no
+    reduction) and rounded once."""
+    def build():
+        ang = (-2.0 * np.pi / win) * np.arange(win // 4, dtype=np.float64)
+        return np.stack([np.cos(ang), np.sin(ang)], axis=1).ravel().astype(
+            np.float32)
+
+    return tables.custom(("framestw", win), build)
+
+
+def _frames_args(win: int, dev) -> tuple:
+    """(pointer, words) of the frame kernel's launch plan at window ``win``
+    on ``dev``: the int64 words (win, T, S, line plan pointer, pass count,
+    line table pointer, split table pointer, device) that
+    ``kofft_stft_frames`` reads through the pointer. They depend on nothing
+    else, so they are built once (``_ARGS``). Timed as an ``args`` span; a
+    build is a ``table`` span in it."""
+    sp = (_obs.begin("args")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    key = ("stft_frames", win, dev.index)
+    hit = _ARGS.get(key)
+    if hit is None:
+        hit = _ARGS[key] = _obs.table_build(_build_frames_args, win, dev)
+    if sp:
+        _obs.end(sp)
+    return hit
+
+
+def _build_frames_args(win: int, dev) -> tuple:
+    """The entry of ``_frames_args`` for (win, dev); the line plan and the
+    tables it points to are cached host arrays and device copies, which
+    outlive it (``tables.on_clear`` drops both)."""
+    t, s = _frames_tile(win)
+    steps, tab = _axis_plan("row", win // 2, t, _STAGE_E)
+    words = np.array([win, t, s, steps.ctypes.data, len(steps) // 7,
+                      const(tab, dev).data_ptr(),
+                      const(_frames_twiddle(win), dev).data_ptr(),
+                      dev.index], dtype=np.int64)
+    return words.ctypes.data, words
+
+
+def _check_frames(x, window, hop: int, nf) -> None:
+    win = window.shape[0] if window.dim() == 1 else 0
+    if not (x.dtype == _F32 and window.dtype == _F32 and x.dim() >= 1
+            and x.numel() > 0 and x.is_contiguous()
+            and window.is_contiguous() and x.device == window.device
+            and x.device.type in ("cpu", "cuda") and win & (win - 1) == 0
+            and _FRAMES_MIN_WIN <= win <= _FRAMES_MAX_WIN
+            and hop >= 1 and (nf is None or nf >= 1)):
+        raise InvalidValueError(
+            f"stft_frames: takes a non-empty contiguous float32 signal "
+            f"(..., N) and a contiguous float32 window of a power of two in "
+            f"[{_FRAMES_MIN_WIN}, {_FRAMES_MAX_WIN}] points on one cpu or "
+            f"cuda device, hop >= 1 and nf >= 1; got {tuple(x.shape)} "
+            f"{x.dtype} on {x.device} (contiguous {x.is_contiguous()}), "
+            f"window {tuple(window.shape)} {window.dtype} on "
+            f"{window.device}, hop {hop}, nf {nf}")
+
+
+def stft_frames_plain(x, window, hop: int, nf: int):
+    """Plain version of the frame kernel, its algorithm in torch ops: the
+    windowed frames packed as m = win/2 complex points z[j] = x[2j] w[2j] +
+    i x[2j+1] w[2j+1], their line FFT Z (``row_fft_plain``), then the split
+    pass with E = (Z[k] + Z[m-k]*)/2 and P = w^k (Z[k] - Z[m-k]*)/2:
+    X[k] = E - iP and X[m-k] = (E + iP)* for k < m/2, X[m/2] = Z[m/2]*."""
+    win = window.shape[0]
+    m, h = win // 2, win // 4
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    xs = x.reshape(-1, n)
+    if (nf - 1) * hop + win > n:
+        xs = torch.nn.functional.pad(xs, (0, (nf - 1) * hop + win - n))
+    idx = (torch.arange(nf, device=x.device)[:, None] * hop
+           + torch.arange(win, device=x.device)[None, :])
+    fr = xs[:, idx] * window                              # (rows, nf, win)
+    zr, zi = row_fft_plain(fr[..., 0::2].contiguous(),
+                           fr[..., 1::2].contiguous())
+    kb = (m - torch.arange(h, device=x.device)) % m
+    ar, ai, br, bi = zr[..., :h], zi[..., :h], zr[..., kb], zi[..., kb]
+    tw = const(_frames_twiddle(win), x.device).view(h, 2)
+    er, ei = 0.5 * (ar + br), 0.5 * (ai - bi)
+    od, oi = 0.5 * (ar - br), 0.5 * (ai + bi)
+    pr = tw[:, 0] * od - tw[:, 1] * oi
+    pi = tw[:, 0] * oi + tw[:, 1] * od
+    yr = torch.cat([er + pi, zr[..., h:h + 1], torch.flip(er - pi, (-1,))],
+                   dim=-1)
+    yi = torch.cat([ei - pr, -zi[..., h:h + 1],
+                    torch.flip(-(ei + pr), (-1,))], dim=-1)
+    return yr.reshape(*lead, nf, m + 1), yi.reshape(*lead, nf, m + 1)
+
+
+def stft_frames(x, window, hop: int, nf: int | None = None):
+    """One-sided STFT frames of real float32 signals (..., N) -> (re, im)
+    planes (..., F, win/2 + 1): frame f starts at f*hop and is zero-padded
+    past the signal's end, times ``window`` (float32, win a power of two
+    in [64, 2048]), and keeps bins 0 ... win/2 of its DFT. F = ceil(N /
+    hop) unless ``nf`` sets it. CUDA tensors launch the frame kernel, one
+    launch per call into one allocation that holds both planes; CPU tensors
+    run ``stft_frames_plain``. Every call
+    counts once in ``classes``, every launch in ``launches``."""
+    _check_frames(x, window, hop, nf)
+    nf = -(-x.shape[-1] // hop) if nf is None else nf
+    classes["stft_frames"] += 1
+    if not x.is_cuda:
+        return stft_frames_plain(x, window, hop, nf)
+    from ._cuda_build import check, lib
+    dev = x.device
+    plan = _frames_args(window.shape[0], dev)[0]
+    lead, n = x.shape[:-1], x.shape[-1]
+    on = _prof._is_profiler_enabled or _obs.switch
+    sp = _obs.begin("alloc") if on else None
+    y = torch.empty((2, *lead, nf, window.shape[0] // 2 + 1), dtype=_F32,
+                    device=dev)
+    if sp:
+        _obs.end(sp)
+    _COUNTS["alloc_bytes"] += y.nbytes
+    sp = _obs.begin("launch") if on else None
+    check(lib().kofft_stft_frames(
+        x.data_ptr(), window.data_ptr(), y.data_ptr(), math.prod(lead), n,
+        nf, hop, plan, _stream(dev)), "stft_frames launch")
+    if sp:
+        _obs.end(sp)
+    launches["stft_frames"] += 1
+    return y.unbind(0)

@@ -37,6 +37,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.nn.functional as F
 from torch.autograd import profiler as _prof
 
@@ -49,6 +50,7 @@ from ._complex import (const, dtype_name, host_device, host_float, merge,
                        split)
 from .fft import (_as_tensor, _fft_planes, _planes, engine_fft_planes,
                   resolve_backend)
+from .hopper_kernels import _FRAMES_MAX_WIN, _FRAMES_MIN_WIN, stft_frames
 from .rfft import _rfft_planes
 
 __all__ = ["stft", "istft", "stft_split", "istft_split", "frame_split",
@@ -130,14 +132,44 @@ def _frame_matrix(x, win: int, hop: int, nf: int):
     return _pad_last(x, (nf - 1) * hop + win).unfold(-1, win, hop)[..., :nf, :]
 
 
+def _frames_route(x, window_np: np.ndarray, backend: str) -> bool:
+    """Whether a one-sided call goes to the frame kernel
+    (``hopper_kernels.stft_frames``): a float32 signal on the card, a
+    float32 window of a power of two in [2^6, 2^11] points (below
+    ``_cufft_zone`` and the stage kernels, where the engines take the plain
+    factor tree), the backend `auto` or `cuda`, and nothing that autograd,
+    forward AD or a ``torch.func`` transform has to see: the kernel has no
+    backward, so tracked calls keep the differentiable torch ops. Timed as
+    a ``ladder`` span."""
+    sp = (_obs.begin("ladder")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    try:
+        win = window_np.shape[0]
+        return (x.is_cuda and x.dtype == torch.float32
+                and window_np.dtype == np.float32 and x.numel() > 0
+                and backend in ("auto", "cuda") and win & (win - 1) == 0
+                and _FRAMES_MIN_WIN <= win <= _FRAMES_MAX_WIN
+                and not torch._C._are_functorch_transforms_active()
+                and not (x.requires_grad and torch.is_grad_enabled())
+                and fwAD.unpack_dual(x).tangent is None)
+    finally:
+        if sp:
+            _obs.end(sp)
+
+
 def _stft_planes(x, window_np: np.ndarray, hop: int, onesided: bool,
                  backend: str, nf: Optional[int] = None):
     """real (..., N) -> frame spectra planes (..., F, K). ``nf``
     overrides the frame count (default ceil(N/hop)): the chunked streams
-    compute exactly the frames of a segment. The framing and the window
-    product are a ``frame`` span."""
-    win = window_np.shape[0]
+    compute exactly the frames of a segment. A one-sided call that
+    ``_frames_route`` admits is one launch of the frame kernel; any other
+    builds the frame matrix and runs the engine ladder, the framing and
+    the window product as a ``frame`` span."""
     nf = nf if nf is not None else num_frames(x.shape[-1], hop)
+    if onesided and _frames_route(x, window_np, backend):
+        return stft_frames(x.contiguous(), const(window_np, x.device), hop,
+                           nf)
+    win = window_np.shape[0]
     sp = (_obs.begin("frame")
           if _prof._is_profiler_enabled or _obs.switch else None)
     w = const(window_np, x.device)

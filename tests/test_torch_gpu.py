@@ -1,6 +1,7 @@
 """The port's CUDA kernels (the complex and real stage kernels with their
-bfloat16 I/O forms, the N-D axis kernels, the dense four-step pair and
-the goertzel_scan recurrence) against their plain PyTorch versions, and
+bfloat16 I/O forms, the N-D axis kernels, the dense four-step pair, the
+goertzel_scan recurrence and the one-sided STFT's frame kernel) against
+their plain PyTorch versions, and
 the public entries (the STFT, its streams and the composite transforms
 among them), on the card. Every test here carries the ``gpu`` marker and
 skips without a CUDA device; whether one exists is decided inside the
@@ -26,6 +27,8 @@ composite transforms: >= 100 dB against float64, an ISTFT's interior
 goertzel_scan kernel against its plain version within 1e-5 relative (the
 same float32 operations in the same order: equal but for the plain
 version's own rounding of its three tensor ops, which it does not fuse).
+The frame kernel at the benchmark's STFT shape: rms_err <= 1e-6 against
+float64, the cell's measure (the program reads ~1.2e-7 there).
 """
 
 import numpy as np
@@ -853,3 +856,119 @@ def test_fft_split_alloc_bytes_and_launch_spans(cuda, n, mib,
     assert sum(s["self_ns"] for s in snap["spans"].values()) == \
         snap["roots"]["incl_ns"]
     assert HK.launches["stage1"] == HK.launches["stage2"] == 1
+
+
+def _stft_oracle(x, w, hop, block=512):
+    """float64 one-sided STFT of (rows, n) signals with the window ``w``,
+    ``block`` frames at a time."""
+    x = np.asarray(x, np.float64)
+    win, n = w.size, x.shape[-1]
+    nf = -(-n // hop)
+    pad = np.zeros((x.shape[0], (nf - 1) * hop + win))
+    pad[:, :n] = x
+    out = np.empty((x.shape[0], nf, win // 2 + 1), complex)
+    for f0 in range(0, nf, block):
+        idx = (np.arange(f0, min(nf, f0 + block))[:, None] * hop
+               + np.arange(win)[None, :])
+        out[:, f0:f0 + block] = np.fft.rfft(pad[:, idx] * w, axis=-1)
+    return out
+
+
+def test_stft_frames_at_the_benchmark_shape(cuda):
+    """stft_split at the benchmark cell's shape (8 clips of 2^20 samples,
+    hann(1024), hop 256, one-sided, `auto`): one launch of the frame
+    kernel, > 100 dB and rms_err <= 1e-6 against float64 numpy (the
+    cell's rms_err, the RMS of the error over the reference's RMS);
+    after a warm call one ``alloc`` span of exactly the two output planes,
+    no table built."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.ops.window import hann
+    from kofft_tpu_torch.utils import observability as obs
+    x = torch.as_tensor(np.random.default_rng(40).standard_normal(
+        (8, 1 << 20), dtype=np.float32), device=cuda)
+    w = hann(1024)
+    kt.stft_split(x, w, 256, onesided=True)
+    torch.cuda.synchronize()
+    HK.reset_counts()
+    with obs.record_spans():
+        yr, yi = kt.stft_split(x, w, 256, onesided=True)
+    torch.cuda.synchronize()
+    snap = obs.snapshot()
+    assert HK.launches["stft_frames"] == 1
+    assert sum(HK.launches.values()) == 1 and HK.classes["stft_frames"] == 1
+    assert snap["counters"]["alloc_bytes"] == 2 * 4 * 8 * 4096 * 513
+    assert snap["counters"]["table_builds"] == 0
+    assert snap["spans"]["launch"]["count"] == 1
+    assert snap["spans"]["alloc"]["count"] == 1
+    assert yr.shape == (8, 4096, 513)
+    ref = _stft_oracle(x.cpu().numpy(), w.astype(np.float64), 256)
+    got = _np(yr, yi)
+    assert snr_db(ref, got) > ORACLE_DB
+    rms = np.sqrt(np.mean(np.abs(got - ref) ** 2) / np.mean(np.abs(ref) ** 2))
+    assert rms <= 1e-6
+
+
+@pytest.mark.parametrize("win", [64, 128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("hop_of", ["odd", "win+3"])
+def test_stft_frames_every_window(cuda, win, hop_of):
+    """Every window the route takes, with an odd hop (win/4 + 1, or win + 3:
+    frames apart) and a ragged N, on (3, N) signals: the kernel against
+    float64 (> 100 dB) and against its plain version on the card
+    (>= 110 dB); one launch."""
+    from kofft_tpu_torch.ops.window import hann
+    hop = win // 4 + 1 if hop_of == "odd" else win + 3
+    n = 37 * hop + win // 2 + 5
+    x = torch.as_tensor(np.random.default_rng(win + hop).standard_normal(
+        (3, n), dtype=np.float32), device=cuda)
+    w = hann(win)
+    wt = torch.as_tensor(w, device=cuda)
+    before = HK.launches["stft_frames"]
+    got = HK.stft_frames(x, wt, hop)
+    plain = HK.stft_frames_plain(x, wt, hop, got[0].shape[-2])
+    torch.cuda.synchronize()
+    assert HK.launches["stft_frames"] == before + 1
+    ref = _stft_oracle(x.cpu().numpy(), w.astype(np.float64), hop)
+    assert snr_db(ref, _np(*got)) > ORACLE_DB
+    assert snr_db(_np(*plain), _np(*got)) >= PORT_DB
+
+
+def test_stft_frames_streams_on_card(cuda):
+    """The chunked stream scan (4 chunks of 1024 frames at win 1024) and the
+    push stream (pushes of 4800 samples, then the flush) take the frame
+    kernel for every chunk, and equal the offline call."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.ops import stft as S
+    from kofft_tpu_torch.ops.window import hann
+    x = torch.as_tensor(np.random.default_rng(41).standard_normal(
+        1 << 20, dtype=np.float32), device=cuda)
+    w = hann(1024)
+    off = kt.stft_split(x, w, 256, onesided=True)
+    HK.reset_counts()
+    scan = kt.stft_stream_scan(x, w, 256, onesided=True)
+    assert HK.launches["stft_frames"] == 4
+    assert snr_db(_np(*off), _np(*scan)) >= PORT_DB
+    st = S.StftPushStream(w, 256, onesided=True)
+    parts = [st.push(x[i: i + 4800]) for i in range(0, x.numel(), 4800)]
+    parts.append(st.flush())
+    got = (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
+    assert HK.launches["stft_frames"] >= 4 + x.numel() // 4800
+    assert snr_db(_np(*off), _np(*got)) >= PORT_DB
+
+
+def test_stft_frames_leaves_other_calls(cuda):
+    """Two-sided, `torch`, float64 and tracked calls at hann(1024), and
+    hann(4096), launch no frame kernel."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.ops.window import hann
+    x = torch.as_tensor(np.random.default_rng(42).standard_normal(
+        (2, 1 << 16), dtype=np.float32), device=cuda)
+    w = hann(1024)
+    HK.reset_counts()
+    kt.stft_split(x, w, 256)
+    kt.stft_split(x, w, 256, onesided=True, backend="torch")
+    kt.stft_split(x.double(), w, 256, onesided=True)
+    kt.stft_split(x, hann(4096), 1024, onesided=True)
+    yr, _ = kt.stft_split(x.clone().requires_grad_(), w, 256, onesided=True)
+    yr.sum().backward()
+    torch.cuda.synchronize()
+    assert HK.launches["stft_frames"] == 0 and HK.classes["stft_frames"] == 0
