@@ -21,15 +21,17 @@ def stft_onesided(x: np.ndarray, win: int, hop: int,
                   block: int = 256) -> np.ndarray:
     """complex128 one-sided spectra (..., F, win // 2 + 1) of the hann-
     windowed frames, computed ``block`` frames at a time so that the frame
-    matrix of a long signal is never whole in memory."""
+    matrix of a long signal is never whole in memory (the frames are a
+    strided view of the padded signal until the window multiplies them)."""
     x = np.asarray(x, np.float64)
     w = hann(win)
     nf = -(-x.shape[-1] // hop)
     out = np.empty((*x.shape[:-1], nf, win // 2 + 1), np.complex128)
     pad = np.zeros((*x.shape[:-1], (nf - 1) * hop + win), np.float64)
     pad[..., :x.shape[-1]] = x
+    frames = np.lib.stride_tricks.sliding_window_view(
+        pad, win, axis=-1)[..., ::hop, :]
     for f0 in range(0, nf, block):
         f1 = min(nf, f0 + block)
-        idx = np.arange(f0, f1)[:, None] * hop + np.arange(win)[None, :]
-        out[..., f0:f1, :] = np.fft.rfft(pad[..., idx] * w, axis=-1)
+        out[..., f0:f1, :] = np.fft.rfft(frames[..., f0:f1, :] * w, axis=-1)
     return out

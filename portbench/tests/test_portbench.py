@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -30,21 +31,31 @@ from portbench.reference import fft1d as ref_fft  # noqa: E402
 from portbench.reference import stft as ref_stft  # noqa: E402
 from portbench.traffic import closed  # noqa: E402
 
-CELLS = [w["name"] for w in
-         json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
-# the cells' traffic at sizes a CPU test holds; everything else as committed
-SMALL = {"fft1d_c32": {"shape": [1 << 12], "pool": 3},
-         "stft_f32": {"shape": [2, 1 << 14], "pool": 3}}
+
+def _spec(root: Path) -> dict:
+    return json.loads((root / "BENCHMARK.json").read_text())
 
 
-def _small_root(tmp: Path) -> Path:
-    """A copy of BENCHMARK.json and portbench/ whose cells are small."""
-    shutil.copy(ROOT / "BENCHMARK.json", tmp / "BENCHMARK.json")
-    shutil.copytree(BENCH, tmp / "portbench",
+CELLS = [w["name"] for w in _spec(ROOT)["workloads"]]
+
+
+def _small_root(tmp: Path, src: Path = ROOT) -> Path:
+    """A copy of ``src``'s BENCHMARK.json and portbench/ whose cells run at
+    the sizes a CPU test holds: each cell's traffic takes the
+    ``cpu_sizes`` of its configuration's file; everything else as
+    committed."""
+    shutil.copy(src / "BENCHMARK.json", tmp / "BENCHMARK.json")
+    shutil.copytree(src / "portbench", tmp / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    for f in (tmp / "portbench" / "workloads").glob("*.json"):
+    spec = _spec(tmp)
+    files = {c["name"]: c["file"] for c in spec["configs"]}
+    for w in spec["workloads"]:
+        cfg = json.loads((tmp / files[w["config"]]).read_text())
+        if "cpu_sizes" not in cfg:
+            raise KeyError(f"{files[w['config']]} has no cpu_sizes")
+        f = tmp / "portbench" / "workloads" / f"{w['name']}.json"
         d = json.loads(f.read_text())
-        d.update(SMALL[d["config"]])
+        d.update(cfg["cpu_sizes"])
         f.write_text(json.dumps(d))
     return tmp
 
@@ -164,10 +175,52 @@ def test_roofline_by_hand_at_the_cells_shapes():
         pytest.approx(8 * 6.272, rel=1e-3)
     # the adapters hand these bounds and units to the readers
     for c in CELLS:
-        cell = loader.load(ROOT, c)
-        w = cell.adapter.work(cell.cfg, cell.traffic)
-        assert w["units"] in (1 << 24, 1 << 20, 8 * 4096)
-        assert 5e-6 < w["bound_s"] < 1e-4
+        _check_work(loader.load(ROOT, c))
+
+
+# hand counts of a call's work units for the units of today's adapters;
+# an adapter with another unit is held to a positive count alone
+UNITS = {"points": lambda tr: math.prod(tr["shape"]),
+         "frames": lambda tr: math.prod(tr["shape"][:-1])
+         * -(-tr["shape"][-1] // tr["hop"])}
+
+
+def _check_work(cell):
+    w = cell.adapter.work(cell.cfg, cell.traffic)
+    assert w["units"] > 0 and w["bound_s"] > 0
+    count = UNITS.get(cell.adapter.UNIT)
+    if count is not None:
+        assert w["units"] == count(cell.traffic)
+
+
+def test_an_adapter_of_another_unit_needs_no_hand_count(tmp_path):
+    """A cell whose adapter counts a unit these tests do not know is held
+    to a positive count and bound, with no test file edited."""
+    root = _small_root(tmp_path)
+    c = loader.load(root, CELLS[0])
+    c.adapter = types.SimpleNamespace(
+        UNIT="signals", work=lambda cfg, tr: {"units": 3, "bound_s": 1e-3})
+    _check_work(c)
+
+
+@pytest.mark.parametrize("shape", [(3, 5000), (2, 2, 777), (777,)])
+def test_the_stft_expected_is_the_reference_of_the_whole_batch(shape):
+    from portbench.adapters import stft
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+    cell = {"win": 256, "hop": 64}
+    got = stft.expected({}, cell, x)
+    want = ref_stft.stft_onesided(x.numpy(), 256, 64)
+    assert got.shape == want.shape and np.array_equal(got, want)
+
+
+def test_the_stft_answer_is_the_planes_as_check_joins_them():
+    from portbench.adapters import stft
+    g = torch.Generator().manual_seed(5)
+    out = (torch.randn(2, 9, 17, generator=g),
+           torch.randn(2, 9, 17, generator=g))
+    got, want = stft.answer(out), check.planes(out)
+    assert got.dtype == want.dtype == np.complex128
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("n", [1, 2, 12, 64, 100])
@@ -224,9 +277,12 @@ def test_tf32_dft_is_the_dft_to_tf32_accuracy(n):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_program_passes_and_control_fails_at_the_limits(tmp_path, cell):
+    _passes_and_control_fails(_small_root(tmp_path), cell)
+
+
+def _passes_and_control_fails(root, cell):
     """The program on the CPU passes the cell's limits; the reference in
     TF32 put in its place fails them (on the card: ``readings.py``)."""
-    root = _small_root(tmp_path)
     res = _run(root, cell, seed=11)
     assert res["correct"] and res["failed"] == 0, res["checks"]
     c = loader.load(root, cell)
@@ -301,7 +357,7 @@ def test_a_configuration_cell_and_metric_added_as_files(tmp_path):
         "check": {"samples": 2, "limits": {"rms_err": 1e-5}}}))
     (b / "metrics" / "calls_seen.py").write_text(
         "def read(run):\n    return run.calls\n")
-    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec = _spec(root)
     spec["configs"].append({"name": "fft1d_c32_inv", "source": "test",
                             "file": "portbench/configs/fft1d_c32_inv.json",
                             "reduced": [], "why": "test"})
@@ -326,6 +382,61 @@ def test_a_configuration_cell_and_metric_added_as_files(tmp_path):
     assert res["metrics"]["points_per_s"]["value"] > 0
 
 
+def test_a_new_configuration_joins_these_tests_by_files_alone(tmp_path):
+    """A configuration added as files (its file with ``cpu_sizes``, an
+    adapter of its own), a cell of it and metric entries for the cell:
+    the suite's helpers run over it with no test file edited."""
+    src = tmp_path / "src"
+    src.mkdir()
+    shutil.copy(ROOT / "BENCHMARK.json", src / "BENCHMARK.json")
+    shutil.copytree(BENCH, src / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    b = src / "portbench"
+    shutil.copy(b / "adapters" / "fft1d.py", b / "adapters" / "fft1d_twin.py")
+    cfg = json.loads((b / "configs" / "fft1d_c32.json").read_text())
+    cfg.update(name="twin_c32", adapter="fft1d_twin",
+               cpu_sizes={"shape": [2, 512], "pool": 2})
+    (b / "configs" / "twin_c32.json").write_text(json.dumps(cfg))
+    cell = "twin_c32.4x2p22_stream"
+    (b / "workloads" / f"{cell}.json").write_text(json.dumps({
+        "config": "twin_c32", "traffic": "4x2p22_stream", "loop": "closed",
+        "shape": [4, 1 << 22], "inflight": 2, "pool": 2,
+        "check": {"samples": 2,
+                  "limits": {"rms_err": 1e-5, "max_err": 5e-5}}}))
+    spec = _spec(src)
+    spec["configs"].append({"name": "twin_c32", "source": "test",
+                            "file": "portbench/configs/twin_c32.json",
+                            "reduced": [], "why": "test"})
+    spec["workloads"].append({"name": cell, "config": "twin_c32",
+                              "traffic": "4x2p22_stream", "chips": 1,
+                              "why": "test"})
+    for m in spec["end_to_end"]:
+        if m["name"] == "points_per_s":
+            m["workloads"].append(cell)
+    for name, source in (("host_us_per_call.twin", "host_clock"),
+                         ("entry_us_per_call.twin", "program_span")):
+        spec["per_layer"].append({"name": name, "unit": "us",
+                                  "better": "lower", "source": source,
+                                  "layer": "public entries",
+                                  "moves": "points_per_s",
+                                  "workloads": [cell]})
+    (src / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    (tmp_path / "small").mkdir()
+    root = _small_root(tmp_path / "small", src)
+    c = loader.load(root, cell)
+    assert c.adapter.__name__.endswith("fft1d_twin")
+    assert c.traffic["shape"] == [2, 512] and c.traffic["pool"] == 2
+    _check_work(c)
+    for trace in (False, True):
+        res = _run(root, cell, trace=trace)
+        _check_line(_spec(root), cell, res, trace)
+        assert set(res["metrics"]) == (
+            {"host_us_per_call.twin", "entry_us_per_call.twin"} if trace
+            else {"points_per_s", "setup_s"})
+    _passes_and_control_fails(root, cell)
+
+
 def test_a_suffixed_metric_is_read_by_its_base_name_reader(tmp_path):
     """``<name>.<suffix>`` without a file of its own is read by
     ``metrics/<name>.py``; a file of its own wins."""
@@ -333,7 +444,7 @@ def test_a_suffixed_metric_is_read_by_its_base_name_reader(tmp_path):
     b = root / "portbench" / "metrics"
     (b / "calls_seen.py").write_text("def read(run):\n    return 1.0\n")
     (b / "calls_seen.own.py").write_text("def read(run):\n    return 2.0\n")
-    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec = _spec(root)
     cell = CELLS[0]
     for name in ("calls_seen.any", "calls_seen.own"):
         spec["per_layer"].append({"name": name, "unit": "calls",
@@ -366,35 +477,42 @@ def test_the_harness_names_no_configuration_or_cell():
 @pytest.mark.parametrize("trace", [False, True])
 def test_result_line_schema(tmp_path, trace):
     root = _small_root(tmp_path)
-    spec = json.loads((root / "BENCHMARK.json").read_text())
     for cell in CELLS:
-        res = _run(root, cell, trace=trace)
-        assert list(res)[:5] == ["correct", "attempted", "failed",
-                                 "metrics", "device"]
-        assert list(res)[-1] == "checks"
-        assert set(res) <= {"correct", "attempted", "failed", "metrics",
-                            "device", "breakdown", "checks"}
-        assert isinstance(res["correct"], bool)
-        assert res["attempted"] > 0 and res["failed"] == 0
-        assert set(res["device"]) >= {"platform", "kind", "count",
-                                      "memory_peak_bytes"}
-        kind = "per_layer" if trace else "end_to_end"
-        listed = {m["name"]: m["unit"] for m in spec[kind]
-                  if cell in m.get("workloads", [cell])}
-        for name, m in res["metrics"].items():
-            assert set(m) == {"value", "unit"} and m["unit"] == listed[name]
-            assert isinstance(m["value"], float)
-        if trace:
-            # no device on the CPU: the device readers find nothing; the
-            # host clock's reader reads the untraced half of the window
-            assert set(res["metrics"]) == {n for n in listed
-                                           if n.startswith("host_us")}
-            assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
-        else:
-            assert set(res["metrics"]) == set(listed)
-        for c in res["checks"].values():
-            assert set(c) == {"value", "limit"} and c["value"] <= c["limit"]
-        json.loads(json.dumps(res))
+        _check_line(_spec(root), cell, _run(root, cell, trace=trace), trace)
+
+
+def _check_line(spec, cell, res, trace):
+    """The result line of a CPU run of ``cell``, as ``spec`` lists it."""
+    assert list(res)[:5] == ["correct", "attempted", "failed", "metrics",
+                             "device"]
+    assert list(res)[-1] == "checks"
+    assert set(res) <= {"correct", "attempted", "failed", "metrics",
+                        "device", "breakdown", "checks"}
+    assert isinstance(res["correct"], bool)
+    assert res["attempted"] > 0 and res["failed"] == 0
+    assert set(res["device"]) >= {"platform", "kind", "count",
+                                  "memory_peak_bytes"}
+    kind = "per_layer" if trace else "end_to_end"
+    listed = {m["name"]: m for m in spec[kind]
+              if cell in m.get("workloads", [cell])}
+    for name, m in res["metrics"].items():
+        assert set(m) == {"value", "unit"}
+        assert m["unit"] == listed[name]["unit"]
+        assert isinstance(m["value"], float)
+    if trace:
+        # no device on the CPU: the device readers find nothing; the host
+        # clock's readers read the untraced half of the window, and the
+        # program's spans and counters are read as on the card
+        host = {n for n, m in listed.items() if m["source"] == "host_clock"}
+        program = {n for n, m in listed.items()
+                   if m["source"] in ("program_span", "program_counter")}
+        assert host <= set(res["metrics"]) <= host | program
+        assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
+    else:
+        assert set(res["metrics"]) == set(listed)
+    for c in res["checks"].values():
+        assert set(c) == {"value", "limit"} and c["value"] <= c["limit"]
+    json.loads(json.dumps(res))
 
 
 class _FakeClock:
@@ -485,7 +603,7 @@ def test_call_p95_reads_every_call_of_the_window(tmp_path):
     """A cell whose traffic asks for latency reports the 95th percentile
     of its calls' stamps, on the CPU from the host clock."""
     root = _small_root(tmp_path)
-    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec = _spec(root)
     cells = [c for m in spec["end_to_end"] if m["name"] == "call_p95_ms"
              for c in m["workloads"]]
     assert cells
