@@ -1066,18 +1066,29 @@ def _col_fft_kernel(ar, ai, conj: bool, split):
     return zr, zi
 
 
+def _plain_span(plain, xr, xi, conj: bool):
+    """An axis kernel's plain version on CPU planes, a plain PyTorch
+    engine, as a ``tree`` span."""
+    sp = (_obs.begin("tree")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    out = plain(xr, xi, conj)
+    if sp:
+        _obs.end(sp)
+    return out
+
+
 def col_fft(ar, ai, conj: bool = False):
     """Line FFTs of length m along axis 1 of (b, m, inner) planes, written
     in the input layout (the column pass of the N-D routes); ``conj``
     negates the imaginary part on load. CUDA tensors launch the kernel:
     once, or above ``_COL_SPLIT_ABOVE`` twice as a column four-step
     (``_col_split``); either way the call counts once in ``launches``.
-    CPU tensors run ``col_fft_plain``."""
+    CPU tensors run ``col_fft_plain`` (a ``tree`` span)."""
     _check_planes(ar, ai, "col_fft")
     b, m, inner = ar.shape
     _check_line(m, "col_fft")
     if ar.device.type == "cpu":
-        return col_fft_plain(ar, ai, conj)
+        return _plain_span(col_fft_plain, ar, ai, conj)
     yr, yi = _col_fft_kernel(ar, ai, conj, _col_split(m))
     launches["col_fft"] += 1
     return yr, yi
@@ -1087,12 +1098,12 @@ def row_fft(xr, xi, conj: bool = False):
     """Line FFTs of length m along the last axis of (b, n1, m) planes,
     written in natural order (b, n1, m); ``conj`` negates the imaginary
     part on store. CUDA tensors launch the kernel (one count in
-    ``launches``); CPU tensors run ``row_fft_plain``."""
+    ``launches``); CPU tensors run ``row_fft_plain`` (a ``tree`` span)."""
     _check_planes(xr, xi, "row_fft")
     b, n1, m = xr.shape
     _check_line(m, "row_fft")
     if xr.device.type == "cpu":
-        return row_fft_plain(xr, xi, conj)
+        return _plain_span(row_fft_plain, xr, xi, conj)
     from ._cuda_build import check, lib
     dev = xr.device
     yr, yi = _alloc_like(xr, xi)
@@ -1485,12 +1496,19 @@ def fused_2d_big_zone(shape: tuple, axes: tuple) -> bool:
 
 
 def _fft2_route(xr, xi, inverse: bool, cls: str):
+    """The 2-D routes' body; its ``route`` span, the class's count and the
+    planes' reshapes, closes before the axis kernels, as on the 1-D
+    routes."""
+    sp = (_obs.begin("route")
+          if _prof._is_profiler_enabled or _obs.switch else None)
     shape = tuple(xr.shape)
     n1, n2 = shape[-2:]
     b = xr.numel() // (n1 * n2)
     classes[cls] += 1
-    cr, ci = col_fft(xr.reshape(b, n1, n2), xi.reshape(b, n1, n2),
-                     conj=inverse)
+    ar, ai = xr.reshape(b, n1, n2), xi.reshape(b, n1, n2)
+    if sp:
+        _obs.end(sp)
+    cr, ci = col_fft(ar, ai, conj=inverse)
     yr, yi = row_fft(cr, ci, conj=inverse)
     return yr.reshape(shape), yi.reshape(shape)
 

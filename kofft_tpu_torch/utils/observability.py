@@ -12,12 +12,14 @@ happens: the public entries open a root span each (``fft_split``,
 ``ifft_split``, ``fft``, ``ifft``, ``rfft_split``, ``fftn_split``,
 ``stft_split``, ``istft_split``), and inside them ``ladder`` (backend
 and zone choice, the kernel checks), ``route`` (the kernel route's class
-and split), ``frame`` (the STFT's window, framing and overlap-add),
-``args`` (a launch's cached arguments), ``table`` (a cache miss that
-builds a host table, a device copy or launch arguments), ``alloc`` (the
-port's own device buffers), ``launch`` (a native launch and its check),
-``tree`` (the plain PyTorch engines) and ``cufft`` (the ``torch.fft``
-branches). A span records its name, its start and end on
+and split, on the 2-D routes its class and the planes' reshapes; closed
+before the launches), ``frame`` (the STFT's window, framing and
+overlap-add), ``args`` (a launch's cached arguments), ``table`` (a cache
+miss that builds a host table, a device copy or launch arguments),
+``alloc`` (the port's own device buffers), ``launch`` (a native launch
+and its check), ``tree`` (the plain PyTorch engines, the axis kernels'
+plain versions on CPU tensors among them) and ``cufft`` (the
+``torch.fft`` branches). A span records its name, its start and end on
 ``time.perf_counter_ns``, the id of its parent and the id of its call:
 every span under one root shares the root's call id, and a span opened
 outside any other starts a call of its own. Each thread keeps its own

@@ -28,7 +28,9 @@ goertzel_scan kernel against its plain version within 1e-5 relative (the
 same float32 operations in the same order: equal but for the plain
 version's own rounding of its three tensor ops, which it does not fuse).
 The frame kernel at the benchmark's STFT shape: rms_err <= 1e-6 against
-float64, the cell's measure (the program reads ~1.2e-7 there).
+float64, the cell's measure (the program reads ~1.2e-7 there). The 2-D
+route at the benchmark's 4096² shape: the cell's limits (rms_err <= 1e-5,
+max_err <= 5e-5) against the benchmark's NumPy float64 reference.
 """
 
 import numpy as np
@@ -972,3 +974,42 @@ def test_stft_frames_leaves_other_calls(cuda):
     yr.sum().backward()
     torch.cuda.synchronize()
     assert HK.launches["stft_frames"] == 0 and HK.classes["stft_frames"] == 0
+
+
+def test_fftn_split_at_the_benchmark_shape(cuda):
+    """fftn_split at the 2-D cell's shape (4096², the last two axes,
+    `auto`): class ``fft2_big``, ``col_fft`` counted once (its column
+    four-step's two launches) and ``row_fft`` once; against the plain
+    float64 reference (``portbench/reference/fftn2d.py``, NumPy) within
+    the cell's limits, rms_err <= 1e-5 and max_err <= 5e-5 of the
+    reference's RMS (the TF32 control reads about 4e-4); after a warm call
+    three ``alloc`` spans of exactly 384 MiB (the four-step's two pairs of
+    64 MiB planes and the output), three ``launch`` spans, one ``route``
+    span that holds none of them, no table built, and the self times add
+    up to the root's inclusive time."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.utils import observability as obs
+    from portbench import check
+    from portbench.reference import fftn2d
+    xr, xi = _planes((4096, 4096), cuda, seed=43)
+    kt.fftn_split(xr, xi, axes=(-2, -1))
+    torch.cuda.synchronize()
+    HK.reset_counts()
+    with obs.record_spans():
+        yr, yi = kt.fftn_split(xr, xi, axes=(-2, -1))
+    torch.cuda.synchronize()
+    snap = obs.snapshot()
+    assert HK.classes["fft2_big"] == 1 and sum(HK.classes.values()) == 1
+    assert HK.launches["col_fft"] == HK.launches["row_fft"] == 1
+    assert sum(HK.launches.values()) == 2
+    assert snap["counters"]["alloc_bytes"] == 384 << 20
+    assert snap["counters"]["table_builds"] == 0
+    assert snap["spans"]["alloc"]["count"] == 3
+    assert snap["spans"]["launch"]["count"] == 3
+    route = snap["spans"]["route"]
+    assert route["count"] == 1 and route["self_ns"] == route["incl_ns"]
+    assert sum(s["self_ns"] for s in snap["spans"].values()) == \
+        snap["roots"]["incl_ns"]
+    e = check.errors(check.planes((yr, yi)),
+                     fftn2d.fft2(xr.cpu().numpy(), xi.cpu().numpy()))
+    assert e["rms_err"] <= 1e-5 and e["max_err"] <= 5e-5, e

@@ -2,7 +2,8 @@
 observability``) on the CPU: spans are off by default and record nothing;
 they record under ``torch.profiler`` and under the operator's switch;
 self time is the duration less the children's; the spans of one call
-share its call id; the ring of raw records stays bounded; threads keep
+share its call id; a 2-D call's ``route`` span closes before its axis
+kernels; the ring of raw records stays bounded; threads keep
 their own stacks; ``table_builds`` counts a first call's cache misses and
 none on an identical second call; ``hopper_kernels.reset_counts`` zeroes
 the whole registry and the span totals; and ``trace`` writes the
@@ -150,6 +151,38 @@ def test_an_entrys_spans_add_up_to_its_root(clean):
         snap["roots"]["incl_ns"]
     assert snap["spans"]["frame"]["count"] == 2   # window, framing
     assert snap["spans"]["stft_split"]["count"] == 1
+
+
+@pytest.mark.parametrize("shape,cls", [((512, 512), "fft2"),
+                                       ((2048, 1024), "fft2_big")])
+def test_a_2d_calls_route_span_closes_before_its_kernels(clean, shape,
+                                                        cls):
+    """fftn_split over the last two axes, in both 2-D kernel zones: the
+    ``route`` span (the class and the reshapes) sits under the ladder and
+    holds no span, as on the 1-D routes; the axis kernels (on the CPU
+    their plain versions, a ``tree`` span each) sit under the ladder too;
+    the self times of the call's spans add up to its root's inclusive
+    time, exactly."""
+    xr, xi = _planes(shape[-1], seed=3, batch=shape[:-1])
+    since = _last_id()
+    with obs.record_spans():
+        tk.fftn_split(xr, xi, axes=(-2, -1), device="cpu")
+    snap = obs.snapshot()
+    assert HK.classes[cls] == 1
+    assert snap["roots"]["count"] == 1
+    route = snap["spans"]["route"]
+    assert route["count"] == 1 and route["self_ns"] == route["incl_ns"]
+    assert snap["spans"]["tree"]["count"] == 2        # col_fft, row_fft
+    assert sum(v["self_ns"] for v in snap["spans"].values()) == \
+        snap["roots"]["incl_ns"]
+    (recs,) = _calls(since).values()
+    by_id = {r[0]: r for r in recs}
+    (route,) = [r for r in recs if r[1] == "route"]
+    assert by_id[route[4]][1] == "ladder"
+    assert by_id[by_id[route[4]][4]][1] == "fftn_split"
+    trees = [r for r in recs if r[1] == "tree"]
+    assert [by_id[r[4]][1] for r in trees] == ["ladder"] * 2
+    assert all(r[2] >= route[3] for r in trees)
 
 
 def test_spans_of_one_call_share_its_call_id(clean):
