@@ -97,8 +97,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    back-to-back time can be the host's enqueue); the three axis passes
    of a 128^3 grid alone, col_fft and row_fft at (1, 4096, 4096) and
    (1, 8192, 8192), and stage1 and stage2 at (1, 2048, 2048), (1, 4096,
-   4096) and (1, 8192, 8192) (kernel graph and back-to-back, plain
-   version, torch.fft.fft along the same axis, bound); the smooth-n1
+   4096) and (1, 8192, 8192), stage2_half at the last two (kernel graph
+   and back-to-back, plain version, torch.fft.fft along the same axis,
+   bound); the smooth-n1
    stage 1 (the odd plan) alone at the splits of 3*2^18, 9*2^14,
    23*2^14, 5*2^16 and 3*2^23, and fft_split at 3*2^18 and 5*2^16 beside
    torch.fft.fft; col_fft at lines of 2048 as one launch and as the
@@ -242,7 +243,12 @@ since the first slice, and replayed from a CUDA graph under
 goertzel_scan kernel's at (64, 4096), with its (64, 2^20) figures under
 ``long``; the frame kernel's at the STFT cell's shape, 8 clips of 2^20
 samples, hann(1024), hop 256, against its plain version, beside
-``torch.stft`` and with the registers ptxas reports); the last line
+``torch.stft`` and with the registers ptxas reports; and
+``stage2_cluster8``, stage 2's cluster path on lines of 4096 and 8192,
+whose launches are the stage-2 launches that took it, with the graph
+times of stage2, stage2_half and row_fft at (1, 4096, 4096) and (1,
+8192, 8192) under ``graph_ms`` and the registers and spill bytes of its
+instances under ``ptxas``); the last line
 is {"ok": true, "device": {...}}. Without a CUDA device the script exits non-zero before it prints
 any result.
 """
@@ -2496,7 +2502,8 @@ def main() -> int:
          lambda: host(*kt.fft_split(zr, zi)),
          lambda: np.fft.fft(zx, axis=-1))
     torch.cuda.synchronize()
-    launches = {k: HK.launches[k] for k in ("stage1", "stage2")}
+    launches = {k: HK.launches[k] for k in ("stage1", "stage2",
+                                            "stage2_cluster8")}
     classes = {k: HK.classes[k] for k in ("phased_flat", "phased_tiled",
                                           "ml")}
     log(f"complex path counts: launches {launches}, classes {classes}")
@@ -2547,6 +2554,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches.update({k: HK.launches[k] for k in ("stage1_real",
                                                  "stage2_half")})
+    launches["stage2_cluster8"] += HK.launches["stage2_cluster8"]
     classes.update({k: HK.classes[k] for k in ("phased_flat_real",
                                                "phased_tiled_real",
                                                "ml_real")})
@@ -3015,6 +3023,7 @@ def main() -> int:
         log(f"{view} {k}: kernel graph {gk * 1e3:.1f} us/call, back-to-back "
             f"{tk[1] * 1e3:.1f} (host enqueue {tk[2] * 1e3:.1f}); plain graph "
             f"{gp * 1e3:.1f}{lib}; bound {bd * 1e3:.2f} us ({by}) [{smi}]")
+        return gk
 
     # the three axis passes of a 128^3 grid alone: lines of 128
     for view, k, dim in (((1, 128, 16384), "col_fft", 1),
@@ -3031,8 +3040,12 @@ def main() -> int:
     # the axis kernels at the 2-D routes' long lines (col_fft's column
     # four-step at 4096 and 8192), and the 1-D stage pair at lines of 2048
     # (one-launch stage 1, whole-block stage 2), 4096 and 8192 (stage 1's
-    # column four-step, stage 2's cluster), each beside its library call
-    # along the same axis
+    # column four-step, stage 2's cluster of eight one-line CTAs, also
+    # stage2_half), each beside its library call along the same axis; the
+    # graph times of stage 2's cluster path and of row_fft, which does the
+    # same line FFTs and stores them in natural order, go to the kernels'
+    # record (stage2_cluster8)
+    long_lines = {}
     for view in [(1, 2048, 2048), (1, 4096, 4096), (1, 8192, 8192)]:
         vr, vi = planes(view)
         if view[1] > 2048:
@@ -3040,17 +3053,23 @@ def main() -> int:
             axis_row(view, "col_fft", HK.col_fft, HK.col_fft_plain, vr, vi,
                      "torch.fft.fft(dim=1)",
                      lambda: torch.fft.fft(vc, dim=1))
-            axis_row(view, "row_fft", HK.row_fft, HK.row_fft_plain, vr, vi,
-                     "torch.fft.fft(dim=2)",
-                     lambda: torch.fft.fft(vc, dim=2))
+            long_lines[f"row_fft {view}"] = axis_row(
+                view, "row_fft", HK.row_fft, HK.row_fft_plain, vr, vi,
+                "torch.fft.fft(dim=2)", lambda: torch.fft.fft(vc, dim=2))
             del vc
         axis_row(view, "stage1", HK.stage1, HK.stage1_plain, vr, vi,
                  None, None)
         cr, ci = HK.stage1(vr, vi)
         del vr, vi
         cc = torch.complex(cr, ci)
-        axis_row(view, "stage2", HK.stage2, HK.stage2_plain, cr, ci,
-                 "torch.fft.fft(C, dim=2)", lambda: torch.fft.fft(cc, dim=2))
+        g2 = axis_row(view, "stage2", HK.stage2, HK.stage2_plain, cr, ci,
+                      "torch.fft.fft(C, dim=2)",
+                      lambda: torch.fft.fft(cc, dim=2))
+        if view[1] > 2048:
+            long_lines[f"stage2 {view}"] = g2
+            long_lines[f"stage2_half {view}"] = axis_row(
+                view, "stage2_half", HK.stage2_half, HK.stage2_half_plain,
+                cr, ci, None, None)
         del cr, ci, cc
     # the smooth-n1 stage 1 (the odd plan of stage1_odd.cu) at the splits
     # of 3 * 2^18, 9 * 2^14, 23 * 2^14, 5 * 2^16 and 3 * 2^23, then the
@@ -3153,6 +3172,17 @@ def main() -> int:
         "source": "kofft_tpu_torch/ops/csrc/goertzel.cu",
         "replaces": "kofft_tpu/ops/goertzel.py:109", "also_replaces": [],
         **goertzel})
+    # stage 2's cluster path (lines of 4096 and 8192, stage2 and
+    # stage2_half in every form): no kernel of its own but a count of the
+    # stage-2 launches that took it, its graph times beside row_fft's, and
+    # the registers and spills of its instances
+    record["kernels"].append({
+        "name": "stage2_cluster8", "route": "cuda", "source": stages,
+        "replaces": f"{tpu}:569", "also_replaces": [f"{tpu}:579"],
+        "launches": launches["stage2_cluster8"],
+        "graph_ms": long_lines,
+        "ptxas": {name: list(v) for name, v in ptxas_summary(
+            B.build_info["log"], "stage2_kernel").items() if "Lb1E" in name}})
     # nor this: the JAX package frames and windows the STFT's frames and
     # transforms them on XLA's engines
     record["kernels"].append({
@@ -3170,7 +3200,8 @@ def main() -> int:
                 part: per_step[part].get(k["name"], 0)
                 for part in ("forward", "backward")}
     names = {k["name"] for k in record["kernels"]}
-    assert set(replaces) | {"goertzel_scan", "stft_frames"} == names == set(
+    assert set(replaces) | {"goertzel_scan", "stft_frames",
+                            "stage2_cluster8"} == names == set(
         HK.launches) | set(GZ.launches), (set(HK.launches)
                                           | set(GZ.launches)) ^ names
     log(json.dumps(record))

@@ -41,19 +41,30 @@
 // warp reads back 32 / T rows k2 of T consecutive k1 each and stores them
 // as >= 32-byte runs. Lines up to 2048 points: one block holds the tile
 // ((1024, 8): 512 threads, 64 KB). Lines of 4096 and 8192: T lines of
-// 8192 would need 512 KB, so a thread-block cluster of C = T / Tc CTAs
-// holds the tile, each CTA Tc whole lines (4 x (4096, 2), 8 x (8192, 1):
-// 512 threads and 64 KB each), and each CTA stores a slice of n2 / C
-// output rows. After the passes the cluster synchronises (every CTA is
-// done with its exchange buffer), each thread writes its points into the
-// buffer of the CTA that stores their rows (distributed shared memory,
-// one 128-byte row per warp store; CTA q starts with CTA q's slice, so
-// the CTAs write to different CTAs at each step), the cluster
-// synchronises again, and each CTA stores its slice from its own buffer
-// (no CTA touches another's memory after the second sync, so each may
-// exit). Both choices were measured: a distributed-shared-memory store
-// of 32 words 32 bytes apart, or all CTAs writing to one CTA at a time,
-// each made the cluster several times slower. The inverse conjugates on
+// 8192 would need 512 KB, so a thread-block cluster of T = 8 CTAs holds
+// the tile, each CTA one whole line (256 threads and 32 KB at 4096, four
+// CTAs per SM; 512 threads and 64 KB at 8192, two per SM), and each CTA
+// stores a slice of n2 / 8 output rows. After the passes the cluster
+// synchronises (every CTA is done with its exchange buffer), each thread
+// writes its points into the buffer of the CTA that stores their rows
+// (distributed shared memory, one 128-byte row per warp store; CTA q
+// starts with CTA q's slice, so the CTAs write to different CTAs at each
+// step), the cluster synchronises again, and each CTA stores its slice
+// from its own buffer (no CTA touches another's memory after the second
+// sync, so each may exit). The first synchronisation is split: a CTA
+// arrives as soon as its last exchange has been read back (the buffer is
+// free) and waits only before the push, so its last radix pass runs while
+// the cluster gathers (8192: 790 against 821-826 us; 4096: no change).
+// One line per CTA runs as many CTAs per SM as row_fft's blocks: (1, 4096,
+// 4096) in CUDA graphs on one H100 takes 163 us against 192 for the
+// earlier 4 CTAs of two lines (row_fft: 103 us). Measured and not kept
+// (PERF.md section 6): tiles of T = 4 or fewer lines without a cluster
+// (16-byte runs fill 32-byte sectors in halves: 337 us and up), pulling
+// 16-byte words from the peers, cp.async.bulk or st.async into a second
+// buffer (169-181 us), persistent clusters (214 us), clusters of 16 (178
+// us); earlier, a distributed-shared-memory store of 32 words 32 bytes
+// apart, or all CTAs writing to one CTA at a time, each made the cluster
+// several times slower. The inverse conjugates on
 // store. kHalf stores scalars at the odd row stride n/2 + 1,
 // in runs of T.
 //
@@ -136,9 +147,11 @@ constexpr int kE = 16;
 // it caps the instances that may launch it at 64 registers
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxCluster = 8;
-// every CTA of a stage-2 cluster has 512 threads (hopper_kernels
-// ._stage2_tile); two per SM keep them at 64 registers (one per SM, with
-// the ~80 registers ptxas takes otherwise, measured slower)
+// the largest CTA of a stage-2 cluster (one line of 8192 points,
+// hopper_kernels._stage2_tile); two per SM keep the instances at 64
+// registers, so the 256-thread CTAs of lines of 4096 run four per SM (one
+// CTA of 512 threads per SM, with the ~80 registers ptxas takes
+// otherwise, and three of 256 per SM were each measured slower)
 constexpr int kClusterThreads = 512;
 
 // tw != nullptr: multiply point k of column col by tw[k * (inner / tw_div)
@@ -213,6 +226,19 @@ __device__ __forceinline__ void each_from(const F& f) {
   for (int j = 0; j < kE; ++j) f((j + kFirst) % kE);
 }
 
+// The barrier of the cluster path's exchanges: the whole block, and after
+// the last exchange (its buffer read back, so free) the CTA's arrival at
+// the cluster barrier, which the kernel waits on before its push
+struct ArriveAfterLastExchange {
+  mutable int left;  // block barriers until the arrival
+  __device__ __forceinline__ void operator()() const {
+    __syncthreads();
+    if (--left == 0) {
+      asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    }
+  }
+};
+
 // How stage2_kernel stores its lines: transposed into (b, n2, n1) (the
 // 1-D spectrum), or only the one-sided bins into (b, n/2 + 1) (sgn is not
 // read)
@@ -249,7 +275,13 @@ stage2_kernel(const TIn* __restrict__ cr, const TIn* __restrict__ ci,
   for (int s = 0; s < kE; ++s) {
     v[s] = make_float2(ld(cr, g + s * tpl), ld(ci, g + s * tpl));
   }
-  kofft::radix::line_fft<kE>(v, ti, tpl, plan, tab, sre, sim, cl * m, 1);
+  if constexpr (kCluster) {
+    // every stage-2 line has >= 2 passes, so one exchange at least
+    kofft::radix::line_fft<kE>(v, ti, tpl, plan, tab, sre, sim, cl * m, 1,
+                               ArriveAfterLastExchange{2 * plan.npass - 2});
+  } else {
+    kofft::radix::line_fft<kE>(v, ti, tpl, plan, tab, sre, sim, cl * m, 1);
+  }
   const int last = plan.npass - 1;
   const Swizzle sw{plan.sw[last][0], plan.sw[last][1], plan.sw[last][2],
                    plan.sw[last][3]};
@@ -270,7 +302,7 @@ stage2_kernel(const TIn* __restrict__ cr, const TIn* __restrict__ ci,
       cluster.map_shared_rank(sre, r)[a] = v[s].x;
       cluster.map_shared_rank(sim, r)[a] = v[s].y;
     };
-    cluster.sync();
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
     switch (rank * (kE / csize)) {
       case 0: each_from<0>(push); break;
       case 2: each_from<2>(push); break;
@@ -357,7 +389,7 @@ int launch_stage2_kernel(const void* cr, const void* ci, void* yr, void* yi,
                          int device, void* stream) {
   const int csize = T / tc;
   const int threads = tc * (m / kE);
-  if (kCluster && threads != kClusterThreads) return cudaErrorInvalidValue;
+  if (kCluster && threads > kClusterThreads) return cudaErrorInvalidValue;
   const long long grid = static_cast<long long>(b) * (n1 / T) * csize;
   const int smem = static_cast<int>(2 * sizeof(float) * m * tc);
   static int allowed[kMaxDevices];
@@ -495,7 +527,8 @@ extern "C" int kofft_stage1(const void* ar, const void* ai, void* yr,
 
 // C (b, n1, n2) -> (b, n2, n1), or (half = 1) the one-sided (b, n/2 + 1)
 // planes; conj negates the imaginary part on store (not with half). T
-// lines per tile, tc per CTA (a cluster of T / tc CTAs when tc < T);
+// lines per tile, tc per CTA (a cluster of T / tc CTAs when tc < T, each
+// of at most 512 threads);
 // steps / npass / tab from hopper_kernels._stage2_plan.
 extern "C" int kofft_stage2(const void* cr, const void* ci, void* yr,
                             void* yi, int b, int n1, int n2, int T, int tc,

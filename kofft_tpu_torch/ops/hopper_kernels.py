@@ -15,7 +15,8 @@ register radix line FFT (``csrc/radix_line.cuh``): ``stage1`` (column
 FFTs of length n1 in tiles of >= 8 columns, the twiddle fused into the
 store; above 2048 points a column four-step of two launches) and
 ``stage2`` (row FFTs of length n2, stored transposed through the
-exchange buffer; lines of 4096 and 8192 through a thread-block cluster).
+exchange buffer; lines of 4096 and 8192 through a thread-block cluster
+of eight CTAs, one line each, also counted as ``stage2_cluster8``).
 A smooth n1 = o * 2^a is one more radix plan of stage 1: the power-of-two
 passes of 2^a on the o sub-lines, then one pass of radix o, in the kernel
 of ``csrc/stage1_odd.cu`` (``_odd_tile``). The routing still picks a class
@@ -119,7 +120,8 @@ _FORM_NAMES = {(base, _LETTER_DTYPE[f[0]], _LETTER_DTYPE[f[1]]):
 # registry (utils/observability.py)
 launches = _obs.counter_group("launches")
 launches.update({"stage1": 0, "stage2": 0, "stage1_real": 0,
-                 "stage2_half": 0, "col_fft": 0, "row_fft": 0,
+                 "stage2_half": 0, "stage2_cluster8": 0,
+                 "col_fft": 0, "row_fft": 0,
                  "dense_stage_a": 0, "dense_stage_b": 0,
                  "dense_stage_a_bf16x1": 0, "dense_stage_b_bf16x1": 0,
                  "stft_frames": 0})
@@ -654,13 +656,12 @@ def _split_twiddle(m1: int, m2: int):
 # ---------------------------------------------------------------------------
 # the stage kernels' host plan (csrc/fft_stages.cu): stage 1 on col_fft's
 # tiles and column four-step, stage 2 on whole-line tiles with the
-# transposed store through the exchange buffer or a cluster
+# transposed store through the exchange buffer or a cluster of 8 CTAs
 # ---------------------------------------------------------------------------
 
 _STAGE_E = 16             # points per thread: stage lines have >= 128 points
 _ROW_MIN_TILE = 8         # lines k1 per stage-2 tile: >= 32-byte store runs
 _ROW_CLUSTER_ABOVE = 2048  # longer stage-2 lines: a cluster holds the tile
-_CLUSTER_CTA_THREADS = 512  # threads of each CTA of a stage-2 cluster
 _ODD_TILE = 8             # columns per smooth-n1 stage-1 tile: 32-byte runs
 _ODD_MAX_GROUPS = 15      # sub-line groups: named barriers 1 ... 15
 _ODD_MAX_LINE = 3072      # the longest smooth n1 of _pow2_split
@@ -673,10 +674,12 @@ def _stage2_tile(m: int) -> tuple:
     runs of k1 into each output row k2, and Tc of them per CTA. Up to
     _ROW_CLUSTER_ABOVE one block holds the tile (T*m/16 threads: 256 up to
     lines of 512, 512 at 1024, 1024 at 2048; T = 32 at 128 and 16 at 256).
-    Longer lines: a cluster of T/Tc CTAs of 512 threads, each holding
-    Tc = 8192/m whole lines (4 x (4096, 2), 8 x (8192, 1))."""
+    Longer lines: a cluster of T = 8 CTAs, each holding one whole line
+    (m/16 threads: 256 at 4096, four CTAs per SM; 512 at 8192), so that
+    as many CTAs share an SM as row_fft's blocks do (the earlier 4 CTAs of
+    two lines of 4096 ran two per SM and took 17 % longer)."""
     if m > _ROW_CLUSTER_ABOVE:
-        return _ROW_MIN_TILE, _CLUSTER_CTA_THREADS * _STAGE_E // m
+        return _ROW_MIN_TILE, 1
     t = max(_ROW_MIN_TILE, _AXIS_THREADS * _STAGE_E // m)
     return t, t
 
@@ -903,7 +906,9 @@ def _stage1_kernel(ar, ai, conj: bool, c_dtype):
 
 def _stage2_kernel(cr, ci, yr, yi, conj: bool, half: bool) -> None:
     """Stage 2 on CUDA planes into yr, yi: (b, n2, n1), or the one-sided
-    (b, n/2 + 1) planes for ``half``."""
+    (b, n/2 + 1) planes for ``half``; a launch on lines of 4096 or 8192
+    (the cluster of ``_stage2_tile``) also counts as
+    ``stage2_cluster8``."""
     from ._cuda_build import check, lib
     b, n1, n2 = cr.shape
     dev = cr.device
@@ -917,6 +922,8 @@ def _stage2_kernel(cr, ci, yr, yi, conj: bool, half: bool) -> None:
         _stream(dev)), "stage2 launch")
     if sp:
         _obs.end(sp)
+    if n2 > _ROW_CLUSTER_ABOVE:
+        launches["stage2_cluster8"] += 1
 
 
 def stage1(ar, ai, conj: bool = False, c_dtype=_F32):

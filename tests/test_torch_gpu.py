@@ -107,6 +107,94 @@ def test_stages_match_plain(cuda, b, n, conj):
     assert snr_db(ref, _np(yr, yi).reshape(b, n)) > ORACLE_DB
 
 
+def _snr_on_card(want, got):
+    """snr_db of two (re, im) plane pairs, computed on the card in
+    float64 (the 2^26-point cases would take seconds on the host)."""
+    num = sum((w.double() ** 2).sum() for w in want)
+    den = sum(((g.double() - w.double()) ** 2).sum()
+              for w, g in zip(want, got))
+    return float(10 * torch.log10(num / den))
+
+
+# the cluster path of stage 2 (lines of 4096 and 8192) at the splits of
+# 2^23, 2^24, 2^24 in a batch of 2, and 2^26
+LONG_LINES = [(1, 2048, 4096), (1, 4096, 4096), (2, 4096, 4096),
+              (1, 8192, 8192)]
+
+
+def _long_line_cases():
+    return ([("stage2", f, conj) for f in HK._IO_FORMS["stage2"]
+             for conj in (False, True)]
+            + [("stage2_half", f, False)
+               for f in HK._IO_FORMS["stage2_half"]])
+
+
+@pytest.mark.parametrize("shape", LONG_LINES)
+@pytest.mark.parametrize("base,form,conj", _long_line_cases())
+def test_stage2_long_lines_match_plain(cuda, shape, base, form, conj):
+    """stage2 (forward and conj) and stage2_half on the cluster of eight
+    one-line CTAs, every I/O form, against their plain versions on the
+    same card tensors: float32 outputs >= 110 dB, bf16 outputs >= 70 dB
+    in bf16 (the floor of test_bf16_forms_match_plain); one count in
+    ``stage2_cluster8`` per launch."""
+    loads, stores = (HK._LETTER_DTYPE[c] for c in form)
+    cr, ci = _planes(shape, cuda, seed=sum(shape))
+    cr, ci = cr.to(loads), ci.to(loads)
+    before = dict(HK.launches)
+    if base == "stage2":
+        got = HK.stage2(cr, ci, conj, dtype=stores)
+        want = HK.stage2_plain(cr, ci, conj, dtype=stores)
+    else:
+        got = HK.stage2_half(cr, ci, dtype=stores)
+        want = HK.stage2_half_plain(cr, ci, dtype=stores)
+    torch.cuda.synchronize()
+    assert got[0].dtype == stores and got[0].shape == want[0].shape
+    floor = PORT_DB if stores == torch.float32 else BF16_PLAIN_DB
+    assert _snr_on_card(want, got) >= floor
+    assert HK.launches["stage2_cluster8"] == before["stage2_cluster8"] + 1
+    name = HK._form(base, loads, stores)
+    assert HK.launches[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("n", [1 << 23, 1 << 24, 1 << 25])
+def test_fft_split_long_lines_at_the_cell_limits(cuda, n):
+    """fft_split at 2^23, 2^24 (the benchmark's 1-D stream cell) and 2^25,
+    whose stage 2 runs the cluster path, against the float64 NumPy FFT
+    within the 2^24 cell's limits: rms_err <= 1e-5 and max_err <= 5e-5 of
+    the reference's RMS (the program reads about 1.9e-7 there); stage1,
+    stage2 and stage2_cluster8 count one launch each."""
+    import kofft_tpu_torch as kt
+    from portbench import check
+    xr, xi = _planes((n,), cuda, seed=n.bit_length())
+    HK.reset_counts()
+    yr, yi = kt.fft_split(xr, xi)
+    torch.cuda.synchronize()
+    assert HK.launches["stage1"] == HK.launches["stage2"] == 1
+    assert HK.launches["stage2_cluster8"] == 1
+    e = check.errors(check.planes((yr, yi)), np.fft.fft(_np(xr, xi)))
+    assert e["rms_err"] <= 1e-5 and e["max_err"] <= 5e-5, e
+
+
+def test_cluster8_counts_only_long_lines(cuda):
+    """``stage2_cluster8`` counts the launches on lines of 4096 and 8192
+    and nothing at lines of 1024 (the 2^20 transform's one-block tile) or
+    2048."""
+    import kofft_tpu_torch as kt
+    HK.reset_counts()
+    for n in (1 << 20, 1 << 22):
+        xr, xi = _planes((n,), cuda, seed=3)
+        kt.fft_split(xr, xi)
+        kt.rfft_split(xr)
+    torch.cuda.synchronize()
+    assert HK.launches["stage2"] == HK.launches["stage2_half"] == 2
+    assert HK.launches["stage2_cluster8"] == 0
+    xr, xi = _planes((1 << 24,), cuda, seed=4)
+    kt.fft_split(xr, xi)
+    kt.rfft_split(xr)
+    torch.cuda.synchronize()
+    assert HK.launches["stage2_cluster8"] == 2
+
+
 def test_inverse_and_donate(cuda):
     n = 1 << 16
     xr, xi = _planes((2, n), cuda, seed=1)

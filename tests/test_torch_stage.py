@@ -4,8 +4,10 @@ kernels index memory: stage 1's column tiles with the four-step twiddle
 fused into the store (float2 factor tables), its column four-step above
 2048 points with the split twiddle and the digit-swapped store, stage 2's
 whole-line tiles with the transposed store through the swizzled exchange
-buffer, its cluster of CTAs at lines of 4096 and 8192 (each point sent to
-the CTA that stores its output row), the one-sided store with the
+buffer, its cluster of eight one-line CTAs at lines of 4096 and 8192
+(each point sent to the CTA that stores its output row, the cluster's
+first barrier arrived at after the last exchange), the one-sided store
+with the
 Nyquist bin, and conj on both sides; and stage 1 of a smooth n1 = o * q
 (csrc/stage1_odd.cu): the sub-lines of q in thread groups, exchanged in
 their sub-tiles, and the odd pass with its own thread map and the pair-form
@@ -465,7 +467,7 @@ def test_cluster_slices_cover_the_rows(n2):
     n1 = 16
     t, tc = HK._stage2_tile(n2)
     cs = t // tc
-    assert (t, cs) == {4096: (8, 4), 8192: (8, 8)}[n2]
+    assert (t, cs) == (8, 8)
     blocks = np.arange(cs)
     _, _, _, rank, _, dest, word, idx, k, _ = _s2_index(1, n1, n2, blocks)
     sl = n2 // cs
@@ -476,6 +478,96 @@ def test_cluster_slices_cover_the_rows(n2):
     assert np.array_equal(np.sort(k.ravel()),
                           np.sort((np.arange(n2)[:, None] * n1
                                    + np.arange(t)).ravel()))
+
+
+@pytest.mark.parametrize("half", [False, True])
+@pytest.mark.parametrize("n2", [4096, 8192])
+def test_cluster8_stores_every_bin_once(n2, half):
+    """Over every CTA of a (2, 16, n2) launch on the cluster of eight
+    one-line CTAs, each output bin is stored exactly once: every (k2, k1)
+    of (b, n2, n1), or, one-sided, every flat bin k <= n/2 of (b, n/2 +
+    1), the Nyquist bin of each batch row included."""
+    b, n1 = 2, 16
+    t, tc = HK._stage2_tile(n2)
+    blocks = np.arange(b * (n1 // t) * (t // tc))
+    *_, k, row = _s2_index(b, n1, n2, blocks)
+    rows = np.broadcast_to(row[:, None, None], k.shape)
+    n = n1 * n2
+    if half:
+        keep = k <= n // 2
+        flat = rows[keep] * (n // 2 + 1) + k[keep]
+        size = b * (n // 2 + 1)
+    else:
+        flat = (rows * n + k).ravel()
+        size = b * n
+    assert np.array_equal(np.bincount(flat, minlength=size),
+                          np.ones(size, np.int64))
+
+
+@pytest.mark.parametrize("n2", [4096, 8192])
+def test_cluster8_exchange_words_written_once_before_read(n2):
+    """The push of one cluster (eight CTAs, one line each) writes every
+    word of every CTA's exchange buffer exactly once, and the read-back
+    after the second barrier reads every word once, each of them written:
+    no word is read unwritten or overwritten before it is read."""
+    n1 = 8
+    t, tc = HK._stage2_tile(n2)
+    cs = t // tc
+    assert tc == 1 and cs == 8
+    blocks = np.arange(cs)
+    _, _, _, _, _, dest, word, idx, _, _ = _s2_index(1, n1, n2, blocks)
+    sw = tuple(HK._stage2_plan(n2, t, tc)[0].reshape(-1, 7)[-1, 3:])
+    words = tc * n2
+    writes = np.zeros((cs, words), np.int64)
+    np.add.at(writes, (dest, HK._swizzle(word, sw)), 1)
+    assert np.all(writes == 1)
+    sl = n2 // cs
+    reads = np.zeros((cs, words), np.int64)
+    phys = np.broadcast_to(HK._swizzle((idx % t) * sl + idx // t, sw),
+                           (cs,) + idx.shape)
+    np.add.at(reads, (np.broadcast_to(blocks[:, None, None], phys.shape),
+                      phys), 1)
+    assert np.all(reads == 1)
+
+
+@pytest.mark.parametrize("n2", [4096, 8192])
+def test_cluster8_ctas_share_an_sm_as_row_fft_blocks(n2):
+    """Each CTA of the cluster holds one whole line: n2/16 threads and
+    8 * n2 bytes of exchange buffer, as row_fft's block for the same line;
+    at 64 registers a thread (the cluster instances' launch bound of 512
+    threads, two per SM) four CTAs of lines of 4096 fit an SM's 65536
+    registers and 227 KB, and two of lines of 8192."""
+    t, tc = HK._stage2_tile(n2)
+    threads = tc * n2 // E
+    smem = 8 * n2 * tc
+    assert (threads, smem) == (n2 // E, 8 * n2)
+    assert (threads, smem) == (HK._axis_tile("row", n2, 1 << 20)[0] * n2
+                               // E, HK._axis_smem(n2, 1))
+    per_sm = min(65536 // (64 * threads), SMEM_MAX // smem, 2048 // threads)
+    assert per_sm == {4096: 4, 8192: 2}[n2]
+
+
+@pytest.mark.parametrize("n2", [4096, 8192])
+def test_cluster_arrival_follows_the_last_exchange(n2):
+    """The cluster kernel arrives at its first cluster barrier on the
+    block barrier numbered 2 * npass - 2 of line_fft: each pass but the
+    last exchanges through the buffer between two block barriers
+    (radix_line.cuh), so that one is the barrier after the last
+    exchange's read-back, when the buffer is free for the peers' push;
+    the wait comes after the last radix pass, before the push."""
+    steps, _ = HK._stage2_plan(n2, *HK._stage2_tile(n2))
+    npass = len(steps) // 7
+    line = (CSRC / "radix_line.cuh").read_text()
+    body = line[line.index("radix_pass(float2"):line.index("// The whole line")]
+    assert body.count("sync();") == 2
+    assert body.index("if (last) return;") < body.index("sync();")
+    src = (CSRC / "fft_stages.cu").read_text()
+    assert "ArriveAfterLastExchange{2 * plan.npass - 2}" in src
+    assert 2 * npass - 2 == 2 * (npass - 1) >= 2
+    kern = src[src.index("stage2_kernel(const TIn*"):]
+    assert (kern.index("ArriveAfterLastExchange{")
+            < kern.index("barrier.cluster.wait.acquire.aligned")
+            < kern.index("each_from<0>(push)"))
 
 
 # ---------------------------------------------------------------------------

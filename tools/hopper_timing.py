@@ -5,7 +5,7 @@ can be compared in turns.
 
     python tools/hopper_timing.py [--root DIR] [--label NAME] [--out FILE]
                                   [--kinds kernel,split,route,path,dense,
-                                           smooth,stft]
+                                           smooth,stft,stage2]
 
 ``--root`` is the checkout whose ``kofft_tpu_torch`` is imported (default:
 this one), so a parent tree unpacked beside it can be timed by the same
@@ -51,6 +51,10 @@ same zero-padded signal (center=False) and torch.istft (center=True,
 since center=False refuses a window whose envelope is 0 at sample 0;
 back to back only: it reads the envelope's minimum back to the host,
 which a graph cannot capture); a row's ``shape`` is (frames, win).
+``stage2`` stage 2's long lines beside ``row_fft``, which does the same
+line FFTs and stores them in natural order: stage2 and stage2_half at (1,
+4096, 4096) and (1, 8192, 8192), stage2 also at (1, 2048, 4096) and (2,
+4096, 4096), and row_fft at the first two.
 ``--kinds`` lists the groups in the order they run, a group may come
 twice (``path,kernel,path`` times the paths before and after the kernel
 rows in one process); each row carries ``pos``, its group's place in that
@@ -91,7 +95,7 @@ def main() -> int:
     ap.add_argument("--kinds", default="kernel,split,route,path",
                     help="row groups in the order they run: kernel (with "
                          "its library rows), split, route, path, dense, "
-                         "smooth, stft")
+                         "smooth, stft, stage2")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -269,9 +273,22 @@ def main() -> int:
                                     onesided=False), graph=False)
             del x, fr, fi, xpad, spec
 
+    def stage2_rows(pos):
+        for shape in [(1, 4096, 4096), (1, 8192, 8192), (1, 2048, 4096),
+                      (2, 4096, 4096)]:
+            cr, ci = planes(shape)
+            row(pos, "stage2", "stage2", shape, lambda: HK.stage2(cr, ci))
+            if shape[0] == 1 and shape[1] == shape[2]:
+                row(pos, "stage2", "stage2_half", shape,
+                    lambda: HK.stage2_half(cr, ci))
+                row(pos, "stage2", "row_fft", shape,
+                    lambda: HK.row_fft(cr, ci))
+            del cr, ci
+
     groups = {"kernel": kernel_rows, "split": split_rows,
               "route": route_rows, "path": path_rows, "dense": dense_rows,
-              "smooth": smooth_rows, "stft": stft_rows}
+              "smooth": smooth_rows, "stft": stft_rows,
+              "stage2": stage2_rows}
     for pos, kind in enumerate(args.kinds.split(",")):
         emit({"label": args.label, "pos": pos, "kind": "state", "name": kind,
               "state": smi("clocks.sm,clocks.mem,temperature.gpu,"
