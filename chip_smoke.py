@@ -40,9 +40,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (1, 4096, 2048) on both sides of col_fft's column four-step, (1, 4096,
    4096), (1, 8192, 8192)), the four-step at 2048 (as phase 6 times it),
    the three axis passes of a 128^3 grid against its fftn, and the
-   fused_nd route (d launches) against fused_nd_plain at 128^3 and (512,
-   256); then dense_stage_a and dense_stage_b on the `highest` tier
-   (tf32x3) and the `default` tier (bf16x1) against their plain versions
+   axes route over every axis (d launches) against fused_nd_plain at
+   128^3 and (512, 256); then dense_stage_a and dense_stage_b on the
+   `highest` tier (tf32x3) and the `default` tier (bf16x1) against their plain versions
    on that tier (100 dB), and fused_four_step_fft against a float64 FFT
    (100 dB, `default` 42 dB) with its peak device memory, at 2^14,
    (3, 2^14), 3*2^14, 2^20, (8, 2^20), 2^24 and 2^26; every other SNR
@@ -58,13 +58,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    frame kernel; the complex and the real path include the smooth 3*2^18,
    whose stage-1 launches on the odd plan are read apart) with every count
    set to 0 just before each path; each case checks its output against a
-   float64 oracle and that its TPU-kernel class count rose; the kernel
+   float64 oracle and that its route count rose (the port's routes:
+   stages, stages_real, axes, four_step, stft_frames); the kernel
    launch counts are read just after each path; one real case passes
    numpy input with no device, which must land on the card; the N-D path
-   runs all three N-D classes (fft2, fft2_big, fused_nd), the cuFFT zone
-   and the per-axis route; bf16 planes must come back bf16 (>= 40 dB), and
-   the `default` tier's float32 route float32 (>= 42 dB); every kernel
-   form and every class must have launched;
+   runs the axis route over the zones of the JAX package's three N-D
+   kernels, the cuFFT zone and the per-axis route; bf16 planes must come
+   back bf16 (>= 40 dB), and the `default` tier's float32 route float32
+   (>= 42 dB), each case launching the stage forms of its element types;
+   every kernel form and every route must have launched;
 5. gradient: backward through fft_split and through rfft_split at 2^20,
    through fft2 at 1024^2, through fftn_split at 128^3 and through
    fft_split on bf16 planes at 2^20, against the analytic gradient (the
@@ -186,7 +188,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    engine; (b) fftn_sharded on 512^3 with backend "cuda" and "torch",
    sequential and overlap=4, against complex128 fftn (100 dB), the
    sequential "cuda" run launching col_fft and row_fft (its 512^2 slabs
-   are in fused_2d_zone), timed beside fftn_split and torch.fft.fftn;
+   are in the kernel zone), timed beside fftn_split and torch.fft.fftn;
    (c) stft_sharded / istft_sharded on 2^26 samples at hann(1024)/hop
    256 and hann(16384)/hop 4096 against the two-sided stft_split and
    istft_split (110 dB, the ISTFTs on the interior) and the push
@@ -1546,6 +1548,7 @@ def phase_parallel(dev, smi, n_fft: int = 1 << 28, cube: int = 512,
     from kofft_tpu_torch import parallel as P
     from kofft_tpu_torch.entry import dryrun_multichip
     from kofft_tpu_torch.ops import hopper_kernels as HK
+    from kofft_tpu_torch.ops import ndfft as ND
     from kofft_tpu_torch.parallel import validate as V
     from kofft_tpu_torch.parallel.fft_sharded import _split_for_mesh
     from kofft_tpu_torch.plan import tables
@@ -1671,8 +1674,8 @@ def phase_parallel(dev, smi, n_fft: int = 1 << 28, cube: int = 512,
     # -- (b) the N-D slab program on cube^3, (d) its hierarchical form ---
     shape = (cube,) * 3
     log(f"(b) fftn_sharded on {shape}: local slabs of {cube}^2 in "
-        f"fused_2d_zone ({HK.fused_2d_zone(shape, (1, 2))}) take col_fft + "
-        f"row_fft under backend='cuda'")
+        f"the kernel zone ({ND._kernel_nd_zone(shape, (1, 2))}) take "
+        f"col_fft + row_fft under backend='cuda'")
     br, bi = plane(shape), plane(shape)
     big = torch.fft.fftn(torch.complex(br.double(), bi.double()))
     ref = (big.real, big.imag)
@@ -2288,12 +2291,12 @@ def main() -> int:
     assert min(snrs) > AXIS_DB and so > FLOOR_DB, (snrs, so)
     for shape in [(128, 128, 128), (512, 256)]:
         xr, xi = planes(shape)
-        yr, yi = HK.fused_ndfft_planes(xr, xi)
+        yr, yi = HK.axes_fft_planes(xr, xi)
         pr, pi = HK.fused_nd_plain(xr, xi)
         torch.cuda.synchronize()
         sp = snr_db(host(pr, pi), host(yr, yi))
         so = snr_db(np.fft.fftn(host(xr, xi)), host(yr, yi))
-        log(f"{shape}: fused_nd route ({len(shape)} launches) vs "
+        log(f"{shape}: axes route ({len(shape)} launches) vs "
             f"fused_nd_plain {sp:.2f} dB, vs float64 fftn {so:.2f} dB")
         assert min(sp, so) > FLOOR_DB, (shape, sp, so)
     del ar, ai, xr, xi, yr, yi, pr, pi
@@ -2447,16 +2450,22 @@ def main() -> int:
     log("-- the complex FFT")
     HK.reset_counts()
 
-    def case(name, cls, fn, ref_fn, floor=FLOOR_DB):
+    def case(name, cls, fn, ref_fn, floor=FLOOR_DB, forms=()):
+        """``cls``: the route whose count must rise (None: no route);
+        ``forms``: launch names (the stage forms of the case's element
+        types) whose counts must rise too."""
         before = dict(HK.classes)
+        launched = {k: HK.launches[k] for k in forms}
         t = time.perf_counter()
         got = fn()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
         s = snr_db(ref_fn(), got)
-        rose = cls is None or HK.classes[cls] > before[cls]
-        log(f"{name}: {s:.2f} dB vs float64 oracle, class "
-            f"{cls or 'none'} {'rose' if rose else 'DID NOT RISE'}, "
+        rose = ((cls is None or HK.classes[cls] > before[cls])
+                and all(HK.launches[k] > v for k, v in launched.items()))
+        log(f"{name}: {s:.2f} dB vs float64 oracle, route "
+            f"{cls or 'none'} {'rose' if rose else 'DID NOT RISE'}"
+            f"{', forms ' + ' '.join(forms) if forms else ''}, "
             f"{ms:.3f} ms host (first call)")
         assert s > floor and rose, (name, s, floor, rose)
 
@@ -2467,29 +2476,29 @@ def main() -> int:
              lambda: host(*kt.fft_split(xr, xi)),
              lambda: np.fft.fft(x, axis=-1))
 
-    split_case((1 << 20,), "phased_flat")
-    split_case((8, 1 << 20), "phased_tiled")
+    split_case((1 << 20,), "stages")
+    split_case((8, 1 << 20), "stages")
     tr, ti = planes((8, 1024, 1024))
     tx = host(tr, ti).reshape(8, -1)
-    case("fft_split_tiled (8, 1024, 1024)", "phased_tiled",
+    case("fft_split_tiled (8, 1024, 1024)", "stages",
          lambda: host(*kt.fft_split_tiled(tr, ti)).reshape(8, -1),
          lambda: np.fft.fft(tx, axis=-1))
     del tr, ti, tx
-    split_case((1 << 24,), "ml")
-    split_case((1 << 26,), "ml")
-    split_case((8, 1 << 14), "ml")
+    split_case((1 << 24,), "stages")
+    split_case((1 << 26,), "stages")
+    split_case((8, 1 << 14), "stages")
     # a smooth n1 (768 = 3 * 2^8 at 3 * 2^18): stage 1 on the odd plan of
     # stage1_odd.cu, counted under stage1 and read apart here
     before = HK.launches["stage1"]
-    split_case((3 << 18,), "phased_flat")
+    split_case((3 << 18,), "stages")
     smooth_launches = {"fft_split": HK.launches["stage1"] - before}
     assert smooth_launches["fft_split"] > 0
     xr, xi = planes((1 << 20,))
     x = host(xr, xi)
-    case("ifft_split(fft_split(x)) 2^20", "phased_flat",
+    case("ifft_split(fft_split(x)) 2^20", "stages",
          lambda: host(*kt.ifft_split(*kt.fft_split(xr, xi))), lambda: x)
     xc = torch.complex(xr, xi)
-    case("fft complex64 2^20", "phased_flat",
+    case("fft complex64 2^20", "stages",
          lambda: kt.fft(xc).cpu().numpy(), lambda: np.fft.fft(x))
     for n in (4099, 10 ** 6):
         br, bi = planes((n,))
@@ -2504,8 +2513,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {k: HK.launches[k] for k in ("stage1", "stage2",
                                             "stage2_cluster8")}
-    classes = {k: HK.classes[k] for k in ("phased_flat", "phased_tiled",
-                                          "ml")}
+    classes = {"stages": HK.classes["stages"]}
     log(f"complex path counts: launches {launches}, classes {classes}")
     del xr, xi, xc, zr, zi
 
@@ -2521,20 +2529,20 @@ def main() -> int:
             fn = lambda: host(*kt.rfft_split(x))         # noqa: E731
         case(f"{entry} {shape}", cls, fn, lambda: np.fft.rfft(xh, axis=-1))
 
-    rfft_case((1 << 20,), "phased_flat_real", "rfft")
-    rfft_case((8, 1 << 20), "phased_tiled_real", "rfft_split")
-    rfft_case((1 << 24,), "ml_real", "rfft")
-    rfft_case((1 << 26,), "ml_real", "rfft")
-    rfft_case((8, 1 << 14), "ml_real", "rfft")
+    rfft_case((1 << 20,), "stages_real", "rfft")
+    rfft_case((8, 1 << 20), "stages_real", "rfft_split")
+    rfft_case((1 << 24,), "stages_real", "rfft")
+    rfft_case((1 << 26,), "stages_real", "rfft")
+    rfft_case((8, 1 << 14), "stages_real", "rfft")
     before = HK.launches["stage1_real"]
-    rfft_case((3 << 18,), "phased_flat_real", "rfft_split")
+    rfft_case((3 << 18,), "stages_real", "rfft_split")
     smooth_launches["rfft_split"] = HK.launches["stage1_real"] - before
     log(f"smooth-n1 stage 1 (odd plan, stage1_odd.cu) launches on the "
         f"main paths at 3 * 2^18: {smooth_launches}")
     assert smooth_launches["rfft_split"] > 0
     x = real((1 << 20,))
     xh = x.double().cpu().numpy()
-    case("irfft(rfft(x)) 2^20", "phased_flat_real",
+    case("irfft(rfft(x)) 2^20", "stages_real",
          lambda: kt.irfft(kt.rfft(x), n=1 << 20).cpu().numpy(), lambda: xh)
     xn = rng.standard_normal(1 << 20, dtype=np.float32)
     landed = []
@@ -2544,7 +2552,7 @@ def main() -> int:
         landed.append(y.device.type)
         return y.cpu().numpy()
 
-    case("rfft of numpy input, default device, 2^20", "phased_flat_real",
+    case("rfft of numpy input, default device, 2^20", "stages_real",
          numpy_rfft, lambda: np.fft.rfft(xn.astype(np.float64)))
     assert landed == ["cuda"], landed
     x = real((10 ** 6,))
@@ -2555,9 +2563,7 @@ def main() -> int:
     launches.update({k: HK.launches[k] for k in ("stage1_real",
                                                  "stage2_half")})
     launches["stage2_cluster8"] += HK.launches["stage2_cluster8"]
-    classes.update({k: HK.classes[k] for k in ("phased_flat_real",
-                                               "phased_tiled_real",
-                                               "ml_real")})
+    classes["stages_real"] = HK.classes["stages_real"]
     log(f"real path counts: launches {HK.launches}, classes {HK.classes}")
     del x, xh, xn
 
@@ -2576,30 +2582,31 @@ def main() -> int:
         case(f"{entry} {shape} axes {axes}", cls,
              lambda: fn().cpu().numpy(), lambda: np.fft.fftn(x, axes=axes))
 
-    nd_case((1024, 1024), "fft2", entry="fft2")
-    nd_case((8, 512, 512), "fft2", entry="fft2")
-    nd_case((2048, 2048), "fft2_big", entry="fft2")
-    nd_case((4096, 4096), "fft2_big", entry="fft2")
-    nd_case((8192, 8192), "fft2_big", entry="fft2")
-    nd_case((128, 128, 128), "fused_nd")
-    nd_case((512, 256), "fused_nd")
+    nd_case((1024, 1024), "axes", entry="fft2")
+    nd_case((8, 512, 512), "axes", entry="fft2")
+    nd_case((2048, 2048), "axes", entry="fft2")
+    nd_case((4096, 4096), "axes", entry="fft2")
+    nd_case((8192, 8192), "axes", entry="fft2")
+    nd_case((128, 128, 128), "axes")
+    nd_case((512, 256), "axes")
     xr, xi = planes((1024, 1024))
     x = host(xr, xi)
     xc = torch.complex(xr, xi)
-    case("ifft2(fft2(x)) 1024^2", "fft2",
+    case("ifft2(fft2(x)) 1024^2", "axes",
          lambda: kt.ifft2(kt.fft2(xc)).cpu().numpy(), lambda: x)
     xr, xi = planes((128, 128, 128))
     x = host(xr, xi)
-    case("fftn_split inverse (128, 128, 128)", "fused_nd",
+    case("fftn_split inverse (128, 128, 128)", "axes",
          lambda: host(*kt.fftn_split(xr, xi, inverse=True)),
          lambda: np.fft.ifftn(x))
     x = real((4, 8, 1 << 17))
     xh = x.double().cpu().numpy()
-    case("rfftn (4, 8, 2^17)", "ml_real", lambda: kt.rfftn(x).cpu().numpy(),
+    case("rfftn (4, 8, 2^17)", "stages_real",
+         lambda: kt.rfftn(x).cpu().numpy(),
          lambda: np.fft.rfftn(xh))
     nd_case((1024, 16384), None)            # cuFFT zone
     # per-axis: the 2^17-point axis takes the 1-D stage kernels
-    nd_case((128, 2, 1 << 17), "ml", axes=(0, 2))
+    nd_case((128, 2, 1 << 17), "stages", axes=(0, 2))
     torch.cuda.synchronize()
     nd_launches = dict(HK.launches)
     nd_classes = dict(HK.classes)
@@ -2607,11 +2614,9 @@ def main() -> int:
     assert all(nd_launches[k] > 0 for k in (
         "stage1", "stage2", "stage1_real", "stage2_half", "col_fft",
         "row_fft")), nd_launches
-    assert all(nd_classes[k] > 0 for k in ("fft2", "fft2_big", "fused_nd")), \
-        nd_classes
+    assert nd_classes["axes"] >= 9, nd_classes
     launches.update({k: nd_launches[k] for k in ("col_fft", "row_fft")})
-    classes.update({k: nd_classes[k] for k in ("fft2", "fft2_big",
-                                               "fused_nd")})
+    classes["axes"] = nd_classes["axes"]
     del x, xh, xr, xi, xc
 
     log("-- the dense four-step pair, bf16 planes and the `default` tier")
@@ -2640,27 +2645,35 @@ def main() -> int:
              lambda: np.fft.fft(x, axis=-1))
     bf16 = torch.bfloat16
 
-    def bf16_cases(shape, cls, floor=BF16_DB):
+    def stage_forms(sfx, real=False):
+        """The launch names of the stage pair's I/O forms ``sfx`` (the
+        suffixes of stage 1 and stage 2, "" for float32 in and out)."""
+        names = ("stage1_real", "stage2_half") if real else ("stage1",
+                                                             "stage2")
+        return tuple(n + f for n, f in zip(names, sfx))
+
+    def bf16_cases(shape, sfx, floor=BF16_DB):
         """fft_split and rfft_split on bf16 planes: bf16 out, against the
-        float64 FFT of the bf16 input."""
+        float64 FFT of the bf16 input, launching the stage forms ``sfx``
+        (bf16 in, C as the JAX phased grid keeps it)."""
         br, bi = (t.to(bf16) for t in planes(shape))
         bx = host(br, bi)
-        case(f"fft_split bf16 {shape}", cls,
+        case(f"fft_split bf16 {shape}", "stages",
              lambda: typed(kt.fft_split(br, bi), bf16),
-             lambda: np.fft.fft(bx, axis=-1), floor)
-        case(f"rfft_split bf16 {shape}", cls + "_real",
+             lambda: np.fft.fft(bx, axis=-1), floor, stage_forms(sfx))
+        case(f"rfft_split bf16 {shape}", "stages_real",
              lambda: typed(kt.rfft_split(br), bf16),
-             lambda: np.fft.rfft(bx.real, axis=-1), floor)
+             lambda: np.fft.rfft(bx.real, axis=-1), floor,
+             stage_forms(sfx, real=True))
 
-    bf16_cases((1 << 20,), "phased_tiled")
-    bf16_cases((8, 1 << 20), "phased_tiled")
-    before = {k: HK.launches[k] for k in ("stage1", "stage2")}
+    bf16_cases((1 << 20,), ("_bf", "_fb"))
+    bf16_cases((8, 1 << 20), ("_bf", "_fb"))
     br, bi = (t.to(bf16) for t in planes((1 << 24,)))
     bx = host(br, bi)
-    case("fft_split bf16 (16777216,), the float32 route", "ml",
+    # above the phased cap: the float32 forms, rounded back
+    case("fft_split bf16 (16777216,), the float32 types", "stages",
          lambda: typed(kt.fft_split(br, bi), bf16),
-         lambda: np.fft.fft(bx), BF16_DB)
-    assert all(HK.launches[k] > v for k, v in before.items()), HK.launches
+         lambda: np.fft.fft(bx), BF16_DB, stage_forms(("", "")))
     del br, bi, bx
     kt.set_precision("default")
     log(f"precision tier: {kt.get_config().precision}")
@@ -2674,24 +2687,28 @@ def main() -> int:
                            torch.float32),
              lambda: np.fft.fft(x, axis=-1), DEFAULT_DB)
         del xr, xi, x
-    for shape, cls in [((8, 1 << 20), "phased_tiled"),
-                       ((1 << 24,), "phased_tiled"), ((1 << 26,), "ml")]:
+    # float32 planes read as bf16; C float32 where the JAX phased grid
+    # serves the shape through 2^23, else bf16; the output float32
+    for shape, sfx in [((8, 1 << 20), ("_bf", "")),
+                       ((1 << 24,), ("_bb", "_bf")),
+                       ((1 << 26,), ("_bb", "_bf"))]:
         xr, xi = planes(shape)
         x = host(xr, xi)
-        case(f"fft_split default tier {shape}", cls,
+        case(f"fft_split default tier {shape}", "stages",
              lambda: typed(kt.fft_split(xr, xi), torch.float32),
-             lambda: np.fft.fft(x, axis=-1), DEFAULT_DB)
+             lambda: np.fft.fft(x, axis=-1), DEFAULT_DB, stage_forms(sfx))
         del xr, xi, x
-    for shape, cls in [((8, 1 << 20), "phased_tiled_real"),
-                       ((1 << 26,), "ml_real")]:
+    for shape, sfx in [((8, 1 << 20), ("_bf", "")),
+                       ((1 << 26,), ("_bb", "_bf"))]:
         xr = real(shape)
         x = xr.double().cpu().numpy()
-        case(f"rfft_split default tier {shape}", cls,
+        case(f"rfft_split default tier {shape}", "stages_real",
              lambda: typed(kt.rfft_split(xr), torch.float32),
-             lambda: np.fft.rfft(x, axis=-1), DEFAULT_DB)
+             lambda: np.fft.rfft(x, axis=-1), DEFAULT_DB,
+             stage_forms(sfx, real=True))
         del xr, x
     # bf16 planes above 2^23 on this tier: C stays bf16 (the phased sdt)
-    bf16_cases((1 << 24,), "phased_tiled", DEFAULT_DB)
+    bf16_cases((1 << 24,), ("_bb", "_bb"), DEFAULT_DB)
     kt.set_precision(None)
     log(f"precision tier: {kt.get_config().precision}")
     torch.cuda.synchronize()
@@ -2755,7 +2772,7 @@ def main() -> int:
     (yr * gr + yi * gi).sum().backward()
     s = snr_db(np.fft.ifftn(host(gr, gi)) * xr.numel(),
                host(xr.grad, xi.grad))
-    log(f"fftn_split grad (128^3, route fused_nd) vs unnormalized inverse "
+    log(f"fftn_split grad (128^3, route axes) vs unnormalized inverse "
         f"of the cotangent: {s:.2f} dB")
     assert s > FLOOR_DB, s
     del xr, xi, gr, gi, xc, y, yr, yi

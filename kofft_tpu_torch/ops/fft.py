@@ -32,6 +32,9 @@ from ..plan import (DftLeaf, FourStepNode, balanced_split,
 from ..utils import observability as _obs
 from ._complex import (cmatmul_last, cmul, const, dtype_name,
                        host_device, host_float_dtype, merge, split)
+from .hopper_fft import (kernel_fft_planes, kernel_supported,
+                         kernel_tiled_planes)
+from .hopper_kernels import _pow2_split
 
 _NORMS = (None, "backward", "ortho", "forward")
 _STRATEGIES = ("auto", "dft", "four_step", "bluestein")
@@ -207,7 +210,6 @@ def engine_fft_planes(xr, xi, n: int, inverse: bool, dtype: str,
         if b == "auto":
             b = "cufft" if _cufft_zone(xr.shape, n) else "cuda"
         if b == "cuda":
-            from .hopper_fft import kernel_fft_planes, kernel_supported
             if kernel_supported(n, dtype):
                 return kernel_fft_planes(xr, xi, n, inverse, donate)
             b = "torch"
@@ -422,7 +424,6 @@ def tiled_shape(n: int) -> tuple:
     """The (m, m) tiled-plane shape ``fft_split_tiled`` uses for an
     n-point transform (n = m*m, even pow2 exponents 2^14 ... 2^26).
     Flat row-major order of the tiled planes is the 1-D order."""
-    from .hopper_kernels import _pow2_split
     sp = _pow2_split(n)
     require(sp is not None and sp[0] == sp[1], InvalidValueError,
             f"tiled layout serves n = m*m (even pow2 exponent); got {n}")
@@ -452,7 +453,6 @@ def fft_split_tiled(ar, ai, inverse: bool = False, donate: bool = False,
         b *= s
     a2r = ar.reshape(b, m, m)
     a2i = ai.reshape(b, m, m)
-    from .hopper_fft import kernel_supported, kernel_tiled_planes
     if kernel_supported(n, dtype_name(ar)):
         yr, yi = kernel_tiled_planes(a2r, a2i, inverse, bool(donate))
     else:

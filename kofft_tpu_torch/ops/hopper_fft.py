@@ -9,16 +9,15 @@ same kernels, so no backward kernel exists or is needed; bfloat16 planes
 pass through unchanged, and their bf16 cotangents and tangents take the
 same bf16 forms. The real FFT's
 backward zero-pads the one-sided cotangent and takes the real plane of
-the unnormalized complex inverse (pallas_fft.py:166-178). The N-D routes
-are one op keyed by the route (``_KernelND``); every per-axis DFT matrix
-is symmetric, so the same argument holds axis by axis
-(pallas_fft.py:227-234).
+the unnormalized complex inverse (pallas_fft.py:166-178). The N-D route
+is one op (``_KernelND``); every per-axis DFT matrix is symmetric, so the
+same argument holds axis by axis (pallas_fft.py:227-234).
 
 ``torch.func.vmap`` (the counterpart of the primitives' batching rules,
 pallas_fft.py:115-128): each op's ``vmap`` rule moves the mapped dim to
 the front (or expands an unmapped input) and folds it into the batch of
 one call, so the kernels see plain tensors with a real ``data_ptr()``;
-the all-axes route keeps that dim out of its transformed axes.
+the N-D route keeps that dim out of its transformed axes.
 
 A backward or forward-mode derivative runs at the precision tier its
 forward ran at, stored in ``ctx`` and set by ``config.precision_scope``:
@@ -33,9 +32,8 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from ..config import get_config, precision_scope
-from .hopper_kernels import (_pow2_split, fused_fft2_big_planes,
-                             fused_fft2_planes, fused_multilevel_fft,
-                             fused_multilevel_rfft, fused_ndfft_planes)
+from .hopper_kernels import (_pow2_split, axes_fft_planes,
+                             fused_multilevel_fft, fused_multilevel_rfft)
 
 
 def kernel_supported(n: int, dtype: str) -> bool:
@@ -96,13 +94,14 @@ def _tracked(xr, xi) -> bool:
     """Whether autograd or a ``torch.func`` transform (vmap, grad, jvp)
     has to see the op. Untracked calls skip ``autograd.Function.apply``,
     whose argument binding costs tens of microseconds of host time on the
-    host-bound 2^20 path."""
+    host-bound 2^20 path. One tensor is asked as ``_tracked(x, x)``, and
+    its forward-AD tangent is read once."""
     if torch._C._are_functorch_transforms_active():
         return True
     if torch.is_grad_enabled() and (xr.requires_grad or xi.requires_grad):
         return True
     return (fwAD.unpack_dual(xr).tangent is not None
-            or fwAD.unpack_dual(xi).tangent is not None)
+            or (xi is not xr and fwAD.unpack_dual(xi).tangent is not None))
 
 
 def kernel_fft_planes(xr, xi, n: int, inverse: bool, donate: bool = False):
@@ -119,10 +118,10 @@ def kernel_fft_planes(xr, xi, n: int, inverse: bool, donate: bool = False):
 
 def kernel_tiled_planes(ar, ai, inverse: bool = False,
                         donate: bool = False):
-    """:func:`kernel_fft_planes` on tiled (b, m, m) planes, n = m*m: the
-    (b, n) batch routes as the JAX tiled grid does (``phased_tiled``, or
-    ``ml`` where it folds the batch), and the (b, n2, n1) result is the
-    natural-order spectrum in row-major order."""
+    """:func:`kernel_fft_planes` on tiled (b, m, m) planes, n = m*m (the
+    contract of the JAX package's tiled entry): the (b, n) batch runs the
+    stage kernels, and the (b, n2, n1) result is the natural-order
+    spectrum in row-major order."""
     b, m = ar.shape[0], ar.shape[-1]
     yr, yi = kernel_fft_planes(ar.reshape(b, m * m), ai.reshape(b, m * m),
                                m * m, inverse, donate)
@@ -173,28 +172,17 @@ def kernel_rfft_planes(x, n: int):
     return _KernelRFFT.apply(x, n)
 
 
-def _nd_route(route, xr, xi, inverse, lead=0):
-    """The N-D route by class: the counterparts of the linear primitives
-    _dft2_p, _dft2big_p and _dftn_p (pallas_fft.py:201-390). Only the
-    all-axes route takes ``lead`` (batch dims that vmap rules add): the
-    2-D routes transform the last two dims and fold every leading dim."""
-    if route == "fused_nd":
-        return fused_ndfft_planes(xr, xi, inverse, lead)
-    fn = fused_fft2_planes if route == "fft2" else fused_fft2_big_planes
-    return fn(xr, xi, inverse)
-
-
 class _KernelND(torch.autograd.Function):
-    """The N-D route ``route`` over the planes' dims after the first
-    ``lead`` (see ``_nd_route``)."""
+    """The N-D route over the planes' dims after the first ``lead``
+    (``axes_fft_planes``)."""
 
     @staticmethod
-    def forward(xr, xi, route, inverse, lead):
-        return _nd_route(route, xr, xi, inverse, lead)
+    def forward(xr, xi, inverse, lead):
+        return axes_fft_planes(xr, xi, inverse, lead)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.route, ctx.inverse, ctx.lead = inputs[2:]
+        ctx.inverse, ctx.lead = inputs[2:]
         ctx.like = inputs[0].detach()
         ctx.tier = get_config().precision
 
@@ -202,29 +190,30 @@ class _KernelND(torch.autograd.Function):
     def backward(ctx, gr, gi):
         with precision_scope(ctx.tier):
             yr, yi = _KernelND.apply(_zeros_if_none(gr, ctx.like),
-                                     _zeros_if_none(gi, ctx.like), ctx.route,
+                                     _zeros_if_none(gi, ctx.like),
                                      not ctx.inverse, ctx.lead)
-        return yr, yi, None, None, None
+        return yr, yi, None, None
 
     @staticmethod
-    def jvp(ctx, tr, ti, _route, _inverse, _lead):
+    def jvp(ctx, tr, ti, _inverse, _lead):
         with precision_scope(ctx.tier):
-            return _nd_route(ctx.route, _zeros_if_none(tr, ctx.like),
-                             _zeros_if_none(ti, ctx.like), ctx.inverse,
-                             ctx.lead)
+            return axes_fft_planes(_zeros_if_none(tr, ctx.like),
+                                   _zeros_if_none(ti, ctx.like), ctx.inverse,
+                                   ctx.lead)
 
     @staticmethod
-    def vmap(info, in_dims, xr, xi, route, inverse, lead):
+    def vmap(info, in_dims, xr, xi, inverse, lead):
         xr, xi = _batched(info, in_dims[:2], xr, xi)
-        return _KernelND.apply(xr, xi, route, inverse, lead + 1), (0, 0)
+        return _KernelND.apply(xr, xi, inverse, lead + 1), (0, 0)
 
 
-def kernel_nd_planes(xr, xi, route: str, inverse: bool):
-    """Unnormalized N-D DFT (inverse: N * ifftn) of float32 planes through
-    the N-D route ``route`` ("fft2", "fft2_big" or "fused_nd"),
-    differentiable in both modes and under ``torch.func.vmap``."""
+def kernel_nd_planes(xr, xi, inverse: bool, lead: int = 0):
+    """Unnormalized DFT (inverse: N * ifftn) of float32 planes over every
+    dim after the first ``lead`` through the axis kernels
+    (``axes_fft_planes``), differentiable in both modes and under
+    ``torch.func.vmap``."""
     xr = xr.contiguous()
     xi = xi.contiguous()
     if not _tracked(xr, xi):
-        return _nd_route(route, xr, xi, inverse)
-    return _KernelND.apply(xr, xi, route, bool(inverse), 0)
+        return axes_fft_planes(xr, xi, inverse, lead)
+    return _KernelND.apply(xr, xi, bool(inverse), lead)

@@ -1,16 +1,14 @@
 """Hand-written Hopper kernels of the 1-D complex and real FFT and of the
-N-D FFT, their host plan, their plain PyTorch versions, and the routing
-that mirrors ``kofft_tpu.ops.pallas_kernels.fused_multilevel_fft``,
-``fused_multilevel_rfft``, ``fused_fft2_planes``,
-``fused_fft2_big_planes``, ``fused_ndfft_planes`` and
+N-D FFT, their host plan, their plain PyTorch versions, and the port's
+routes onto them: the counterparts of
+``kofft_tpu.ops.pallas_kernels.fused_multilevel_fft``,
+``fused_multilevel_rfft``, its three N-D kernel entries and
 ``fused_four_step_fft``.
 
 The JAX package runs the Bailey four-step X = F_n2 . ((F_n1 . A) o W)
-through three Pallas forms: the phased one-call kernel in its flat
-(single transform) and tiled-grid (batched) forms, and the two-call pair
-``_build_ml``. They compute the same thing and differ only in where the
-TPU kept the inter-stage matrix C and in layouts Mosaic forced on them.
-On Hopper they are two CUDA kernels (``csrc/fft_stages.cu``) on the
+through three Pallas forms that differ only in where the TPU kept the
+inter-stage matrix C and in layouts Mosaic forced on them. On Hopper every
+shape runs the same two CUDA kernels (``csrc/fft_stages.cu``) on the
 register radix line FFT (``csrc/radix_line.cuh``): ``stage1`` (column
 FFTs of length n1 in tiles of >= 8 columns, the twiddle fused into the
 store; above 2048 points a column four-step of two launches) and
@@ -19,32 +17,32 @@ exchange buffer; lines of 4096 and 8192 through a thread-block cluster
 of eight CTAs, one line each, also counted as ``stage2_cluster8``).
 A smooth n1 = o * 2^a is one more radix plan of stage 1: the power-of-two
 passes of 2^a on the o sub-lines, then one pass of radix o, in the kernel
-of ``csrc/stage1_odd.cu`` (``_odd_tile``). The routing still picks a class
-per shape, as the JAX function does, and counts it in ``classes`` so a
-run shows which TPU-kernel class it went through; ``launches`` counts
-the wrapper calls that launched a kernel. The real FFT runs two more
+of ``csrc/stage1_odd.cu`` (``_odd_tile``). The real FFT runs two more
 instances of the same kernels, ``stage1_real`` (one real input plane)
 and ``stage2_half`` (only the one-sided bins k <= n/2 stored, the Nyquist
-bin included), counted by the classes of the JAX real forms.
+bin included).
 
 The N-D FFT's three Pallas kernels (the one-call 2-D kernel, the two-call
 2-D pair and the fused all-axes kernel) compute DFTs along axes with no
-twiddle between the passes. On Hopper they are two kernels of their own
-(``csrc/axis_fft.cu``) on a register radix line FFT
-(``csrc/radix_line.cuh``): ``col_fft`` (line FFTs along axis 1 of (b, m,
-inner) planes, stored in the input layout; above 2048 points a column
-four-step of two launches) and ``row_fft`` (line FFTs along the last
-axis, stored in natural order). A 2-D route is ``col_fft`` then
-``row_fft``; the all-axes route is ``col_fft`` per leading axis, then
-``row_fft``. The routes count the JAX classes ``fft2``, ``fft2_big`` and
-``fused_nd``.
+twiddle between the passes. On Hopper they are one route
+(``axes_fft_planes``) on two kernels of their own (``csrc/axis_fft.cu``)
+on a register radix line FFT (``csrc/radix_line.cuh``): ``col_fft`` (line
+FFTs along axis 1 of (b, m, inner) planes, stored in the input layout;
+above 2048 points a column four-step of two launches) on every
+transformed axis but the last, then ``row_fft`` (line FFTs along the last
+axis, stored in natural order). Its zone is ``ndfft._kernel_nd_zone``.
+
+``classes`` counts the routes a call takes: ``stages`` and
+``stages_real`` (the stage pair), ``axes`` (the axis kernels),
+``four_step`` (the dense pair) and ``stft_frames`` (the frame kernel);
+``launches`` counts the wrapper calls that launched a kernel.
 
 bfloat16 planes: the four stage kernels also run in bf16 I/O forms (bf16
 loads and stores, float32 arithmetic), named by the element types they
 load and store (``_IO_FORMS``): ``stage1_bf`` reads bf16 planes and
 writes a float32 C, ``stage2_fb`` reads a float32 C and writes bf16, and
-so on. The routing sends bf16 planes and the `default` tier's casts to
-them where the JAX package sends them to its bf16 forms of the phased
+so on. ``_stage_types`` sends bf16 planes and the `default` tier's casts
+to them where the JAX package sends them to its bf16 forms of the phased
 kernel and of the two-call pair (``io``, ``sdt``, ``cdt``).
 
 The dense four-step pair (``_build``, whose entry ``fused_four_step_fft``
@@ -52,7 +50,7 @@ only tests call in the JAX package) is two more CUDA kernels
 (``csrc/dense_dft.cu``): ``dense_stage_a`` (C = (F_n1^T A) o W, one
 complex DFT-matrix product per batch row) and ``dense_stage_b`` (X =
 F_n2^T C^T), the Gauss three-product on the tensor cores (``wgmma``) and
-no line recursion; the class count is ``four_step``. Their arithmetic
+no line recursion; the route count is ``four_step``. Their arithmetic
 follows the precision tier as ``_build``'s ``mode`` does (``_dense_mode``):
 3xTF32 on `highest` and `high` (counted under the kernels' names), one
 bf16 pass on `default` (``dense_stage_a_bf16x1``, ``dense_stage_b_bf16x1``).
@@ -116,7 +114,7 @@ _FORM_NAMES = {(base, _LETTER_DTYPE[f[0]], _LETTER_DTYPE[f[1]]):
                base if f == "ff" else f"{base}_{f}"
                for base, forms in _IO_FORMS.items() for f in forms}
 
-# the launch and class counts are two groups of the port's one counter
+# the launch and route counts are two groups of the port's one counter
 # registry (utils/observability.py)
 launches = _obs.counter_group("launches")
 launches.update({"stage1": 0, "stage2": 0, "stage1_real": 0,
@@ -127,9 +125,7 @@ launches.update({"stage1": 0, "stage2": 0, "stage1_real": 0,
                  "stft_frames": 0})
 launches.update({name: 0 for name in _FORM_NAMES.values()})
 classes = _obs.counter_group("classes")
-classes.update({"phased_flat": 0, "phased_tiled": 0, "ml": 0,
-                "phased_flat_real": 0, "phased_tiled_real": 0, "ml_real": 0,
-                "fft2": 0, "fft2_big": 0, "fused_nd": 0, "four_step": 0,
+classes.update({"stages": 0, "stages_real": 0, "axes": 0, "four_step": 0,
                 "stft_frames": 0})
 # table_builds and alloc_bytes (bytes of the buffers allocated here)
 _COUNTS = _obs.counts
@@ -255,7 +251,8 @@ def _twiddle_factors(n1: int, n2: int, t: int, dtype: str):
 
 def _ml_batch_tile(b: int, n1: int, n2: int) -> int:
     """Batch rows the JAX two-call pair folds into one grid block (powers
-    of two, ~0.5 MB blocks). bt > 1 routes a shape to the `ml` class."""
+    of two, ~0.5 MB blocks). bt > 1 takes a shape off the JAX package's
+    phased grid (``_use_phased``)."""
     t = min(_ML_TILE, n2)
     target = (1 << 19) // (n1 * t * 4)
     bt = 1
@@ -282,15 +279,6 @@ def _phased_sdt(n: int) -> torch.dtype:
     if get_config().precision == "default" and n > (1 << 23):
         return _BF16
     return _F32
-
-
-def _phased_rows(n: int, b: int) -> int:
-    """Batch rows the JAX phased grid folds per step (2 for even b and
-    n <= 2^21). The CUDA stages run one block per (row, tile) and fold
-    nothing; kept so the port's host plan answers as the JAX one does."""
-    if b > 1 and b % 2 == 0 and n <= (1 << 21):
-        return 2
-    return 1
 
 
 # ---------------------------------------------------------------------------
@@ -1128,39 +1116,33 @@ def row_fft(xr, xi, conj: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# entries with the JAX routing
+# the 1-D routes: the stage kernels with the JAX package's element types
 # ---------------------------------------------------------------------------
 
-def _route(n: int, b: int, flat_ok: bool, dtype, real: bool = False):
-    """(class, input type, C type) of ``kofft_tpu``'s routing for b
-    transforms of n points on planes of ``dtype``
-    (pallas_kernels.py:1160-1243, :1260-1345):
-    - bfloat16 planes on a shape the phased grid serves take its bf16-I/O
-      tiled form, never the flat one: bf16 in and out, C per
-      ``_phased_sdt``. On any other shape the class is None: the caller
-      runs the float32 route and rounds back.
-    - float32 planes: a rank-1 transform up to the flat cap (2^21, 2^23
-      for the real forms) is ``phased_flat``, all float32; other shapes up
-      to the phased cap ``phased_tiled``, larger or batch-folded shapes
-      ``ml``. On the `default` tier those two read bf16 input planes (the
-      asymmetric I/O of :1204-1215, :1322-1325), C is bf16 per
-      ``_phased_sdt`` on the tiled form and always on ``ml`` (``cdt``),
-      and the output stays float32.
-    The real forms' classes carry a ``_real`` suffix."""
+def _stage_types(n: int, b: int, flat: bool, dtype, real: bool = False):
+    """(input type, C type) of the stage kernels for b transforms of n
+    points on planes of ``dtype``, the element types of ``kofft_tpu``'s
+    routing (pallas_kernels.py:1160-1243, :1260-1345); None runs the
+    float32 types and rounds back. ``flat``: a rank-1 transform.
+    - float32 planes off the `default` tier: float32 throughout.
+    - bfloat16 planes: bf16 in and C per ``_phased_sdt`` where the JAX
+      phased grid serves the shape (``_use_phased``), else None.
+    - float32 planes on `default`: where the phased grid serves the shape,
+      a flat transform up to the flat cap (2^21, 2^23 for the real form)
+      stays float32, any other reads bf16 planes with C per
+      ``_phased_sdt``; elsewhere bf16 planes and a bf16 C (the two-call
+      pair's ``cdt``). The output keeps the planes' type."""
+    if dtype == _F32 and get_config().precision != "default":
+        return _F32, _F32
     n1, n2 = _pow2_split(n)
     phased = _use_phased(n, _ml_batch_tile(b, n1, n2))
-    sfx = "_real" if real else ""
     if dtype == _BF16:
-        if not phased:
-            return None, None, None
-        return "phased_tiled" + sfx, _BF16, _phased_sdt(n)
-    cap = _PHASED_FLAT_REAL_MAX_N if real else _PHASED_FLAT_MAX_N
-    if phased and flat_ok and n <= cap:
-        return "phased_flat" + sfx, _F32, _F32
-    in_dt = _BF16 if get_config().precision == "default" else _F32
-    if phased:
-        return "phased_tiled" + sfx, in_dt, _phased_sdt(n)
-    return "ml" + sfx, in_dt, in_dt
+        return (_BF16, _phased_sdt(n)) if phased else None
+    if not phased:
+        return _BF16, _BF16
+    if flat and n <= (_PHASED_FLAT_REAL_MAX_N if real else _PHASED_FLAT_MAX_N):
+        return _F32, _F32
+    return _BF16, _phased_sdt(n)
 
 
 def _batch(x):
@@ -1172,29 +1154,30 @@ def _batch(x):
 def fused_multilevel_fft(xr, xi, n: int, inverse: bool = False,
                          donate: bool = False):
     """Unnormalized DFT (inverse: n * ifft) of (..., n) float32 or bfloat16
-    planes through the two stage kernels, routed and counted by the
-    TPU-kernel class ``kofft_tpu``'s ``fused_multilevel_fft`` would use
-    (``_route``), with its element types: bf16 planes keep bf16 I/O or,
-    where the phased grid does not serve them, run the float32 route and
-    round back; the `default` tier casts float32 input planes and C to
-    bf16 where the JAX package does. The output has the planes' type.
-    ``donate=True`` writes the result into the input planes' storage
-    (stage 2 reads only C), and the inputs must not be used afterwards."""
+    planes through the two stage kernels, counted as the route
+    ``stages``, with the element types of ``_stage_types``: bf16 planes
+    keep bf16 I/O or, where the JAX phased grid does not serve them, run
+    the float32 types and round back; the `default` tier casts float32
+    input planes and C to bf16 where the JAX package does. The output has
+    the planes' type. ``donate=True`` writes the result into the input
+    planes' storage (stage 2 reads only C), and the inputs must not be
+    used afterwards."""
     batch, b = _batch(xr)
     sp = (_obs.begin("route")
           if _prof._is_profiler_enabled or _obs.switch else None)
-    cls, in_dt, c_dt = _route(n, b, batch == (), xr.dtype)
+    types = _stage_types(n, b, batch == (), xr.dtype)
     if sp:
         _obs.end(sp)
-    if cls is None:
+    if types is None:
         # pallas_kernels.py:1177-1179; the float32 copies are temporaries
         yr, yi = fused_multilevel_fft(xr.float(), xi.float(), n, inverse,
                                       donate=True)
         if donate:
             return xr.copy_(yr), xi.copy_(yi)
         return yr.to(xr.dtype), yi.to(xi.dtype)
+    in_dt, c_dt = types
     n1, n2 = _pow2_split(n)
-    classes[cls] += 1
+    classes["stages"] += 1
     cr, ci = stage1(xr.reshape(b, n1, n2).to(in_dt),
                     xi.reshape(b, n1, n2).to(in_dt), conj=inverse,
                     c_dtype=c_dt)
@@ -1203,37 +1186,24 @@ def fused_multilevel_fft(xr, xi, n: int, inverse: bool = False,
     return yr.reshape(*batch, n), yi.reshape(*batch, n)
 
 
-def phased_tiled_fft(ar, ai, inverse: bool = False, donate: bool = False):
-    """Unnormalized DFT on tiled (b, m, m) planes, n = m*m (the JAX
-    ``phased_tiled_fft`` contract): :func:`fused_multilevel_fft` on the
-    (b, n) view, whose batch routes ``phased_tiled`` (``ml`` where the JAX
-    package folds it) and whose output is the flat natural-order spectrum."""
-    b, m = ar.shape[0], ar.shape[-1]
-    yr, yi = fused_multilevel_fft(ar.reshape(b, m * m), ai.reshape(b, m * m),
-                                  m * m, inverse, donate)
-    return yr.reshape(b, m, m), yi.reshape(b, m, m)
-
-
 def fused_multilevel_rfft(x, n: int):
     """One-sided unnormalized DFT (..., n//2 + 1) of a real (..., n) float32
-    or bfloat16 plane through ``stage1_real`` and ``stage2_half``, routed
-    and counted by the class ``kofft_tpu``'s ``fused_multilevel_rfft``
-    would use, with its element types (``_route``): a rank-1 float32
-    transform up to 2^23 is ``phased_flat_real``, other shapes up to the
-    phased cap ``phased_tiled_real``, larger or batch-folded shapes
-    ``ml_real``; bf16 planes that the phased grid does not serve run the
-    float32 route and round back (pallas_kernels.py:1268-1271)."""
+    or bfloat16 plane through ``stage1_real`` and ``stage2_half``, counted
+    as the route ``stages_real``, with the element types of
+    ``_stage_types``: bf16 planes that the JAX phased grid does not serve
+    run the float32 types and round back (pallas_kernels.py:1268-1271)."""
     batch, b = _batch(x)
     sp = (_obs.begin("route")
           if _prof._is_profiler_enabled or _obs.switch else None)
-    cls, in_dt, c_dt = _route(n, b, batch == (), x.dtype, real=True)
+    types = _stage_types(n, b, batch == (), x.dtype, real=True)
     if sp:
         _obs.end(sp)
-    if cls is None:
+    if types is None:
         yr, yi = fused_multilevel_rfft(x.float(), n)
         return yr.to(x.dtype), yi.to(x.dtype)
+    in_dt, c_dt = types
     n1, n2 = _pow2_split(n)
-    classes[cls] += 1
+    classes["stages_real"] += 1
     cr, ci = stage1_real(x.reshape(b, n1, n2).to(in_dt), c_dtype=c_dt)
     yr, yi = stage2_half(cr, ci, dtype=x.dtype)
     h = n // 2 + 1
@@ -1421,7 +1391,7 @@ def dense_stage_b(cr, ci):
 def fused_four_step_fft(xr, xi, n: int):
     """Forward unnormalized DFT of (..., n) float32 planes through the
     dense pair (``fused_four_step_fft``, pallas_kernels.py:278), batch
-    folded, counted as class ``four_step``: ``dense_stage_a`` then
+    folded, counted as the route ``four_step``: ``dense_stage_a`` then
     ``dense_stage_b``, in the current tier's arithmetic."""
     require(fused_four_step_supported(n), InvalidValueError,
             f"fused_four_step_fft serves smooth n = odd * 2^k (odd <= 23) "
@@ -1435,131 +1405,43 @@ def fused_four_step_fft(xr, xi, n: int):
 
 
 # ---------------------------------------------------------------------------
-# N-D zones and entries. The zone predicates and their thresholds are the
-# JAX package's (pallas_kernels.py:1382-1394, :1522-1553, :1759-1777),
-# measured on a TPU v5e; re-measuring them on the H100 is queued.
+# the N-D route: the axis kernels over the trailing dims
 # ---------------------------------------------------------------------------
 
-_FUSED_ND_MIN_POINTS = 1 << 17
-_FUSED_ND_MAX_POINTS = 1 << 21
-_FUSED_2D_MIN_POINTS = 1 << 18
-_FUSED_2D_MAX_POINTS = 1 << 22
-
-
-def _pow2_in(s: int, lo: int, hi: int) -> bool:
-    return not s & (s - 1) and lo <= s <= hi
-
-
-def _last_two(shape: tuple, axes: tuple) -> bool:
-    nd = len(shape)
-    return (nd >= 2 and len(axes) == 2
-            and sorted(a % nd for a in axes) == [nd - 2, nd - 1])
-
-
-def _one_call_2d_cap() -> int:
-    """Per-image point cap of the one-call 2-D zone: 2^22 on the 1-pass
-    `default` tier, 2^20 on the 6-pass tiers (v5e)."""
-    return (_FUSED_2D_MAX_POINTS if get_config().precision == "default"
-            else 1 << 20)
-
-
-def fused_nd_zone(shape: tuple, axes: tuple) -> bool:
-    """Class ``fused_nd``: every dim transformed, each a power of two in
-    [128, 512], 2^17 ... 2^21 points in all (the TPU kernel's
-    VMEM-resident range)."""
-    nd = len(shape)
-    if len(axes) < 2 or sorted(a % nd for a in axes) != list(range(nd)):
-        return False
-    total = 1
-    for s in shape:
-        if not _pow2_in(s, 128, 512):
-            return False
-        total *= s
-    return _FUSED_ND_MIN_POINTS <= total <= _FUSED_ND_MAX_POINTS
-
-
-def fused_2d_zone(shape: tuple, axes: tuple) -> bool:
-    """Class ``fft2``: the last two dims transformed (leading dims are the
-    batch), both powers of two in [128, 2048], 2^18 points per image up
-    to the per-tier cap (``_one_call_2d_cap``)."""
-    if not _last_two(shape, axes):
-        return False
-    n1, n2 = shape[-2], shape[-1]
-    if not (_pow2_in(n1, 128, 2048) and _pow2_in(n2, 128, 2048)):
-        return False
-    return _FUSED_2D_MIN_POINTS <= n1 * n2 <= _one_call_2d_cap()
-
-
-def fused_2d_big_zone(shape: tuple, axes: tuple) -> bool:
-    """Class ``fft2_big``: the last two dims transformed, both powers of
-    two in [128, 8192], per-image points above the one-call zone's
-    per-tier cap up to 2^26, so the two 2-D zones tile the range."""
-    if not _last_two(shape, axes):
-        return False
-    n1, n2 = shape[-2], shape[-1]
-    if not (_pow2_in(n1, 128, 8192) and _pow2_in(n2, 128, 8192)):
-        return False
-    return _one_call_2d_cap() < n1 * n2 <= (1 << 26)
-
-
-def _fft2_route(xr, xi, inverse: bool, cls: str):
-    """The 2-D routes' body; its ``route`` span, the class's count and the
-    planes' reshapes, closes before the axis kernels, as on the 1-D
-    routes."""
+def axes_fft_planes(xr, xi, inverse: bool = False, lead: int = 0):
+    """Unnormalized DFT over every dim after the first ``lead`` (batch
+    dims) of contiguous float32 planes, d >= 2 of them (inverse: N * ifftn
+    over those dims), counted as the route ``axes``: ``col_fft`` on the
+    (prod(shape[:a]), shape[a], prod(shape[a+1:])) view of each
+    transformed dim a but the last, then ``row_fft`` on the last, the
+    conjugation on the first load and the last store (the axis DFTs
+    commute). Over the last two dims of (b..., n1, n2), lead = nd - 2:
+    ``col_fft`` on (b, n1, n2), then ``row_fft`` on its b*n1 lines. Its
+    ``route`` span, the count and the views, closes before the axis
+    kernels, as on the 1-D routes."""
+    shape = tuple(xr.shape)
+    if len(shape) - lead < 2:
+        raise InvalidValueError(
+            f"axes_fft_planes needs >= 2 dims after {lead} batch dims, "
+            f"got {shape}")
     sp = (_obs.begin("route")
           if _prof._is_profiler_enabled or _obs.switch else None)
-    shape = tuple(xr.shape)
-    n1, n2 = shape[-2:]
-    b = xr.numel() // (n1 * n2)
-    classes[cls] += 1
-    ar, ai = xr.reshape(b, n1, n2), xi.reshape(b, n1, n2)
+    classes["axes"] += 1
+    total = xr.numel()
+    rows = math.prod(shape[:lead])
+    views = []
+    for m in shape[lead:-1]:
+        views.append((rows, m, total // (rows * m)))
+        rows *= m
+    ar, ai = xr.reshape(views[0]), xi.reshape(views[0])
     if sp:
         _obs.end(sp)
-    cr, ci = col_fft(ar, ai, conj=inverse)
-    yr, yi = row_fft(cr, ci, conj=inverse)
-    return yr.reshape(shape), yi.reshape(shape)
-
-
-def fused_fft2_planes(xr, xi, inverse: bool = False):
-    """Unnormalized 2-D DFT (inverse: n1*n2 * ifft2) over the last two dims
-    of contiguous float32 planes, leading dims folded into the batch: the
-    counterpart of the one-call 2-D kernel's entry (class ``fft2``),
-    ``col_fft`` then ``row_fft``. The conjugation of the inverse rides on
-    the first pass's load and the last pass's store."""
-    return _fft2_route(xr, xi, inverse, "fft2")
-
-
-def fused_fft2_big_planes(xr, xi, inverse: bool = False):
-    """:func:`fused_fft2_planes` counted as the two-call 2-D pair's class
-    ``fft2_big``: the TPU split the images above its one-call cap into
-    two calls with an HBM intermediate, which the two CUDA launches
-    always have."""
-    return _fft2_route(xr, xi, inverse, "fft2_big")
-
-
-def fused_ndfft_planes(xr, xi, inverse: bool = False, lead: int = 0):
-    """Unnormalized DFT over every axis of contiguous float32 planes with
-    d >= 2 dims after the first ``lead`` (batch dims, from vmap rules)
-    (inverse: N * ifftn): the counterpart of the fused all-axes kernel's
-    entry (class ``fused_nd``). Axis a < d-1 is ``col_fft`` on the
-    (prod(d[:a]), d[a], prod(d[a+1:])) view, then the last axis is
-    ``row_fft``: d launches, the conjugation on the first load and the
-    last store (the axis DFTs commute)."""
-    shape = tuple(xr.shape)
-    require(len(shape) - lead >= 2, InvalidValueError,
-            f"fused_ndfft_planes needs >= 2 dims after {lead} batch dims, "
-            f"got {shape}")
-    classes["fused_nd"] += 1
-    total = xr.numel()
-    yr, yi = xr, xi
-    rows = math.prod(shape[:lead])
-    for a, m in enumerate(shape[lead:-1]):
-        inner = total // (rows * m)
-        yr, yi = col_fft(yr.reshape(rows, m, inner),
-                         yi.reshape(rows, m, inner), conj=inverse and a == 0)
-        rows *= m
-    yr, yi = row_fft(yr.reshape(1, rows, shape[-1]),
-                     yi.reshape(1, rows, shape[-1]), conj=inverse)
+    for a, v in enumerate(views):
+        if a:
+            ar, ai = ar.reshape(v), ai.reshape(v)
+        ar, ai = col_fft(ar, ai, conj=inverse and a == 0)
+    # the last view is (rows / m, m, shape[-1]): row_fft's rows lines
+    yr, yi = row_fft(ar, ai, conj=inverse)
     return yr.reshape(shape), yi.reshape(shape)
 
 

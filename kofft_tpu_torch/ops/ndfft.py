@@ -2,16 +2,16 @@
 
 ``_fftn_planes`` tries its routes in the JAX package's order:
 
-    'auto'/'cuda', float32, fft2 zone      -> col_fft + row_fft (class fft2)
-    'auto'/'cuda', float32, big 2-D zone   -> the same pair (class fft2_big)
-    'auto'/'cuda', float32, fused N-D zone -> col_fft per axis + row_fft
-                                              (class fused_nd)
-    'cufft', or 'auto' in the cuFFT zone   -> torch.fft.fftn
-    small axes (<= 256)                    -> dense-DFT einsums per axis
-    otherwise                              -> per axis, the 1-D engine ladder
+    'auto'/'cuda', float32, kernel zone  -> col_fft per axis but the last,
+                                            then row_fft (route axes)
+    'cufft', or 'auto' in the cuFFT zone -> torch.fft.fftn
+    small axes (<= 256)                  -> dense-DFT einsums per axis
+    otherwise                            -> per axis, the 1-D engine ladder
 
-The kernel routes take CUDA tensors to the hand-written kernels and CPU
-tensors to their plain versions. An explicit 'cufft' backend takes
+The kernel zone (``_kernel_nd_zone``) is the union of the JAX package's
+three N-D kernel zones, and every zone lives in this module. The kernel
+route takes CUDA tensors to the hand-written kernels and CPU tensors to
+their plain versions. An explicit 'cufft' backend takes
 ``torch.fft.fftn`` over the axes, where the JAX package maps 'jnpfft' to
 its XLA engines. Inverse transforms scale by 1/N (numpy). Host input goes
 to ``device`` (default ``"cuda"``, the card).
@@ -19,20 +19,66 @@ to ``device`` (default ``"cuda"``, the card).
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
 from torch.autograd import profiler as _prof
 
+from ..config import get_config
 from ..errors import EmptyInputError, InvalidValueError, require
 from ..plan import tables
 from ..utils import observability as _obs
 from ._complex import const, dtype_name, merge, split
 from .fft import (_as_tensor, _fft_planes, _planes, engine_fft_planes,
                   resolve_backend)
+from .hopper_fft import kernel_nd_planes
+from .hopper_kernels import _LINE_MAX
 
 __all__ = ["fft2", "ifft2", "fft3", "ifft3", "fftn", "ifftn",
            "fftn_split", "rfftn", "irfftn", "rfftn_split", "irfftn_split"]
+
+
+# The kernel zone's edges: the JAX package's (pallas_kernels.py:1377-1394,
+# :1518-1553, :1759-1777), measured on a TPU v5e; re-measuring them on the
+# H100 is queued.
+_KERNEL_MIN_SIDE = 128
+_ALL_AXES_MAX_SIDE = 512                # every axis transformed
+_ALL_AXES_POINTS = (1 << 17, 1 << 21)
+_TWO_AXES_POINTS = (1 << 18, 1 << 26)   # the last two axes, per image
+# the last two axes: sides above 2048 only above the one-call 2-D kernel's
+# cap of points per image
+_ONE_CALL_MAX_SIDE = 2048
+_ONE_CALL_CAP = 1 << 20
+_ONE_CALL_CAP_DEFAULT = 1 << 22
+
+
+def _kernel_nd_zone(shape: tuple, axes: tuple) -> bool:
+    """Shape class of the axis kernels (``hopper_kernels.axes_fft_planes``),
+    the union of the JAX package's three N-D kernel zones: power-of-two
+    sides of at least 128 points, and
+    - every axis transformed, sides up to 512, 2^17 ... 2^21 points
+      (the fused all-axes kernel's zone); or
+    - the last two axes, sides up to 8192 (``_LINE_MAX``), 2^18 ... 2^26
+      points per image, sides above 2048 only above the one-call 2-D
+      kernel's cap (2^20 points; 2^22 on `default`), as the two 2-D
+      kernels' zones do together (4096 x 128 stays off the kernels)."""
+    nd = len(shape)
+    ax = sorted(a % nd for a in axes)
+    if len(ax) < 2 or ax != list(range(nd - len(ax), nd)):
+        return False
+    sides = [shape[a] for a in ax]
+    if any(s & (s - 1) or s < _KERNEL_MIN_SIDE for s in sides):
+        return False
+    points = math.prod(sides)
+    if (len(ax) == nd and max(sides) <= _ALL_AXES_MAX_SIDE
+            and _ALL_AXES_POINTS[0] <= points <= _ALL_AXES_POINTS[1]):
+        return True
+    cap = (_ONE_CALL_CAP_DEFAULT if get_config().precision == "default"
+           else _ONE_CALL_CAP)
+    return (len(ax) == 2 and max(sides) <= _LINE_MAX
+            and _TWO_AXES_POINTS[0] <= points <= _TWO_AXES_POINTS[1]
+            and (points > cap or max(sides) <= _ONE_CALL_MAX_SIDE))
 
 
 def _nd_cufft_zone(shape: tuple, axes: tuple) -> bool:
@@ -119,20 +165,11 @@ def _fftn_route(xr, xi, axes: tuple, inverse: bool, backend: str):
         return yr.to(xr.dtype), yi.to(xr.dtype)
     shape = tuple(xr.shape)
     nd = xr.dim()
-    if backend in ("auto", "cuda") and dtype == "float32":
-        from . import hopper_kernels as HK
-        from .hopper_fft import kernel_nd_planes
-        # The 2-D zone is checked BEFORE the cuFFT zone below (1024^2 sits
-        # in both; the 2-D kernel won 134 vs 152 us on the v5e) and BEFORE
-        # the dense fused-nd zone (512^2 sits in both; the leaf-32
-        # recursion won 33.8 vs 51.0): the zones are disjoint only by this
-        # ordering, not by construction (kofft_tpu/ops/ndfft.py:146-152)
-        for route, zone in (("fft2", HK.fused_2d_zone),
-                            ("fft2_big", HK.fused_2d_big_zone),
-                            ("fused_nd", HK.fused_nd_zone)):
-            if zone(shape, axes):
-                yr, yi = kernel_nd_planes(xr, xi, route, inverse)
-                return _inverse_rescale(yr, yi, shape, axes, inverse)
+    # the kernel zone goes first: it overlaps the cuFFT zone (1024^2)
+    if (backend in ("auto", "cuda") and dtype == "float32"
+            and _kernel_nd_zone(shape, axes)):
+        yr, yi = kernel_nd_planes(xr, xi, inverse, nd - len(axes))
+        return _inverse_rescale(yr, yi, shape, axes, inverse)
     if backend == "cufft" or (backend == "auto"
                               and _nd_cufft_zone(shape, axes)):
         sp = (_obs.begin("cufft")

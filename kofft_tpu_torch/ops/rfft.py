@@ -30,6 +30,7 @@ from ..utils import observability as _obs
 from ._complex import dtype_name, merge, split
 from .fft import (_NORMS, _as_tensor, _cufft_zone, _fft_planes, _norm_scale,
                   _planes, _prep, engine_fft_planes, resolve_backend)
+from .hopper_fft import kernel_rfft_planes, kernel_supported
 
 __all__ = ["rfft", "irfft", "rfft_split", "irfft_split"]
 
@@ -50,7 +51,6 @@ def _rfft_planes(x, n: int, backend: str):
             b = ("cufft" if dtype != "bfloat16" and _cufft_zone(x.shape, n)
                  else "cuda")
         if b == "cuda":
-            from .hopper_fft import kernel_rfft_planes, kernel_supported
             if kernel_supported(n, dtype):
                 return kernel_rfft_planes(x, n)
             b = "torch"

@@ -37,7 +37,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.autograd.forward_ad as fwAD
 import torch.nn.functional as F
 from torch.autograd import profiler as _prof
 
@@ -50,6 +49,7 @@ from ._complex import (const, dtype_name, host_device, host_float, merge,
                        split)
 from .fft import (_as_tensor, _fft_planes, _planes, engine_fft_planes,
                   resolve_backend)
+from .hopper_fft import _tracked
 from .hopper_kernels import _FRAMES_MAX_WIN, _FRAMES_MIN_WIN, stft_frames
 from .rfft import _rfft_planes
 
@@ -138,9 +138,10 @@ def _frames_route(x, window_np: np.ndarray, backend: str) -> bool:
     float32 window of a power of two in [2^6, 2^11] points (below
     ``_cufft_zone`` and the stage kernels, where the engines take the plain
     factor tree), the backend `auto` or `cuda`, and nothing that autograd,
-    forward AD or a ``torch.func`` transform has to see: the kernel has no
-    backward, so tracked calls keep the differentiable torch ops. Timed as
-    a ``ladder`` span."""
+    forward AD or a ``torch.func`` transform has to see
+    (``hopper_fft._tracked``): the kernel has no backward, so tracked
+    calls keep the differentiable torch ops. Timed as a ``ladder`` span.
+    """
     sp = (_obs.begin("ladder")
           if _prof._is_profiler_enabled or _obs.switch else None)
     try:
@@ -149,9 +150,7 @@ def _frames_route(x, window_np: np.ndarray, backend: str) -> bool:
                 and window_np.dtype == np.float32 and x.numel() > 0
                 and backend in ("auto", "cuda") and win & (win - 1) == 0
                 and _FRAMES_MIN_WIN <= win <= _FRAMES_MAX_WIN
-                and not torch._C._are_functorch_transforms_active()
-                and not (x.requires_grad and torch.is_grad_enabled())
-                and fwAD.unpack_dual(x).tangent is None)
+                and not _tracked(x, x))
     finally:
         if sp:
             _obs.end(sp)

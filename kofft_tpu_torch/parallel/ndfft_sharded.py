@@ -3,7 +3,8 @@
 The counterpart of ``kofft_tpu.parallel.ndfft_sharded``. Each rank holds
 a slab (axis 0 sharded), transforms every local axis with the port's N-D
 engine (``_fftn_planes``, with the backend asked for: under ``"cuda"`` a
-local 2-D slab in ``fused_2d_zone`` rides ``col_fft`` + ``row_fft``),
+local slab in ``ndfft._kernel_nd_zone`` rides the axis kernels ``col_fft``
++ ``row_fft``),
 then one all_to_all re-pencils the array (axis 0 gathered, the last axis
 scattered) and the leading axis is transformed in place.
 

@@ -19,6 +19,7 @@ import pytest
 pytest.importorskip("torch")
 
 from kofft_tpu_torch.ops import hopper_kernels as HK  # noqa: E402
+from kofft_tpu_torch.ops import ndfft as ND  # noqa: E402
 from kofft_tpu_torch.ops.dft import snr_db  # noqa: E402
 
 EMU_DB = 140.0
@@ -204,8 +205,8 @@ def test_column_four_step(m, split):
 
 
 def _route_axis_launches():
-    """(kind, m, count) of every axis launch the N-D routes make, over
-    their zones' shapes (one batch row; a batch multiplies only the grid)."""
+    """(kind, m, count) of every axis launch the N-D route makes, over
+    its zone's shapes (one batch row; a batch multiplies only the grid)."""
     out = set()
 
     def col(m, inner):
@@ -226,7 +227,7 @@ def _route_axis_launches():
     for shape in [(a, b) for a in (128, 256, 512) for b in (128, 256, 512)] \
             + [(a, b, c) for a in (128, 256, 512) for b in (128, 256, 512)
                for c in (128, 256, 512)]:
-        if HK.fused_nd_zone(shape, tuple(range(len(shape)))):
+        if ND._kernel_nd_zone(shape, tuple(range(len(shape)))):
             for i, m in enumerate(shape[:-1]):
                 col(m, int(np.prod(shape[i + 1:])))
             out.add(("row", shape[-1], int(np.prod(shape[:-1]))))

@@ -310,8 +310,15 @@ _JAX_ONLY = {
         "pallas_fft2_planes", "pallas_fft2_big_planes",
         "pallas_fftn_planes", "pallas_supported"},
     # whether Mosaic lowers the multi-level kernel; the CUDA kernels
-    # build for sm_90a or raise
-    "kofft_tpu.ops.pallas_kernels": {"multilevel_supported"},
+    # build for sm_90a or raise. The TPU's three N-D kernel entries and
+    # their zones: the port runs one route on the axis kernels
+    # (hopper_kernels.axes_fft_planes) over the union of the three zones
+    # (ndfft._kernel_nd_zone). The tiled entry: hopper_fft's
+    # kernel_tiled_planes
+    "kofft_tpu.ops.pallas_kernels": {
+        "multilevel_supported", "fused_fft2_planes", "fused_fft2_big_planes",
+        "fused_ndfft_planes", "fused_2d_zone", "fused_2d_big_zone",
+        "fused_nd_zone", "phased_tiled_fft"},
     # a shim over jax's shard_map across jax versions; the port's programs
     # work on DTensor local blocks with explicit collectives
     "kofft_tpu.parallel.ndfft_sharded": {"shard_map"},

@@ -277,8 +277,9 @@ def test_forward_ad_through_kernel_path():
 
 def test_dtypes():
     """float64 stays float64 (plain engines); bfloat16 planes of a size
-    the phased grid serves take the stage kernels' bf16 forms (class
-    phased_tiled, float32 arithmetic, each result rounded to bf16 once)."""
+    the JAX phased grid serves take the stage kernels' bf16 forms (route
+    ``stages``, bf16 in and a float32 C, float32 arithmetic, each result
+    rounded to bf16 once)."""
     n = 1 << 14
     x = _cx((n,), 19).astype(np.complex128)
     y = tk.fft(x, **CPU)
@@ -288,7 +289,9 @@ def test_dtypes():
     bi = torch.as_tensor(x.imag, dtype=torch.bfloat16)
     HK.reset_counts()
     yr, yi = tk.fft_split(br, bi)
-    assert HK.classes["phased_tiled"] == 1
+    assert HK.classes["stages"] == 1
+    assert HK._stage_types(n, 1, True, torch.bfloat16) == (torch.bfloat16,
+                                                           torch.float32)
     assert yr.dtype == torch.bfloat16
     ref = np.fft.fft(br.double().numpy() + 1j * bi.double().numpy())
     assert snr_db(ref, tk.asnumpy(yr) + 1j * tk.asnumpy(yi)) > 40.0
@@ -326,8 +329,9 @@ def test_host_input_defaults_to_the_card(entry):
 
 
 def test_vmap_runs_through_the_kernel_ops(monkeypatch):
-    """torch.func.vmap over fft_split, rfft_split and fftn_split (an fft2
-    shape and a fused_nd shape) on CPU tensors: each call reaches its
+    """torch.func.vmap over fft_split, rfft_split and fftn_split (a shape
+    of the JAX one-call 2-D kernel and one of its fused all-axes kernel)
+    on CPU tensors: each call reaches its
     kernel op's vmap rule, which folds the mapped dim into the batch; each
     slice matches numpy (> 100 dB, SNR_FLOOR_DB of tests/test_fft.py)."""
     import torch
@@ -355,13 +359,13 @@ def test_vmap_runs_through_the_kernel_ops(monkeypatch):
     for k in range(3):
         assert snr_db(np.fft.rfft(x[k].real), got[k]) > 100.0
     assert seen == ["_KernelFFT", "_KernelRFFT"]
-    for shape, cls in [((512, 512), "fft2"), ((512, 256), "fused_nd")]:
+    for shape in [(512, 512), (512, 256)]:
         gr, gi = (torch.as_tensor(a) for a in
                   rng.standard_normal((2, 2) + shape).astype(np.float32))
         g = gr.double().numpy() + 1j * gi.double().numpy()
         HK.reset_counts()
         yr, yi = torch.func.vmap(tk.fftn_split)(gr, gi)
-        assert HK.classes[cls] == 1
+        assert HK.classes["axes"] == 1
         got = yr.double().numpy() + 1j * yi.double().numpy()
         for k in range(2):
             assert snr_db(np.fft.fftn(g[k]), got[k]) > 100.0

@@ -202,16 +202,21 @@ def _bf16(a):
 
 
 @pytest.mark.parametrize("entry", ["fft_split", "rfft_split"])
-@pytest.mark.parametrize("shape,cls", [((1 << 14,), "phased_tiled"),
-                                       ((3, 1 << 14), "phased_tiled"),
-                                       ((2, 1 << 14), "ml")])
-def test_bf16_public_vs_jax(entry, shape, cls):
+@pytest.mark.parametrize("shape,types", [((1 << 14,), (BF16, torch.float32)),
+                                         ((3, 1 << 14), (BF16, torch.float32)),
+                                         ((2, 1 << 14), None)])
+def test_bf16_public_vs_jax(entry, shape, types):
     """The 1-D entries take bf16 planes to the kernels' bf16 forms where
-    the phased grid serves the shape (class phased_tiled, never flat) and
-    run the float32 route otherwise; the output is bf16 either way."""
+    the JAX phased grid serves the shape (bf16 in, a float32 C, also for a
+    flat transform) and run the float32 types otherwise (the batch-folded
+    (2, 2^14)); the output is bf16 either way."""
     xr, xi = _planes(shape, 40 + len(shape))
     tr, jr, r64 = _bf16(xr)
     ti, ji, i64 = _bf16(xi)
+    cls = "stages_real" if entry == "rfft_split" else "stages"
+    b = 1 if len(shape) == 1 else shape[0]
+    assert HK._stage_types(shape[-1], b, len(shape) == 1, BF16,
+                           real=entry == "rfft_split") == types
     HK.reset_counts()
     if entry == "fft_split":
         yr, yi = tk.fft_split(tr, ti)
@@ -221,7 +226,6 @@ def test_bf16_public_vs_jax(entry, shape, cls):
         yr, yi = tk.rfft_split(tr)
         wr, wi = jk.rfft_split(jr)
         ref = np.fft.rfft(r64, axis=-1)
-        cls += "_real"
     assert HK.classes == {k: int(k == cls) for k in HK.classes}
     assert yr.dtype == yi.dtype == BF16
     assert wr.dtype == jnp.bfloat16
@@ -329,17 +333,18 @@ def default_tier():
 
 
 @pytest.mark.parametrize("real", [False, True])
-@pytest.mark.parametrize("shape,cls,loads,c_dtype", [
-    ((1 << 14,), "phased_flat", torch.float32, torch.float32),
-    ((3, 1 << 14), "phased_tiled", BF16, torch.float32),
-    ((8, 1 << 14), "ml", BF16, BF16),
+@pytest.mark.parametrize("shape,loads,c_dtype", [
+    ((1 << 14,), torch.float32, torch.float32),
+    ((3, 1 << 14), BF16, torch.float32),
+    ((8, 1 << 14), BF16, BF16),
 ])
-def test_default_tier_route(default_tier, monkeypatch, real, shape, cls,
-                            loads, c_dtype):
-    """On the `default` tier the float32 planes of the tiled phased path
-    and of the ml pair are read as bf16, C is bf16 on ml (and on the
-    phased path above 2^23), the flat path stays float32, and the output
-    is float32 >= 42 dB against float64 on both sides."""
+def test_default_tier_route(default_tier, monkeypatch, real, shape, loads,
+                            c_dtype):
+    """On the `default` tier the float32 planes of a batch that the JAX
+    phased grid serves and of one that its two-call pair folds are read as
+    bf16, C is bf16 on the folded batch (and on the phased shapes above
+    2^23), a flat transform stays float32, and the output is float32
+    >= 42 dB against float64 on both sides."""
     n = shape[-1]
     xr, xi = _planes(shape, 70 + len(shape))
     seen = {}
@@ -357,12 +362,12 @@ def test_default_tier_route(default_tier, monkeypatch, real, shape, cls,
 
     for name in names:
         monkeypatch.setattr(HK, name, spy(name))
+    cls = "stages_real" if real else "stages"
     HK.reset_counts()
     if real:
         yr, yi = HK.fused_multilevel_rfft(torch.as_tensor(xr), n)
         jr, ji = PK.fused_multilevel_rfft(jnp.asarray(xr), n, interpret=True)
         ref = np.fft.rfft(xr.astype(np.float64), axis=-1)
-        cls += "_real"
     else:
         yr, yi = HK.fused_multilevel_fft(*_t(xr, xi), n)
         jr, ji = PK.fused_multilevel_fft(jnp.asarray(xr), jnp.asarray(xi), n,
@@ -377,28 +382,28 @@ def test_default_tier_route(default_tier, monkeypatch, real, shape, cls,
 
 
 def test_route_types_at_the_large_sizes(monkeypatch):
-    """The route's (class, input type, C type) where only large sizes
+    """The stage kernels' (input type, C type) where only large sizes
     reach: the phased bf16 C above 2^23 on the `default` tier, and bf16
-    planes above the phased cap (the float32 route, class None here)."""
+    planes above the phased cap (the float32 types, None here)."""
     f32 = torch.float32
-    route = HK._route
-    assert route(1 << 24, 1, True, f32) == ("ml", f32, f32)
-    assert route(1 << 24, 1, True, BF16) == (None, None, None)
-    assert route(1 << 20, 8, False, BF16) == ("phased_tiled", BF16, f32)
-    assert route(1 << 20, 1, True, BF16, real=True) == (
-        "phased_tiled_real", BF16, f32)
+    types = HK._stage_types
+    assert types(1 << 24, 1, True, f32) == (f32, f32)
+    assert types(1 << 24, 1, True, BF16) is None
+    assert types(1 << 20, 8, False, BF16) == (BF16, f32)
+    assert types(1 << 20, 1, True, BF16, real=True) == (BF16, f32)
     monkeypatch.setattr(tcfg.get_config(), "precision", "default")
     monkeypatch.setattr(jcfg.get_config(), "precision", "default")
-    assert route(1 << 24, 1, True, f32) == ("phased_tiled", BF16, BF16)
-    assert route(1 << 24, 1, True, BF16) == ("phased_tiled", BF16, BF16)
-    assert route(1 << 23, 1, True, f32, real=True) == (
-        "phased_flat_real", f32, f32)
-    assert route(1 << 23, 2, False, f32) == ("phased_tiled", BF16, f32)
-    assert route(1 << 26, 1, True, f32, real=True) == ("ml_real", BF16, BF16)
-    assert route(1 << 26, 1, True, BF16) == (None, None, None)
+    assert types(1 << 24, 1, True, f32) == (BF16, BF16)
+    assert types(1 << 24, 1, True, BF16) == (BF16, BF16)
+    assert types(1 << 23, 1, True, f32, real=True) == (f32, f32)
+    assert types(1 << 23, 2, False, f32) == (BF16, f32)
+    assert types(1 << 26, 1, True, f32, real=True) == (BF16, BF16)
+    assert types(1 << 26, 1, True, BF16) is None
     for n in (1 << 22, 1 << 24, 1 << 25):
         for b in (1, 2):
             n1, n2 = HK._pow2_split(n)
             bt = PK._ml_batch_tile(b, n1, n2)
-            assert (route(n, b, False, f32)[0] != "ml") == \
+            # bf16 planes keep bf16 I/O where the JAX phased grid serves
+            # the shape
+            assert (types(n, b, False, BF16) is not None) == \
                 PK._use_phased(n, bt) == HK._use_phased(n, bt)

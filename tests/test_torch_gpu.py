@@ -305,20 +305,20 @@ def test_axis_kernels_match_plain(cuda, shape, conj):
     assert snr_db(np.conj(want) if conj else want, _np(yr, yi)) > ORACLE_DB
 
 
-@pytest.mark.parametrize("shape,axes,cls", [
-    ((1024, 1024), (0, 1), "fft2"),
-    ((4, 512, 512), (1, 2), "fft2"),
-    ((2048, 2048), (0, 1), "fft2_big"),
-    ((128, 128, 128), None, "fused_nd"),
-    ((512, 256), None, "fused_nd"),
+@pytest.mark.parametrize("shape,axes", [
+    ((1024, 1024), (0, 1)),      # the JAX one-call 2-D kernel's zone
+    ((4, 512, 512), (1, 2)),
+    ((2048, 2048), (0, 1)),      # its two-call 2-D pair's
+    ((128, 128, 128), None),     # its fused all-axes kernel's
+    ((512, 256), None),
 ])
-def test_nd_routes_on_card(cuda, shape, axes, cls):
+def test_nd_routes_on_card(cuda, shape, axes):
     import kofft_tpu_torch as kt
     xr, xi = _planes(shape, cuda, seed=9)
     x = _np(xr, xi)
     HK.reset_counts()
     yr, yi = kt.fftn_split(xr, xi, axes=axes)
-    assert HK.classes[cls] == 1
+    assert HK.classes == {k: int(k == "axes") for k in HK.classes}
     assert HK.launches["col_fft"] == (len(shape) - 1 if axes is None else 1)
     assert HK.launches["row_fft"] == 1
     assert snr_db(np.fft.fftn(x, axes=axes), _np(yr, yi)) > ORACLE_DB
@@ -330,7 +330,7 @@ def test_nd_routes_on_card(cuda, shape, axes, cls):
 def test_fused_nd_route_matches_plain(cuda, shape):
     xr, xi = _planes(shape, cuda, seed=10)
     for inverse in (False, True):
-        yr, yi = HK.fused_ndfft_planes(xr, xi, inverse)
+        yr, yi = HK.axes_fft_planes(xr, xi, inverse)
         pr, pi = HK.fused_nd_plain(xr, xi, conj=inverse)
         torch.cuda.synchronize()
         assert snr_db(_np(pr, pi), _np(yr, yi)) > ORACLE_DB
@@ -443,7 +443,7 @@ def test_bf16_routes_on_card(cuda, real, shape, forms):
         ref = np.fft.fft(_np(xr, xi), axis=-1)
         names = ("stage1", "stage2")
     assert yr.dtype == yi.dtype == torch.bfloat16
-    assert HK.classes["phased_tiled_real" if real else "phased_tiled"] == 1
+    assert HK.classes["stages_real" if real else "stages"] == 1
     for name, form in zip(names, forms):
         assert HK.launches[name + form] == 1
     assert snr_db(ref, _np(yr, yi)) > BF16_DB
@@ -1066,7 +1066,7 @@ def test_stft_frames_leaves_other_calls(cuda):
 
 def test_fftn_split_at_the_benchmark_shape(cuda):
     """fftn_split at the 2-D cell's shape (4096², the last two axes,
-    `auto`): class ``fft2_big``, ``col_fft`` counted once (its column
+    `auto`): route ``axes``, ``col_fft`` counted once (its column
     four-step's two launches) and ``row_fft`` once; against the plain
     float64 reference (``portbench/reference/fftn2d.py``, NumPy) within
     the cell's limits, rms_err <= 1e-5 and max_err <= 5e-5 of the
@@ -1087,7 +1087,7 @@ def test_fftn_split_at_the_benchmark_shape(cuda):
         yr, yi = kt.fftn_split(xr, xi, axes=(-2, -1))
     torch.cuda.synchronize()
     snap = obs.snapshot()
-    assert HK.classes["fft2_big"] == 1 and sum(HK.classes.values()) == 1
+    assert HK.classes["axes"] == 1 and sum(HK.classes.values()) == 1
     assert HK.launches["col_fft"] == HK.launches["row_fft"] == 1
     assert sum(HK.launches.values()) == 2
     assert snap["counters"]["alloc_bytes"] == 384 << 20

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from kofft_tpu.ops import pallas_kernels as PK  # noqa: E402
+from kofft_tpu_torch.ops import hopper_fft as HF  # noqa: E402
 from kofft_tpu_torch.ops import hopper_kernels as HK  # noqa: E402
 from kofft_tpu_torch.ops.dft import snr_db  # noqa: E402
 
@@ -52,21 +53,26 @@ def test_line_fft_plain_vs_jax(m):
     assert snr_db(ref, _c(jr, ji)) > ORACLE_DB
 
 
-@pytest.mark.parametrize("shape,cls", [
-    ((1 << 14,), "phased_flat"),
-    ((1, 1 << 14), "phased_tiled"),
-    ((8, 1 << 14), "ml"),
-    ((3 << 14,), "phased_flat"),
+@pytest.mark.parametrize("shape", [
+    (1 << 14,),          # the JAX phased kernel's flat form
+    (1, 1 << 14),        # its tiled grid
+    (8, 1 << 14),        # the two-call pair, which folds the batch
+    (3 << 14,),
 ])
-def test_fused_multilevel_vs_jax(shape, cls):
+def test_fused_multilevel_vs_jax(shape):
+    """Every shape the JAX package splits among its three forms runs the
+    stage pair (route ``stages``), float32 throughout on `highest`."""
     n = shape[-1]
+    b = 1 if len(shape) == 1 else shape[0]
+    assert HK._stage_types(n, b, len(shape) == 1, torch.float32) == (
+        torch.float32, torch.float32)
     xr, xi = _planes(shape, n + len(shape))
     jr, ji = PK.fused_multilevel_fft(jnp.asarray(xr), jnp.asarray(xi), n,
                                      interpret=True)
     HK.reset_counts()
     tr, ti = HK.fused_multilevel_fft(torch.as_tensor(xr),
                                      torch.as_tensor(xi), n)
-    assert HK.classes == {k: int(k == cls) for k in HK.classes}
+    assert HK.classes == {k: int(k == "stages") for k in HK.classes}
     assert HK.launches == {k: 0 for k in HK.launches}  # CPU: plain versions
     assert tuple(tr.shape) == shape
     got = _c(tr.numpy(), ti.numpy())
@@ -76,14 +82,16 @@ def test_fused_multilevel_vs_jax(shape, cls):
     assert snr_db(ref, _c(jr, ji)) > ORACLE_DB
 
 
-@pytest.mark.parametrize("b,cls", [(1, "phased_tiled"), (2, "ml")])
-def test_phased_tiled_vs_jax(b, cls):
+@pytest.mark.parametrize("b", [1, 2])
+def test_phased_tiled_vs_jax(b):
+    """``kernel_tiled_planes`` holds the JAX tiled entry's contract on
+    (b, m, m) planes, n = m*m, through the stage pair."""
     ar, ai = _planes((b, 128, 128), 7 + b)
     jr, ji = PK.phased_tiled_fft(jnp.asarray(ar), jnp.asarray(ai),
                                  interpret=True)
     HK.reset_counts()
-    tr, ti = HK.phased_tiled_fft(torch.as_tensor(ar), torch.as_tensor(ai))
-    assert HK.classes == {k: int(k == cls) for k in HK.classes}
+    tr, ti = HF.kernel_tiled_planes(torch.as_tensor(ar), torch.as_tensor(ai))
+    assert HK.classes == {k: int(k == "stages") for k in HK.classes}
     got = _c(tr.numpy(), ti.numpy())
     ref = np.fft.fft(_c(ar, ai).reshape(b, -1), axis=-1).reshape(b, 128, 128)
     assert snr_db(_c(jr, ji), got) >= PORT_DB

@@ -1,24 +1,26 @@
 """The port's N-D FFT against kofft_tpu on the CPU.
 
-Four groups: the public entries, the three kernel routes (fft2, fft2_big,
-fused_nd) through the public entries with their class counters, the
-routes' plain versions against the JAX Pallas kernels in interpret mode
-(called directly, as tests/test_pallas.py and tests/test_ndfft.py call
-them), and the zone predicates and gradients. On a CPU tensor every
+Four groups: the public entries, the kernel route (``axes``) through the
+public entries with its route counter, over the shapes of the JAX
+package's three N-D kernels (the one-call 2-D kernel, the two-call 2-D
+pair and the fused all-axes kernel), the route's plain versions against
+those Pallas kernels in interpret mode (called directly, as
+tests/test_pallas.py and tests/test_ndfft.py call them), and the zone
+predicates and gradients. On a CPU tensor every
 kernel wrapper runs its plain PyTorch version, so no launch is counted.
 The same seeded numpy inputs go through both packages.
 
 Tolerances:
 - public entries and routes vs kofft_tpu and vs the float64 numpy oracle:
   >= 100 dB (tests/test_ndfft.py's bound for its kernel routes);
-- the 2-D routes vs the JAX 2-D kernels: >= 110 dB. Both run the same
-  line-FFT recursion with bit-equal tables in float32, so they differ
-  only in summation order (as tests/test_torch_kernels.py holds the 1-D
-  kernels);
-- the fused N-D route vs the JAX fused kernel: >= 100 dB, because the JAX
-  kernel sums with one dense DFT matrix per axis and the port's route with
-  the line recursion. ``fused_nd_plain``, which repeats the JAX kernel's
-  dense math, is held at >= 110 dB;
+- the route over the last two axes vs the JAX 2-D kernels: >= 110 dB.
+  Both run the same line-FFT recursion with bit-equal tables in float32,
+  so they differ only in summation order (as tests/test_torch_kernels.py
+  holds the 1-D kernels);
+- the route over every axis vs the JAX fused kernel: >= 100 dB, because
+  the JAX kernel sums with one dense DFT matrix per axis and the port's
+  route with the line recursion. ``fused_nd_plain``, which repeats the
+  JAX kernel's dense math, is held at >= 110 dB;
 - gradients and jvps vs the Parseval oracle d/dx sum|Fx|^2 = 2*N*x:
   >= 100 dB.
 """
@@ -250,62 +252,59 @@ def test_host_input_defaults_to_the_card(entry):
 # the kernel routes through the public entries
 # ---------------------------------------------------------------------------
 
-def _route_case(shape, axes, cls):
+def _route_case(shape, axes):
     xr, xi = _planes(shape, sum(shape))
     HK.reset_counts()
     yr, yi = tk.fftn_split(xr, xi, axes=axes, **CPU)
-    assert HK.classes == {k: int(k == cls) for k in HK.classes}
+    assert HK.classes == {k: int(k == "axes") for k in HK.classes}
     assert HK.launches == {k: 0 for k in HK.launches}  # CPU: plain versions
     jr, ji = jk.fftn_split(xr, xi, axes=axes)
     assert snr_db(_c(jr, ji), _c(yr, yi)) >= FLOOR
     assert snr_db(np.fft.fftn(_c(xr, xi), axes=axes), _c(yr, yi)) >= FLOOR
     # the inverse: the route's unnormalized inverse scaled by 1/N
     br, bi = tk.fftn_split(yr, yi, axes=axes, inverse=True)
-    assert HK.classes[cls] == 2
+    assert HK.classes["axes"] == 2
     assert snr_db(_c(xr, xi), _c(br, bi)) >= FLOOR
 
 
-@pytest.mark.parametrize("shape,axes,cls", [
-    ((1024, 256), (-2, -1), "fft2"),
-    ((2, 256, 1024), (-2, -1), "fft2"),
-    ((512, 256), None, "fused_nd"),
-    ((128, 128, 128), None, "fused_nd"),
+@pytest.mark.parametrize("shape,axes", [
+    ((1024, 256), (-2, -1)),        # the one-call 2-D kernel's zone
+    ((2, 256, 1024), (-2, -1)),
+    ((512, 256), None),             # the fused all-axes kernel's zone
+    ((128, 128, 128), None),
 ])
-def test_routes_vs_jax(shape, axes, cls):
-    _route_case(shape, axes, cls)
+def test_routes_vs_jax(shape, axes):
+    _route_case(shape, axes)
 
 
-def test_big_2d_route_vs_jax(monkeypatch):
-    """The fft2_big route on the CPU: with the one-call zone off and the
-    big zone's floor lowered on the port's module, as
-    tests/test_ndfft.py:465-472 does on the JAX side, (512, 256) rides
-    the big-2-D class."""
-    monkeypatch.setattr(HK, "fused_2d_zone", lambda shape, axes: False)
-    monkeypatch.setattr(
-        HK, "fused_2d_big_zone",
-        lambda shape, axes: (len(shape) >= 2 and len(axes) == 2
-                             and shape[-1] * shape[-2] >= (1 << 17)))
-    _route_case((512, 256), (-2, -1), "fft2_big")
+def test_big_2d_route_vs_jax():
+    """A shape of the JAX two-call 2-D pair's zone (2^21 points, rows of
+    8192 above the one-call cap) rides the axis kernels on the CPU, where
+    col_fft and row_fft run their plain versions."""
+    assert PK.fused_2d_big_zone((256, 8192), (-2, -1))
+    assert not PK.fused_2d_zone((256, 8192), (-2, -1))
+    _route_case((256, 8192), (-2, -1))
 
 
-@pytest.mark.parametrize("shape,axes,cls", [
-    ((512, 512), None, "fft2"),      # in the fft2 and fused_nd zones
-    ((1024, 1024), None, "fft2"),    # in the fft2 and cuFFT zones
-    ((2048, 2048), None, "fft2_big"),
+@pytest.mark.parametrize("shape,axes,in_jax", [
+    ((512, 512), None, (PK.fused_2d_zone, PK.fused_nd_zone)),
+    ((1024, 1024), None, (PK.fused_2d_zone,)),      # and the cuFFT zone
+    ((2048, 2048), None, (PK.fused_2d_big_zone,)),
 ])
-def test_zone_order(shape, axes, cls):
-    """The zones overlap, and the JAX order decides: 2-D, big 2-D, fused
-    N-D, then the cuFFT zone (kofft_tpu/ops/ndfft.py:146-152)."""
+def test_zone_order(shape, axes, in_jax):
+    """The zones overlap, and the JAX order decides: the kernel zone, then
+    the cuFFT zone (kofft_tpu/ops/ndfft.py:146-152); a shape in two of the
+    JAX package's kernel zones runs the one route once."""
     ax = tuple(range(len(shape)))
-    assert HK.fused_2d_zone(shape, ax) == (cls == "fft2")
-    if shape == (512, 512):
-        assert HK.fused_nd_zone(shape, ax)
+    for zone in (PK.fused_2d_zone, PK.fused_2d_big_zone, PK.fused_nd_zone):
+        assert zone(shape, ax) == (zone in in_jax)
+    assert tnd._kernel_nd_zone(shape, ax)
     if shape == (1024, 1024):
         assert tnd._nd_cufft_zone(shape, ax)
     HK.reset_counts()
     x = torch.zeros(shape)
     tk.fftn_split(x, x, axes=axes)
-    assert HK.classes == {k: int(k == cls) for k in HK.classes}
+    assert HK.classes == {k: int(k == "axes") for k in HK.classes}
 
 
 def test_cufft_and_einsum_zones(monkeypatch):
@@ -337,7 +336,7 @@ def test_per_axis_route_reaches_the_stage_kernels():
     xr, xi = _planes((4, 3, 1 << 14), 13)
     HK.reset_counts()
     yr, yi = tk.fftn_split(xr, xi, axes=(0, 2), **CPU)
-    assert HK.classes == {k: int(k == "ml") for k in HK.classes}
+    assert HK.classes == {k: int(k == "stages") for k in HK.classes}
     assert snr_db(np.fft.fftn(_c(xr, xi), axes=(0, 2)), _c(yr, yi)) >= FLOOR
     jr, ji = jk.fftn_split(xr, xi, axes=(0, 2))
     assert snr_db(_c(jr, ji), _c(yr, yi)) >= FLOOR
@@ -356,14 +355,19 @@ def test_per_axis_route_reaches_the_stage_kernels():
 ])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_route_vs_pallas_interpret(entry, shape, floor, inverse):
+    """The axis route against each JAX N-D kernel entry (``entry`` names
+    the JAX function): over every axis for the fused all-axes kernel, over
+    the last two (lead = nd - 2) for the 2-D kernels."""
     xr, xi = _planes(shape, len(shape) + shape[-1])
     jr, ji = getattr(PK, entry)(jnp.asarray(xr), jnp.asarray(xi), inverse,
                                 interpret=True)
+    every = entry == "fused_ndfft_planes"
     HK.reset_counts()
-    tr, ti = getattr(HK, entry)(_t(xr), _t(xi), inverse)
-    assert sum(HK.classes.values()) == 1
+    tr, ti = HK.axes_fft_planes(_t(xr), _t(xi), inverse,
+                                0 if every else len(shape) - 2)
+    assert HK.classes == {k: int(k == "axes") for k in HK.classes}
     got = _c(tr, ti)
-    axes = tuple(range(len(shape))) if "nd" in entry else (-2, -1)
+    axes = tuple(range(len(shape))) if every else (-2, -1)
     x = _c(xr, xi)
     ref = (np.fft.ifftn(x, axes=axes) * np.prod([shape[a] for a in axes])
            if inverse else np.fft.fftn(x, axes=axes))
@@ -379,7 +383,7 @@ def test_fft2_route_vs_bt_folded_kernel():
     xr, xi = _planes((8, 128, 128), 18)
     run = PK._build_fft2(128, 128, "float32", True, "highest", bt=4)
     jr, ji = run(8, jnp.asarray(xr), jnp.asarray(xi))
-    tr, ti = HK.fused_fft2_planes(_t(xr), _t(xi))
+    tr, ti = HK.axes_fft_planes(_t(xr), _t(xi), lead=1)
     assert snr_db(_c(jr, ji), _c(tr, ti)) >= PORT_DB
     assert snr_db(np.fft.fft2(_c(xr, xi)), _c(tr, ti)) >= FLOOR
 
@@ -427,7 +431,9 @@ def test_axis_wrappers_reject_bad_input():
     with pytest.raises(tk.InvalidValueError):
         HK.col_fft(d.transpose(1, 2), d.transpose(1, 2))
     with pytest.raises(tk.InvalidValueError):
-        HK.fused_ndfft_planes(torch.zeros(128), torch.zeros(128))
+        HK.axes_fft_planes(torch.zeros(128), torch.zeros(128))
+    with pytest.raises(tk.InvalidValueError):
+        HK.axes_fft_planes(torch.zeros(2, 128), torch.zeros(2, 128), lead=1)
 
 
 # ---------------------------------------------------------------------------
@@ -466,9 +472,10 @@ def test_zones_match_jax(shape, axes, prec):
     try:
         jset(prec)
         tk.set_precision(prec)
-        for name in ("fused_2d_zone", "fused_2d_big_zone", "fused_nd_zone"):
-            assert getattr(HK, name)(shape, axes) == \
-                getattr(PK, name)(shape, axes), (name, shape, axes, prec)
+        want = (PK.fused_2d_zone(shape, axes)
+                or PK.fused_2d_big_zone(shape, axes)
+                or PK.fused_nd_zone(shape, axes))
+        assert tnd._kernel_nd_zone(shape, axes) == want, (shape, axes, prec)
         assert tnd._nd_cufft_zone(shape, axes) == \
             jnd._nd_jnp_zone(shape, axes)
         assert tnd._small_axes_zone(shape, axes) == \
@@ -479,25 +486,35 @@ def test_zones_match_jax(shape, axes, prec):
 
 
 def test_2d_zones_tile_the_range():
-    """No overlap and no gap between the two 2-D zones at either tier, and
-    the caps of tests/test_ndfft.py:213-243 hold on the port's module."""
-    assert HK.fused_2d_big_zone((8192, 8192), (0, 1))
-    assert not HK.fused_2d_zone((1024, 2048), (0, 1))
+    """Over the last two axes of a batch of images (outside the all-axes
+    zone), the kernel zone holds every shape of either JAX 2-D zone at
+    both tiers and leaves the same shapes out: no gap at the one-call cap,
+    8192^2 in, and 4096 x 128 (below the cap, a side above 2048) out at
+    both, as 4096 x 512 is on `default`."""
+    from kofft_tpu.config import set_precision as jset
+    p2 = [1 << k for k in range(6, 15)]
+    assert tnd._kernel_nd_zone((8192, 8192), (0, 1))
     for prec in (None, "default"):
         try:
+            jset(prec)
             tk.set_precision(prec)
+            for shape in [(3, a, b) for a in p2 for b in p2]:
+                ax = (-2, -1)
+                jax2d = (PK.fused_2d_zone(shape, ax)
+                         or PK.fused_2d_big_zone(shape, ax))
+                assert tnd._kernel_nd_zone(shape, ax) == jax2d, (shape, prec)
             for shape in [(1024, 1024), (1024, 2048), (2048, 2048),
                           (2048, 4096), (4096, 4096)]:
-                s = HK.fused_2d_zone(shape, (0, 1))
-                b = HK.fused_2d_big_zone(shape, (0, 1))
-                assert s != b, (shape, prec)
+                assert tnd._kernel_nd_zone(shape, (0, 1)), (shape, prec)
+            assert not tnd._kernel_nd_zone((4096, 128), (0, 1))
+            assert tnd._kernel_nd_zone((4096, 512), (0, 1)) == (prec is None)
         finally:
+            jset(None)
             tk.set_precision(None)
 
 
-@pytest.mark.parametrize("shape,cls", [((1024, 256), "fft2"),
-                                       ((512, 256), "fused_nd")])
-def test_route_grad_and_jvp(shape, cls):
+@pytest.mark.parametrize("shape", [(1024, 256), (512, 256)])
+def test_route_grad_and_jvp(shape):
     """grad and jvp through the route against Parseval: for the
     unnormalized DFT, d/dx sum|Fx|^2 = 2*N*x, and its jvp along t is
     2*N*<x, t>."""
@@ -510,7 +527,7 @@ def test_route_grad_and_jvp(shape, cls):
     HK.reset_counts()
     yr, yi = tk.fftn_split(ar, ai)
     (yr * yr + yi * yi).sum().backward()
-    assert HK.classes[cls] == 2          # forward, then the backward route
+    assert HK.classes["axes"] == 2       # forward, then the backward route
     assert snr_db(2.0 * n * xr.astype(np.float64), ar.grad.numpy()) >= FLOOR
     assert snr_db(2.0 * n * xi.astype(np.float64), ai.grad.numpy()) >= FLOOR
     with fwAD.dual_level():
@@ -526,4 +543,4 @@ def test_route_grad_and_jvp(shape, cls):
     scale = 2.0 * n * np.sqrt(np.sum(np.abs(_c(xr, xi)) ** 2)
                               * np.sum(np.abs(_c(tr, ti)) ** 2))
     assert abs(got - want) <= 1e-6 * scale, (got, want)
-    assert HK.classes[cls] == 4          # the primal and the tangent
+    assert HK.classes["axes"] == 4       # the primal and the tangent

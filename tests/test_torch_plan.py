@@ -15,7 +15,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from kofft_tpu.ops import pallas_kernels as PK  # noqa: E402
 from kofft_tpu.plan import tables as jax_tables  # noqa: E402
@@ -61,7 +61,42 @@ def test_host_plan_agrees(n):
         assert HK._use_phased(n, bt) == PK._use_phased(n, bt)
     for b in (1, 2, 3, 8):
         assert HK._ml_batch_tile(b, *sp) == PK._ml_batch_tile(b, *sp)
-        assert HK._phased_rows(n, b) == PK._phased_rows(n, b)
+
+
+def _jax_stage_types(n, b, flat, dtype, real, mode):
+    """The element types the JAX package's routing loads and keeps C in
+    on the chip (pallas_kernels.py:1160-1243, :1260-1345), read off its own
+    host plan, as torch types; None where it runs float32 and rounds
+    back."""
+    types = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    phased = PK._use_phased(n, PK._ml_batch_tile(b, *PK._pow2_split(n)))
+    sdt = types[PK._phased_sdt(n, mode, False)]
+    flat_cap = (1 << 23) if real else PK._PHASED_FLAT_MAX_N
+    if dtype == torch.bfloat16:
+        return (torch.bfloat16, sdt) if phased else None
+    if phased and flat and n <= flat_cap:
+        return torch.float32, torch.float32
+    cast = torch.bfloat16 if mode == "default" else torch.float32
+    return (cast, sdt) if phased else (cast, cast)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_stage_types_agree(n, monkeypatch):
+    """The stage kernels' (input type, C type) are the JAX routing's at
+    every tier, batch, plane type and form, flat or not."""
+    from kofft_tpu import config as jcfg
+    if HK._pow2_split(n) is None:
+        return
+    for mode in ("highest", "high", "default"):
+        monkeypatch.setattr(jcfg.get_config(), "precision", mode)
+        monkeypatch.setattr(tcfg.get_config(), "precision", mode)
+        for b in (1, 2, 3, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                for flat in (True, False):
+                    for real in (False, True):
+                        assert HK._stage_types(n, b, flat, dtype, real) == \
+                            _jax_stage_types(n, b, flat, dtype, real, mode), \
+                            (n, b, dtype, flat, real, mode)
 
 
 def test_host_plan_agrees_default_tier(monkeypatch):

@@ -124,9 +124,9 @@ def test_backends_agree(backend, n):
     x = _real((2, n), 30)
     HK.reset_counts()
     yr, yi = tk.rfft_split(x, backend=backend, **CPU)
-    # the kernel backends take the real class (b = 2 folds: ml_real)
+    # the kernel backends take the real stage route
     kernel = backend in ("auto", "cuda")
-    assert HK.classes == {k: int(kernel and k == "ml_real")
+    assert HK.classes == {k: int(kernel and k == "stages_real")
                           for k in HK.classes}
     assert snr_db(np.fft.rfft(x.astype(np.float64)), _c(yr, yi)) >= SNR
     back = tk.irfft_split(yr, yi, n=n, backend=backend, **CPU)
@@ -168,15 +168,16 @@ def test_errors_match_jax_classes():
 
 def test_bfloat16():
     """bfloat16 planes reach the real kernels; (2, 2^14) is batch-folded
-    (class ml_real), a shape the phased grid does not serve, so it
-    computes on the float32 route and rounds back: the rounding of the
+    by the JAX two-call pair, a shape its phased grid does not serve, so
+    it computes in float32 and rounds back: the rounding of the
     output to 8 mantissa bits bounds the SNR near 50 dB (floor 40, as
     tests/test_torch_fft.py::test_dtypes)."""
     n = 1 << 14
     xb = torch.as_tensor(_real((2, n), 32)).to(torch.bfloat16)
     HK.reset_counts()
     yr, yi = tk.rfft_split(xb)
-    assert HK.classes["ml_real"] == 1
+    assert HK.classes["stages_real"] == 1
+    assert HK._stage_types(n, 2, False, torch.bfloat16, real=True) is None
     assert yr.dtype == torch.bfloat16 and tuple(yr.shape) == (2, n // 2 + 1)
     x64 = xb.double().numpy()
     got = _c(tk.asnumpy(yr), tk.asnumpy(yi))
@@ -188,19 +189,21 @@ def test_bfloat16():
     assert snr_db(x64, tk.asnumpy(back)) > 40.0
 
 
-@pytest.mark.parametrize("shape,cls", [
-    ((1 << 14,), "phased_flat_real"),
-    ((3 << 14,), "phased_flat_real"),
-    ((1, 1 << 16), "phased_tiled_real"),
-    ((4, 1 << 14), "ml_real"),
+@pytest.mark.parametrize("shape", [
+    (1 << 14,),          # the JAX phased kernel's flat real form
+    (3 << 14,),
+    (1, 1 << 16),        # its tiled grid
+    (4, 1 << 14),        # the two-call pair, which folds the batch
 ])
-def test_fused_multilevel_rfft_vs_jax(shape, cls):
+def test_fused_multilevel_rfft_vs_jax(shape):
+    """Every shape the JAX package splits among its three real forms runs
+    the real stage pair (route ``stages_real``)."""
     n = shape[-1]
     x = _real(shape, n + len(shape))
     jr, ji = PK.fused_multilevel_rfft(jnp.asarray(x), n, interpret=True)
     HK.reset_counts()
     tr, ti = HK.fused_multilevel_rfft(torch.as_tensor(x), n)
-    assert HK.classes == {k: int(k == cls) for k in HK.classes}
+    assert HK.classes == {k: int(k == "stages_real") for k in HK.classes}
     assert HK.launches == {k: 0 for k in HK.launches}  # CPU: plain versions
     assert tuple(tr.shape) == shape[:-1] + (n // 2 + 1,)
     got = _c(tr, ti)
