@@ -37,8 +37,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    above 110 dB against their plain versions, the pair against the
    float64 numpy fft2 / ifft2, at lines of 2 ... 8192 ((4096, 2, 16),
    (1, 16, 2048), (1, 1024, 1024), (8, 512, 512), (1, 2048, 4096) and
-   (1, 4096, 2048) on both sides of col_fft's column four-step, (1, 4096,
-   4096), (1, 8192, 8192)), the four-step at 2048 (as phase 6 times it),
+   (1, 4096, 2048) on both sides of col_fft's one-launch tile and its
+   cluster path, (1, 4096, 4096), (1, 8192, 8192)),
    the three axis passes of a 128^3 grid against its fftn, and the
    axes route over every axis (d launches) against fused_nd_plain at
    128^3 and (512, 256); then dense_stage_a and dense_stage_b on the
@@ -104,8 +104,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    bound); the smooth-n1
    stage 1 (the odd plan) alone at the splits of 3*2^18, 9*2^14,
    23*2^14, 5*2^16 and 3*2^23, and fft_split at 3*2^18 and 5*2^16 beside
-   torch.fft.fft; col_fft at lines of 2048 as one launch and as the
-   column four-step; and the frame kernel alone at the STFT cell's shape
+   torch.fft.fft; and the frame kernel alone at the STFT cell's shape
    (8 clips of 2^20 samples, hann(1024), hop 256) against its plain
    version on the same card tensors (110 dB), then kernel, plain version
    and torch.stft back to back and in CUDA graphs, with the bound of
@@ -250,7 +249,12 @@ samples, hann(1024), hop 256, against its plain version, beside
 whose launches are the stage-2 launches that took it, with the graph
 times of stage2, stage2_half and row_fft at (1, 4096, 4096) and (1,
 8192, 8192) under ``graph_ms`` and the registers and spill bytes of its
-instances under ``ptxas``); the last line
+instances under ``ptxas``; and ``col_cluster``, col_fft's cluster path
+on lines of 4096 and 8192, whose launches are the col_fft launches that took it,
+with the graph times of col_fft, row_fft and torch.fft.fft along the
+same axis at (1, 4096, 4096) and (1, 8192, 8192) under ``graph_ms`` and
+the registers and spill bytes of its instances under ``ptxas``); the
+last line
 is {"ok": true, "device": {...}}. Without a CUDA device the script exits non-zero before it prints
 any result.
 """
@@ -2236,9 +2240,10 @@ def main() -> int:
         err[name] = max(err[name], e)
         return yr, yi, snr_db_card((pr, pi), (yr, yi)), e
 
-    # lines of 2 ... 8192 along both axes: col_fft runs one launch up to
-    # HK._COL_SPLIT_ABOVE (2048) and the column four-step above it, so
-    # (1, 2048, 4096) and (1, 4096, 2048) hold both sides of the split;
+    # lines of 2 ... 8192 along both axes: col_fft runs one block per
+    # tile up to HK._COL_SPLIT_ABOVE (2048) and its cluster path at
+    # HK._COL_CLUSTER's lines (4096, 8192), so (1, 2048, 4096) and
+    # (1, 4096, 2048) hold both sides of the threshold;
     # every shape forward, then inverse (conj on col_fft's load and
     # row_fft's store: the unnormalized ifft2)
     for shape in [(4096, 2, 16), (1, 16, 2048), (1, 1024, 1024),
@@ -2262,15 +2267,6 @@ def main() -> int:
                 shape, conj, s1, s2, so)
             del cr, ci, yr, yi, x, ref
         del ar, ai
-    # the column four-step below its threshold, as phase 6 times it
-    ar, ai = planes((1, 2048, 2048))
-    yr, yi = HK._col_fft_kernel(ar, ai, False, (32, 64))
-    pr, pi = HK.col_fft_plain(ar, ai)
-    sv = snr_db_card((pr, pi), (yr, yi))
-    log(f"(1, 2048, 2048) col_fft as the column four-step (32, 64) vs "
-        f"plain {sv:.2f} dB")
-    assert sv > AXIS_DB, sv
-    del ar, ai, yr, yi, pr, pi
     # the three axis passes of a 128^3 grid: axis 0 and 1 as col_fft views,
     # the last axis as a row_fft view
     ar, ai = planes((128, 128, 128))
@@ -2613,9 +2609,10 @@ def main() -> int:
     log(f"N-D path counts: launches {nd_launches}, classes {nd_classes}")
     assert all(nd_launches[k] > 0 for k in (
         "stage1", "stage2", "stage1_real", "stage2_half", "col_fft",
-        "row_fft")), nd_launches
+        "col_cluster", "row_fft")), nd_launches
     assert nd_classes["axes"] >= 9, nd_classes
-    launches.update({k: nd_launches[k] for k in ("col_fft", "row_fft")})
+    launches.update({k: nd_launches[k] for k in ("col_fft", "col_cluster",
+                                                 "row_fft")})
     classes["axes"] = nd_classes["axes"]
     del x, xh, xr, xi, xc
 
@@ -3025,6 +3022,9 @@ def main() -> int:
             f"graph {tg * 1e3:.1f} us/call [{smi}]")
     del ar, ai, cr, ci, ac, cc, f1, calls
 
+    # graph ms of the library calls axis_row times, by (view, kernel)
+    library_g = {}
+
     def axis_row(view, k, fn, plain_fn, xr, xi, lib_what, lib_fn):
         """One kernel alone at ``view``: graph and back-to-back time of
         the kernel, graph time of its plain version and of the library
@@ -3034,8 +3034,10 @@ def main() -> int:
         tk = time_ms(lambda: fn(xr, xi))
         gk = graph_ms(lambda: fn(xr, xi), runs)
         gp = graph_ms(lambda: plain_fn(xr, xi), runs)
-        lib = "" if lib_fn is None else (
-            f"; {lib_what} graph {graph_ms(lib_fn, runs) * 1e3:.1f}")
+        lib = ""
+        if lib_fn is not None:
+            library_g[view, k] = graph_ms(lib_fn, runs)
+            lib = f"; {lib_what} graph {library_g[view, k] * 1e3:.1f}"
         bd, by = stage_bound(k, *view)
         log(f"{view} {k}: kernel graph {gk * 1e3:.1f} us/call, back-to-back "
             f"{tk[1] * 1e3:.1f} (host enqueue {tk[2] * 1e3:.1f}); plain graph "
@@ -3054,25 +3056,28 @@ def main() -> int:
                  f"torch.fft.fft(dim={dim})",
                  lambda: torch.fft.fft(vc, dim=dim))
         del vr, vi, vc
-    # the axis kernels at the 2-D routes' long lines (col_fft's column
-    # four-step at 4096 and 8192), and the 1-D stage pair at lines of 2048
-    # (one-launch stage 1, whole-block stage 2), 4096 and 8192 (stage 1's
-    # column four-step, stage 2's cluster of eight one-line CTAs, also
-    # stage2_half), each beside its library call along the same axis; the
-    # graph times of stage 2's cluster path and of row_fft, which does the
-    # same line FFTs and stores them in natural order, go to the kernels'
-    # record (stage2_cluster8)
-    long_lines = {}
+    # the axis kernels at the 2-D routes' long lines (col_fft's cluster
+    # path at 4096 and 8192), and the 1-D stage pair
+    # at lines of 2048 (one-launch stage 1, whole-block stage 2), 4096 and
+    # 8192 (stage 1's column four-step, stage 2's cluster of eight
+    # one-line CTAs, also stage2_half), each beside its library call along
+    # the same axis; the graph times of the cluster paths and of row_fft,
+    # which does the same line FFTs and stores them in natural order, go to
+    # the kernels' record (stage2_cluster8, col_cluster)
+    long_lines, col_lines = {}, {}
     for view in [(1, 2048, 2048), (1, 4096, 4096), (1, 8192, 8192)]:
         vr, vi = planes(view)
         if view[1] > 2048:
             vc = torch.complex(vr, vi)
-            axis_row(view, "col_fft", HK.col_fft, HK.col_fft_plain, vr, vi,
-                     "torch.fft.fft(dim=1)",
-                     lambda: torch.fft.fft(vc, dim=1))
+            col_lines[f"col_fft {view}"] = axis_row(
+                view, "col_fft", HK.col_fft, HK.col_fft_plain, vr, vi,
+                "torch.fft.fft(dim=1)", lambda: torch.fft.fft(vc, dim=1))
+            col_lines[f"torch.fft.fft(dim=1) {view}"] = \
+                library_g[view, "col_fft"]
             long_lines[f"row_fft {view}"] = axis_row(
                 view, "row_fft", HK.row_fft, HK.row_fft_plain, vr, vi,
                 "torch.fft.fft(dim=2)", lambda: torch.fft.fft(vc, dim=2))
+            col_lines[f"row_fft {view}"] = long_lines[f"row_fft {view}"]
             del vc
         axis_row(view, "stage1", HK.stage1, HK.stage1_plain, vr, vi,
                  None, None)
@@ -3110,15 +3115,6 @@ def main() -> int:
         report((n,), "torch.fft.fft (cuFFT)",
                time_ms(lambda: torch.fft.fft(xc)))
         del xr, xi, xc
-    # col_fft at lines of 2048, one launch against the column four-step:
-    # the measurement behind HK._COL_SPLIT_ABOVE
-    vr, vi = planes((1, 2048, 2048))
-    one = graph_ms(lambda: HK._col_fft_kernel(vr, vi, False, None))
-    two = graph_ms(lambda: HK._col_fft_kernel(vr, vi, False, (32, 64)))
-    log(f"(1, 2048, 2048) col_fft: one launch graph {one * 1e3:.1f} us/call, "
-        f"column four-step (32, 64) {two * 1e3:.1f} us/call; split above "
-        f"{HK._COL_SPLIT_ABOVE} [{smi}]")
-    del vr, vi
 
     # the frame kernel alone at the STFT cell's shape
     frames = frames_row(dev, smi, B.build_info["log"])
@@ -3200,6 +3196,17 @@ def main() -> int:
         "graph_ms": long_lines,
         "ptxas": {name: list(v) for name, v in ptxas_summary(
             B.build_info["log"], "stage2_kernel").items() if "Lb1E" in name}})
+    # col_fft's cluster path (lines of 4096 and 8192): a count of the col_fft
+    # launches that took it, its graph times beside row_fft's and the
+    # library call's along the same axis, and the registers and spills of
+    # its instances
+    record["kernels"].append({
+        "name": "col_cluster", "route": "cuda", "source": axis,
+        "replaces": f"{tpu}:1701", "also_replaces": [
+            f"{tpu}:1597 (_build_fft2 kern, phase 1)"],
+        "launches": launches["col_cluster"], "graph_ms": col_lines,
+        "ptxas": {name: list(v) for name, v in ptxas_summary(
+            B.build_info["log"], "col_cluster_kernel").items()}})
     # nor this: the JAX package frames and windows the STFT's frames and
     # transforms them on XLA's engines
     record["kernels"].append({
@@ -3217,10 +3224,10 @@ def main() -> int:
                 part: per_step[part].get(k["name"], 0)
                 for part in ("forward", "backward")}
     names = {k["name"] for k in record["kernels"]}
-    assert set(replaces) | {"goertzel_scan", "stft_frames",
-                            "stage2_cluster8"} == names == set(
-        HK.launches) | set(GZ.launches), (set(HK.launches)
-                                          | set(GZ.launches)) ^ names
+    counted = set(HK.launches) | set(GZ.launches)
+    assert set(replaces) | {"goertzel_scan", "stft_frames", "stage2_cluster8",
+                            "col_cluster"} == names == counted, \
+        counted ^ names
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,6 +42,8 @@ SIGNATURES = {
                      _I, _I, _I, _I, _I, _P],
     "kofft_col_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
                       _I, _P, _I, _I, _I, _P],
+    "kofft_col_cluster": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
+                          _I, _P, _I, _P],
     "kofft_row_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
                       _I, _I, _P],
     "kofft_dense_stage_a": [_P, _P, _P, _P, _P, _P, _P,

@@ -133,6 +133,7 @@ using kofft::kMaxDevices;
 using kofft::ld;
 using kofft::prepare;
 using kofft::st;
+using kofft::radix::ArriveAfterLastExchange;
 using kofft::radix::cmul;
 using kofft::radix::fill_plan;
 using kofft::radix::RadixPlan;
@@ -225,19 +226,6 @@ __device__ __forceinline__ void each_from(const F& f) {
 #pragma unroll
   for (int j = 0; j < kE; ++j) f((j + kFirst) % kE);
 }
-
-// The barrier of the cluster path's exchanges: the whole block, and after
-// the last exchange (its buffer read back, so free) the CTA's arrival at
-// the cluster barrier, which the kernel waits on before its push
-struct ArriveAfterLastExchange {
-  mutable int left;  // block barriers until the arrival
-  __device__ __forceinline__ void operator()() const {
-    __syncthreads();
-    if (--left == 0) {
-      asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-    }
-  }
-};
 
 // How stage2_kernel stores its lines: transposed into (b, n2, n1) (the
 // 1-D spectrum), or only the one-sided bins into (b, n/2 + 1) (sgn is not
@@ -412,29 +400,9 @@ int launch_stage2_kernel(const void* cr, const void* ci, void* yr, void* yi,
         a_r, a_i, o_r, o_i, n1, m, T, tc, p, t, sgn);
     return cudaGetLastError();
   } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(static_cast<unsigned>(grid));
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = s;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = csize;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    if (!(fits[device] >> csize & 1)) {
-      int clusters = 0;
-      r = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-      if (r != cudaSuccess) return r;
-      if (clusters < 1) return cudaErrorInvalidConfiguration;
-      fits[device] |= 1 << csize;
-    }
-    r = cudaLaunchKernelEx(&cfg, kernel, a_r, a_i, o_r, o_i, n1, m, T, tc, p,
-                           t, sgn);
-    if (r != cudaSuccess) return r;
-    return cudaGetLastError();
+    return kofft::launch_cluster(kernel, fits, device, grid, threads, smem,
+                                 stream, csize, a_r, a_i, o_r, o_i, n1, m, T,
+                                 tc, p, t, sgn);
   }
 }
 

@@ -346,6 +346,22 @@ struct BlockSync {
   __device__ __forceinline__ void operator()() const { __syncthreads(); }
 };
 
+// The barrier of the exchanges of a line FFT that a thread-block cluster
+// exchanges again afterwards (fft_stages.cu's stage 2 and axis_fft.cu's
+// col_cluster_kernel at long lines): the whole block, and after the last
+// exchange (its buffer read back, so free) the CTA's arrival at the
+// cluster barrier, which the kernel waits on before it writes into other
+// CTAs' buffers
+struct ArriveAfterLastExchange {
+  mutable int left;  // block barriers until the arrival
+  __device__ __forceinline__ void operator()() const {
+    __syncthreads();
+    if (--left == 0) {
+      asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    }
+  }
+};
+
 // Physical word of logical word a in the exchange buffer (see the note)
 __device__ __forceinline__ int swizzle(int a, Swizzle sw) {
   const int h = a >> 5;

@@ -28,7 +28,8 @@ twiddle between the passes. On Hopper they are one route
 (``axes_fft_planes``) on two kernels of their own (``csrc/axis_fft.cu``)
 on a register radix line FFT (``csrc/radix_line.cuh``): ``col_fft`` (line
 FFTs along axis 1 of (b, m, inner) planes, stored in the input layout;
-above 2048 points a column four-step of two launches) on every
+lines of 4096 and 8192 in one launch of a thread-block cluster that
+holds the column tile, also counted as ``col_cluster``) on every
 transformed axis but the last, then ``row_fft`` (line FFTs along the last
 axis, stored in natural order). Its zone is ``ndfft._kernel_nd_zone``.
 
@@ -119,7 +120,7 @@ _FORM_NAMES = {(base, _LETTER_DTYPE[f[0]], _LETTER_DTYPE[f[1]]):
 launches = _obs.counter_group("launches")
 launches.update({"stage1": 0, "stage2": 0, "stage1_real": 0,
                  "stage2_half": 0, "stage2_cluster8": 0,
-                 "col_fft": 0, "row_fft": 0,
+                 "col_fft": 0, "col_cluster": 0, "row_fft": 0,
                  "dense_stage_a": 0, "dense_stage_b": 0,
                  "dense_stage_a_bf16x1": 0, "dense_stage_b_bf16x1": 0,
                  "stft_frames": 0})
@@ -472,9 +473,15 @@ _AXIS_THREADS = 256       # threads per axis block where the tile allows
 _AXIS_MAX_THREADS = 1024  # a block's most (col_fft's (2048, 8) tile)
 _COL_MIN_TILE = 8         # columns per col_fft tile: >= 32-byte row runs
 _SMEM_MAX = 227 * 1024    # shared memory one Hopper block may have
-# col_fft runs longer lines as a column four-step of two launches: one
-# (m, 8) tile of 4096 lines would need 256 KB
+# one (m, 8) tile of lines longer than this would need 256 KB, more than a
+# block has: col_fft runs them on a thread-block cluster (_COL_CLUSTER),
+# stage 1 as a column four-step of two launches (_col_split)
 _COL_SPLIT_ABOVE = 2048
+# col_fft's cluster path by line length (csrc/axis_fft.cu
+# col_cluster_kernel): (C, T), C CTAs per cluster, each running lines of
+# m / C points, and T columns per tile; (16, 16) measured fastest at both
+# lengths, of C = 2 ... 16 and T = 8 ... 32 (PERF.md section 6)
+_COL_CLUSTER = {4096: (16, 16), 8192: (16, 16)}
 
 
 def _odd_part(m: int) -> int:
@@ -621,9 +628,17 @@ def _axis_plan(kind: str, m: int, t: int, e: int):
     return tables.custom(("axisplan", kind, m, t, e), build)
 
 
+def _cluster_tile(m: int, count: int) -> tuple:
+    """(C, T) of col_fft's cluster path on lines of m (``_COL_CLUSTER``):
+    T columns per tile, capped at the next power of two of ``count``
+    columns."""
+    csize, t = _COL_CLUSTER[m]
+    return csize, min(t, 1 << max(0, count - 1).bit_length())
+
+
 def _col_split(m: int):
-    """(m1, m2) of col_fft's column four-step above _COL_SPLIT_ABOVE, else
-    None: m = m1*m2, m1 = 2^floor(log2(m)/2) (4096 = 64*64, 8192 =
+    """(m1, m2) of stage 1's column four-step above _COL_SPLIT_ABOVE,
+    else None: m = m1*m2, m1 = 2^floor(log2(m)/2) (4096 = 64*64, 8192 =
     64*128)."""
     if m <= _COL_SPLIT_ABOVE:
         return None
@@ -632,8 +647,9 @@ def _col_split(m: int):
 
 
 def _split_twiddle(m1: int, m2: int):
-    """The column four-step's twiddle w_m^(k1*j2), (m1, m2) float2-
-    interleaved float32 (the ``tables.twiddle`` pair)."""
+    """The twiddle w_m^(k1*j2), m = m1*m2, (m1, m2) float2-interleaved
+    float32 (the ``tables.twiddle`` pair): stage 1's column four-step's,
+    and with (m1, m2) = (C, m / C) col_fft's cluster path's w_m^(r*k)."""
     def build():
         re, im = tables.twiddle(m1, m2)
         return np.stack([re.ravel(), im.ravel()], axis=1).ravel()
@@ -791,6 +807,10 @@ def _static_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
     - "col" (lines of n1 along axis 1, tiles of n2 columns) and "row"
       (lines of n2, b*n1 of them): (T, E, plan pointer, pass count, table
       pointer) of ``_axis_tile`` and ``_axis_plan``.
+    - "cluster" (col_fft's cluster path on lines of n1, tiles of n2
+      columns): (T, C, plan pointer, pass count, table pointer, twiddle
+      pointer) of ``_cluster_tile``, the plan of lines of n1 / C and the
+      (C, n1 / C) ``_split_twiddle``.
     - "stage2": (T, Tc, plan pointer, pass count, table pointer) of
       ``_stage2_tile`` and ``_stage2_plan``.
     - "stage1": (base twiddle pointer, col twiddle pointer, launches),
@@ -822,6 +842,13 @@ def _build_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
         steps, tab = _axis_plan(kind, m, t, e)
         hit = (t, e, steps.ctypes.data, len(steps) // 7,
                const(tab, dev).data_ptr())
+    elif kind == "cluster":
+        csize, t = _cluster_tile(n1, n2)
+        m = n1 // csize
+        steps, tab = _axis_plan("col", m, t, _STAGE_E)
+        hit = (t, csize, steps.ctypes.data, len(steps) // 7,
+               const(tab, dev).data_ptr(),
+               const(_split_twiddle(csize, m), dev).data_ptr())
     elif kind == "stage2":
         t, tc = _stage2_tile(n2)
         steps, tab = _stage2_plan(n2, t, tc)
@@ -998,21 +1025,31 @@ def stage2_half(cr, ci, dtype=_F32):
     return yr, yi
 
 
-def _col_launch(ar, ai, yr, yi, conj: bool, tw=None, tw_div: int = 1,
-                swap: int = 1) -> None:
-    """One launch of the col_fft kernel on (b, m, inner) planes into yr,
-    yi; ``tw`` (a device pointer), ``tw_div`` and ``swap`` are the column
-    four-step's fused twiddle and digit-swapped store (axis_fft.cu)."""
+def _col_launch(ar, ai, yr, yi, conj: bool) -> None:
+    """One launch of col_fft on (b, m, inner) planes into yr, yi: the
+    one-block kernel, or at the lines of ``_COL_CLUSTER`` the cluster
+    kernel, also counted as ``col_cluster`` (axis_fft.cu)."""
     from ._cuda_build import check, lib
     b, m, inner = ar.shape
     dev = ar.device
-    t, e, steps, npass, tab = _static_args("col", b, m, inner, dev)
-    sp = (_obs.begin("launch")
-          if _prof._is_profiler_enabled or _obs.switch else None)
-    err = lib().kofft_col_fft(
-        ar.data_ptr(), ai.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, m,
-        inner, t, e, steps, npass, tab, int(conj), tw, tw_div, swap,
-        dev.index, _stream(dev))
+    planes = (ar.data_ptr(), ai.data_ptr(), yr.data_ptr(), yi.data_ptr(), b,
+              m, inner)
+    if m in _COL_CLUSTER:
+        t, csize, steps, npass, tab, ctw = _static_args("cluster", b, m,
+                                                        inner, dev)
+        sp = (_obs.begin("launch")
+              if _prof._is_profiler_enabled or _obs.switch else None)
+        err = lib().kofft_col_cluster(*planes, t, csize, steps, npass, tab,
+                                      int(conj), ctw, dev.index,
+                                      _stream(dev))
+        launches["col_cluster"] += 1
+    else:
+        t, e, steps, npass, tab = _static_args("col", b, m, inner, dev)
+        sp = (_obs.begin("launch")
+              if _prof._is_profiler_enabled or _obs.switch else None)
+        err = lib().kofft_col_fft(*planes, t, e, steps, npass, tab,
+                                  int(conj), None, 1, 1, dev.index,
+                                  _stream(dev))
     check(err, "col_fft launch")
     if sp:
         _obs.end(sp)
@@ -1031,36 +1068,6 @@ def _alloc_like(ar, ai):
     return yr, yi
 
 
-def _col_fft_kernel(ar, ai, conj: bool, split):
-    """col_fft on CUDA planes: one launch for ``split=None``, else the
-    column four-step m = m1*m2 of ``split = (m1, m2)``: lines of m1 over
-    the (b, m1, m2*inner) view with w_m^(k1*j2) fused into the store, then
-    lines of m2 over the (b*m1, m2, inner) view stored to row k2*m1 + k1.
-    """
-    b, m, inner = ar.shape
-    yr, yi = _alloc_like(ar, ai)
-    if split is None:
-        _col_launch(ar, ai, yr, yi, conj)
-        return yr, yi
-    m1, m2 = split
-    sp = (_obs.begin("args")
-          if _prof._is_profiler_enabled or _obs.switch else None)
-    key = ("splittw", m1, m2, ar.device.index)
-    tw = _ARGS.get(key)
-    if tw is None:
-        tw = _ARGS[key] = _obs.table_build(
-            lambda: const(_split_twiddle(m1, m2), ar.device).data_ptr())
-    if sp:
-        _obs.end(sp)
-    _col_launch(ar.view(b, m1, m2 * inner), ai.view(b, m1, m2 * inner),
-                yr.view(b, m1, m2 * inner), yi.view(b, m1, m2 * inner), conj,
-                tw, inner)
-    zr, zi = _alloc_like(ar, ai)
-    _col_launch(yr.view(b * m1, m2, inner), yi.view(b * m1, m2, inner),
-                zr, zi, False, swap=m1)
-    return zr, zi
-
-
 def _plain_span(plain, xr, xi, conj: bool):
     """An axis kernel's plain version on CPU planes, a plain PyTorch
     engine, as a ``tree`` span."""
@@ -1075,16 +1082,19 @@ def _plain_span(plain, xr, xi, conj: bool):
 def col_fft(ar, ai, conj: bool = False):
     """Line FFTs of length m along axis 1 of (b, m, inner) planes, written
     in the input layout (the column pass of the N-D routes); ``conj``
-    negates the imaginary part on load. CUDA tensors launch the kernel:
-    once, or above ``_COL_SPLIT_ABOVE`` twice as a column four-step
-    (``_col_split``); either way the call counts once in ``launches``.
-    CPU tensors run ``col_fft_plain`` (a ``tree`` span)."""
+    negates the imaginary part on load. CUDA tensors launch the kernel
+    once: one block per column tile up to ``_COL_SPLIT_ABOVE``, a
+    thread-block cluster per tile at the longer lines of ``_COL_CLUSTER``
+    (4096 and 8192; also counted as ``col_cluster``); each call counts
+    once in ``launches["col_fft"]``. CPU tensors run ``col_fft_plain`` (a
+    ``tree`` span)."""
     _check_planes(ar, ai, "col_fft")
     b, m, inner = ar.shape
     _check_line(m, "col_fft")
     if ar.device.type == "cpu":
         return _plain_span(col_fft_plain, ar, ai, conj)
-    yr, yi = _col_fft_kernel(ar, ai, conj, _col_split(m))
+    yr, yi = _alloc_like(ar, ai)
+    _col_launch(ar, ai, yr, yi, conj)
     launches["col_fft"] += 1
     return yr, yi
 

@@ -2,9 +2,12 @@
 radix line FFT of csrc/radix_line.cuh), emulated in numpy as the kernels
 index it: the radix list, the twiddle tables and their offsets, the
 Stockham index maps of every pass with the swizzled shared-memory
-exchange, each thread's loads and stores in device memory, and col_fft's
-column four-step with its fused twiddle and digit-swapped store. The
-kernels themselves run only on the card (tests/test_torch_gpu.py).
+exchange, each thread's loads and stores in device memory, col_fft's
+cluster path at lines of 4096 and 8192 (each CTA's line FFT, the twiddle,
+the exchange between the cluster's CTAs and the radix-C pass) and the
+column four-step with its fused twiddle and digit-swapped store (stage
+1's, whose kernel indexes its tiles as col_fft_kernel does). The kernels
+themselves run only on the card (tests/test_torch_gpu.py).
 
 Tolerance: the emulation runs in float64 on the float32 tables, so it
 differs from the float64 FFT only by the tables' rounding: > 140 dB.
@@ -127,6 +130,80 @@ def _emu_col(a, split):
     return z.reshape(a.shape)
 
 
+def _cluster_addrs(m, csize, t):
+    """Shared-memory words of col_cluster_kernel's exchange between the
+    CTAs of a cluster: those the threads of CTA r write (point i of thread
+    ti, k = ti + i*tpl, goes to word (r*slice + k // C)*T + c of CTA
+    k mod C = ti mod C), as (threads, E) in issue order, with each
+    thread's destination CTA, and those every CTA reads back for its
+    radix-C butterflies (butterfly p, input r at word (r*slice + ti +
+    p*tpl)*T + c), as (threads, P*C)."""
+    mc = m // csize
+    e = 16
+    c, ti = HK._axis_lanes("col", mc, t, e)
+    tpl, sl, p_n = mc // e, mc // csize, e // csize
+
+    def write(r):
+        return np.stack([(r * sl + (ti + i * tpl) // csize) * t + c
+                         for i in range(e)], 1)
+
+    read = np.stack([(r * sl + ti + p * tpl) * t + c
+                     for p in range(p_n) for r in range(csize)], 1)
+    return write, ti % csize, read
+
+
+def _emu_col_cluster(a, csize, tile):
+    """col_cluster_kernel over (b, m, inner) as it indexes: per tile and
+    CTA r, rows r + C*j loaded, the line FFT of m / C (``_run_block``),
+    the twiddle w_m^(r*k), the push into the C CTAs' buffers (every word
+    written exactly once, all before any read: the cluster barrier), then
+    per CTA q the radix-C DFTs and the stores to rows q + C*j' + s*m/C.
+    Asserts that every output element is stored exactly once."""
+    b, m, inner = a.shape
+    mc = m // csize
+    t = min(tile, 1 << max(0, inner - 1).bit_length())
+    e = 16
+    c, ti = HK._axis_lanes("col", mc, t, e)
+    tpl, p_n = mc // e, e // csize
+    assert tpl % csize == 0
+    ctw = _c64(HK._split_twiddle(csize, mc)).reshape(csize, mc)
+    write, dest, read = _cluster_addrs(m, csize, t)
+    flat = a.reshape(-1)
+    out = np.full(a.size, np.nan, complex)
+    stores = np.zeros(a.size, np.int64)
+    tiles = -(-inner // t)
+    for row in range(b):
+        for tile_i in range(tiles):
+            col = tile_i * t + c
+            live = col < inner
+            base = row * m * inner + np.where(live, col, 0)
+            buf = np.full((csize, mc * t), np.nan, complex)
+            hits = np.zeros((csize, mc * t), np.int64)
+            for r in range(csize):
+                g = base + (r + csize * ti) * inner
+                v = np.stack([np.where(live, flat[g + i * csize * tpl * inner],
+                                       0) for i in range(e)], 1)
+                v = _run_block("col", mc, t, e, v)
+                v = v * ctw[r][ti[:, None] + tpl * np.arange(e)[None, :]]
+                w = write(r)
+                for i in range(e):
+                    np.add.at(hits, (dest, w[:, i]), 1)
+                    buf[dest, w[:, i]] = v[:, i]
+            assert (hits == 1).all()
+            for q in range(csize):
+                u = buf[q][read].reshape(-1, p_n, csize)
+                assert not np.isnan(u).any()
+                u = np.fft.fft(u, axis=2)
+                for p in range(p_n):
+                    for s in range(csize):
+                        o = (base + (q + csize * (ti + p * tpl) + mc * s)
+                             * inner)[live]
+                        np.add.at(stores, o, 1)
+                        out[o] = u[live, p, s]
+    assert (stores == 1).all()
+    return out.reshape(a.shape)
+
+
 def _data(shape, seed):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal(shape).astype(np.float32)
@@ -180,23 +257,68 @@ def test_row_emulation_is_the_line_fft(m, lines):
 @pytest.mark.parametrize("b,inner", [(1, 1), (2, 5), (1, 64)])
 @pytest.mark.parametrize("m", [2, 4, 8, 16, 128, 1024, 2048, 4096, 8192])
 def test_col_emulation_is_the_line_fft(m, b, inner):
-    """col_fft as it launches: one kernel up to 2048, the column four-step
-    above (4096 = 64*64, 8192 = 64*128)."""
+    """col_fft as it launches: one kernel up to 2048, a cluster of 16
+    CTAs per tile of 16 columns at 4096 and 8192."""
     if m * inner * b > (1 << 16):
         inner = max(1, (1 << 16) // (m * b))
     a = _data((b, m, inner), m + inner)
-    split = HK._col_split(m)
-    assert (split is None) == (m <= 2048)
-    got = _emu_col(a, split)
+    cluster = HK._COL_CLUSTER.get(m)
+    assert cluster == ((16, 16) if m > 2048 else None)
+    got = (_emu_col(a, None) if cluster is None
+           else _emu_col_cluster(a, *cluster))
     assert snr_db(np.fft.fft(a, axis=1), got) > EMU_DB
+
+
+# (m, C, T) of the cluster path: the routes' (16, 16) at both lengths,
+# and two other shapes of the same indexing
+CLUSTER_CASES = [(4096, 16, 16), (8192, 16, 16), (4096, 8, 8),
+                 (4096, 16, 32)]
+
+
+@pytest.mark.parametrize("inner", [1, 5, 8, 64])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("m,csize,tile", CLUSTER_CASES)
+def test_col_cluster_emulation(m, csize, tile, b, inner):
+    """col_cluster_kernel, with T capped at ``inner``: every output
+    element stored exactly once, every exchange word written once before
+    the reads, and the result is the line FFT."""
+    a = _data((b, m, inner), m + 7 * csize + inner)
+    got = _emu_col_cluster(a, csize, tile)
+    assert snr_db(np.fft.fft(a, axis=1), got) > EMU_DB
+
+
+@pytest.mark.parametrize("inner", [1, 5, 8, 4096])
+@pytest.mark.parametrize("m,csize,tile", CLUSTER_CASES)
+def test_cluster_exchange_has_no_bank_conflicts(m, csize, tile, inner):
+    """Every warp-wide write into a CTA's buffer and every read back of
+    the cluster's exchange is one wavefront (32 consecutive words), and
+    the C CTAs' writes cover each buffer once."""
+    t = min(tile, 1 << max(0, inner - 1).bit_length())
+    write, dest, read = _cluster_addrs(m, csize, t)
+    warps = -(-read.shape[0] // 32)
+    assert _wavefronts(read) == warps * read.shape[1]
+    lanes = np.arange(read.shape[0])
+    for r in range(csize):
+        w = write(r)
+        for i in range(w.shape[1]):
+            # each CTA's share of a warp store: distinct banks
+            key = (lanes // 32) * csize + dest
+            for k in np.unique(key):
+                banks = w[key == k, i] & 31
+                assert np.unique(banks).size == banks.size
+    for q in range(csize):
+        words = np.concatenate([write(r)[dest == q].ravel()
+                                for r in range(csize)])
+        assert np.array_equal(np.sort(words), np.arange(m // csize * t))
+    assert np.array_equal(np.sort(read.ravel()), np.arange(m // csize * t))
 
 
 @pytest.mark.parametrize("m,split", [(2048, (32, 64)), (4096, (64, 64)),
                                      (8192, (64, 128)), (1024, (32, 32))])
 def test_column_four_step(m, split):
-    """The split with its fused twiddle w_m^(k1*j2) and the store of
-    (k1, k2) to row k2*m1 + k1, also at the split that chip_smoke.py times
-    against one launch at 2048."""
+    """Stage 1's column four-step: the split with its fused twiddle
+    w_m^(k1*j2) and the store of (k1, k2) to row k2*m1 + k1, also at two
+    splits below its threshold."""
     if HK._col_split(m) is not None:
         assert HK._col_split(m) == split
     a = _data((2, m, 8), m)
@@ -206,17 +328,12 @@ def test_column_four_step(m, split):
 
 def _route_axis_launches():
     """(kind, m, count) of every axis launch the N-D route makes, over
-    its zone's shapes (one batch row; a batch multiplies only the grid)."""
+    its zone's shapes (one batch row; a batch multiplies only the grid):
+    kind ``row``, ``col`` (one block per tile) or ``cluster``."""
     out = set()
 
     def col(m, inner):
-        split = HK._col_split(m)
-        if split is None:
-            out.add(("col", m, inner))
-        else:
-            m1, m2 = split
-            out.add(("col", m1, m2 * inner))
-            out.add(("col", m2, inner))
+        out.add(("cluster" if m in HK._COL_CLUSTER else "col", m, inner))
 
     p2 = [1 << k for k in range(7, 14)]
     for n1 in p2:
@@ -234,15 +351,24 @@ def _route_axis_launches():
     return sorted(out)
 
 
+def _block_tile(kind, m, count):
+    """(m, T, E) of one block of an axis launch: for the cluster path a
+    CTA's lines of m / C."""
+    if kind == "cluster":
+        csize, t = HK._cluster_tile(m, count)
+        return m // csize, t, 16
+    return (m, *HK._axis_tile(kind, m, count))
+
+
 def test_route_tiles_coalesce_and_fit():
     """Every col_fft launch of the routes reads >= 8 columns (>= 32-byte
-    row runs) and every axis launch fits a block's 227 KB and 1024
+    row runs) and every axis block fits a block's 227 KB and 1024
     threads."""
     launches = _route_axis_launches()
-    assert ("col", 64, 128 * 8192) in launches       # 8192^2, first half
+    assert ("cluster", 8192, 8192) in launches       # 8192^2 columns
     for kind, m, count in launches:
-        t, e = HK._axis_tile(kind, m, count)
-        if kind == "col":
+        m, t, e = _block_tile(kind, m, count)
+        if kind != "row":
             assert t >= 8, (m, count, t)
         assert HK._axis_smem(m, t) <= 227 * 1024
         assert t * m // e <= 1024 and e == min(m, 16)
@@ -265,11 +391,18 @@ def _wavefronts(addr) -> int:
 
 @pytest.mark.parametrize("kind,m,count", _route_axis_launches()[::3]
                          + [("col", 2048, 1 << 20), ("row", 32, 1 << 10),
-                            ("row", 64, 1 << 10)])
+                            ("row", 64, 1 << 10)]
+                         # stage 1's column four-step at n1 = 4096 (same
+                         # tiles and plans): lines of 64 over 64*n2 and
+                         # over n2 columns, n2 = 128, 1024, 8192
+                         + [("col", 64, n) for n in (128, 1024, 8192,
+                                                     1 << 16, 1 << 19)])
 def test_exchange_has_no_bank_conflicts(kind, m, count):
     """Whole blocks: every warp-wide write and read of every exchange is
-    one wavefront under the chosen swizzle."""
-    t, e = HK._axis_tile(kind, m, count)
+    one wavefront under the chosen swizzle (the cluster path's CTAs: the
+    exchanges of their own line FFT, a col tile of m / C)."""
+    m, t, e = _block_tile(kind, m, count)
+    kind = "row" if kind == "row" else "col"
     steps = HK._axis_plan(kind, m, t, e)[0].reshape(-1, 7)
     for radix, ns, _, *sw in steps[:-1]:
         w, r = HK._exchange_addrs(kind, m, t, e, radix, ns)

@@ -305,6 +305,46 @@ def test_axis_kernels_match_plain(cuda, shape, conj):
     assert snr_db(np.conj(want) if conj else want, _np(yr, yi)) > ORACLE_DB
 
 
+@pytest.mark.parametrize("shape", [(1, 4096, 4096), (2, 4096, 512),
+                                   (1, 4096, 5), (3, 4096, 1),
+                                   (1, 8192, 512), (2, 8192, 3)])
+@pytest.mark.parametrize("conj", [False, True])
+def test_col_fft_cluster_matches_plain(cuda, shape, conj):
+    """col_fft on lines of 4096 and 8192, one launch of the cluster path,
+    against its plain version on the same card tensors (>= 110 dB) and the
+    float64 FFT, at full, narrow and single-column tiles; one count each
+    in ``col_fft`` and ``col_cluster``."""
+    ar, ai = _planes(shape, cuda, seed=shape[0] + shape[2])
+    before = dict(HK.launches)
+    cr, ci = HK.col_fft(ar, ai, conj)
+    pr, pi = HK.col_fft_plain(ar, ai, conj)
+    torch.cuda.synchronize()
+    assert _snr_on_card((pr, pi), (cr, ci)) >= PORT_DB
+    assert HK.launches["col_fft"] == before["col_fft"] + 1
+    assert HK.launches["col_cluster"] == before["col_cluster"] + 1
+    x = _np(ar, ai)
+    x = np.conj(x) if conj else x
+    assert snr_db(np.fft.fft(x, axis=1), _np(cr, ci)) > ORACLE_DB
+
+
+def test_col_cluster_counts_only_long_columns(cuda):
+    """``col_cluster`` counts col_fft's launches on lines of 4096 and 8192
+    and nothing for col_fft at 2048 (one block per tile) nor for fft_split
+    at 2^24, whose stage 1 keeps the column four-step."""
+    import kofft_tpu_torch as kt
+    HK.reset_counts()
+    HK.col_fft(*_planes((1, 2048, 64), cuda, seed=5))
+    xr, xi = _planes((1 << 24,), cuda, seed=6)
+    kt.fft_split(xr, xi)
+    torch.cuda.synchronize()
+    assert HK.launches["col_fft"] == 1 and HK.launches["stage1"] == 1
+    assert HK.launches["col_cluster"] == 0
+    for shape in [(1, 4096, 64), (1, 8192, 64)]:
+        HK.col_fft(*_planes(shape, cuda, seed=7))
+    torch.cuda.synchronize()
+    assert HK.launches["col_cluster"] == 2
+
+
 @pytest.mark.parametrize("shape,axes", [
     ((1024, 1024), (0, 1)),      # the JAX one-call 2-D kernel's zone
     ((4, 512, 512), (1, 2)),
@@ -1066,13 +1106,13 @@ def test_stft_frames_leaves_other_calls(cuda):
 
 def test_fftn_split_at_the_benchmark_shape(cuda):
     """fftn_split at the 2-D cell's shape (4096², the last two axes,
-    `auto`): route ``axes``, ``col_fft`` counted once (its column
-    four-step's two launches) and ``row_fft`` once; against the plain
-    float64 reference (``portbench/reference/fftn2d.py``, NumPy) within
-    the cell's limits, rms_err <= 1e-5 and max_err <= 5e-5 of the
-    reference's RMS (the TF32 control reads about 4e-4); after a warm call
-    three ``alloc`` spans of exactly 384 MiB (the four-step's two pairs of
-    64 MiB planes and the output), three ``launch`` spans, one ``route``
+    `auto`): route ``axes``, ``col_fft`` counted once (one launch of its
+    cluster path, also counted as ``col_cluster``) and ``row_fft`` once;
+    against the plain float64 reference (``portbench/reference/fftn2d.py``,
+    NumPy) within the cell's limits, rms_err <= 1e-5 and max_err <= 5e-5
+    of the reference's RMS (the TF32 control reads about 4e-4); after a
+    warm call two ``alloc`` spans of exactly 256 MiB (col_fft's and
+    row_fft's pairs of 64 MiB planes), two ``launch`` spans, one ``route``
     span that holds none of them, no table built, and the self times add
     up to the root's inclusive time."""
     import kofft_tpu_torch as kt
@@ -1089,15 +1129,32 @@ def test_fftn_split_at_the_benchmark_shape(cuda):
     snap = obs.snapshot()
     assert HK.classes["axes"] == 1 and sum(HK.classes.values()) == 1
     assert HK.launches["col_fft"] == HK.launches["row_fft"] == 1
-    assert sum(HK.launches.values()) == 2
-    assert snap["counters"]["alloc_bytes"] == 384 << 20
+    assert HK.launches["col_cluster"] == 1
+    assert sum(HK.launches.values()) == 3
+    assert snap["counters"]["alloc_bytes"] == 256 << 20
     assert snap["counters"]["table_builds"] == 0
-    assert snap["spans"]["alloc"]["count"] == 3
-    assert snap["spans"]["launch"]["count"] == 3
+    assert snap["spans"]["alloc"]["count"] == 2
+    assert snap["spans"]["launch"]["count"] == 2
     route = snap["spans"]["route"]
     assert route["count"] == 1 and route["self_ns"] == route["incl_ns"]
     assert sum(s["self_ns"] for s in snap["spans"].values()) == \
         snap["roots"]["incl_ns"]
     e = check.errors(check.planes((yr, yi)),
                      fftn2d.fft2(xr.cpu().numpy(), xi.cpu().numpy()))
+    assert e["rms_err"] <= 1e-5 and e["max_err"] <= 5e-5, e
+
+
+def test_fftn_split_inverse_at_the_benchmark_shape(cuda):
+    """The inverse fftn_split at 4096² (the last two axes, `auto`; col_fft
+    conjugates on its cluster path's load) against the float64 NumPy
+    ifft2 within the 2-D cell's limits, rms_err <= 1e-5 and max_err <=
+    5e-5 of the reference's RMS."""
+    import kofft_tpu_torch as kt
+    from portbench import check
+    xr, xi = _planes((4096, 4096), cuda, seed=44)
+    HK.reset_counts()
+    yr, yi = kt.fftn_split(xr, xi, axes=(-2, -1), inverse=True)
+    torch.cuda.synchronize()
+    assert HK.launches["col_cluster"] == HK.launches["row_fft"] == 1
+    e = check.errors(check.planes((yr, yi)), np.fft.ifft2(_np(xr, xi)))
     assert e["rms_err"] <= 1e-5 and e["max_err"] <= 5e-5, e

@@ -4,8 +4,8 @@ four-step pair and STFT on one CUDA card, so that two trees of the port
 can be compared in turns.
 
     python tools/hopper_timing.py [--root DIR] [--label NAME] [--out FILE]
-                                  [--kinds kernel,split,route,path,dense,
-                                           smooth,stft,stage2]
+                                  [--kinds kernel,route,path,dense,smooth,
+                                           stft,stage2,cluster]
 
 ``--root`` is the checkout whose ``kofft_tpu_torch`` is imported (default:
 this one), so a parent tree unpacked beside it can be timed by the same
@@ -31,9 +31,7 @@ stage2 at (1, 1024, 1024), (1, 2048, 2048), (1, 4096, 4096) and (1, 8192,
 along the same axis of the complex tensor (for stage2 of its C); ``route``
 fftn_split at 1024^2, (8, 512, 512), 4096^2, 8192^2 and 128^3, and
 torch.fft.fftn beside each; ``path`` fft_split and rfft_split at 2^20,
-8 x 2^20, 2^24 and 2^26; and, where the tree has the column four-step,
-``split`` col_fft at (1, 2048, 2048) as one launch and as the split;
-``dense`` the dense pair's stages at (1, 1024, 1024) on the `highest`
+8 x 2^20, 2^24 and 2^26; ``dense`` the dense pair's stages at (1, 1024, 1024) on the `highest`
 and the `default` tier (the tree's instance for each tier), beside
 stage b's library call torch.fft.fft(C, dim=2) and, as ``context``, the
 complex64 product torch.matmul(F2, C^T) (TF32 off), and fused_four_step_fft at
@@ -55,6 +53,12 @@ which a graph cannot capture); a row's ``shape`` is (frames, win).
 line FFTs and stores them in natural order: stage2 and stage2_half at (1,
 4096, 4096) and (1, 8192, 8192), stage2 also at (1, 2048, 4096) and (2,
 4096, 4096), and row_fft at the first two.
+``cluster`` col_fft's long columns as the tree launches them (the
+cluster path since it has one, the column four-step before) beside
+``row_fft`` and torch.fft.fft along the same axis (dim=1) at (1, 4096,
+4096) and (1, 8192, 8192); its first row (kind ``ptxas``) holds the
+registers and spill bytes ptxas reported for the cluster kernel's
+instances, where this process built the library.
 ``--kinds`` lists the groups in the order they run, a group may come
 twice (``path,kernel,path`` times the paths before and after the kernel
 rows in one process); each row carries ``pos``, its group's place in that
@@ -92,10 +96,10 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--out", default=None)
-    ap.add_argument("--kinds", default="kernel,split,route,path",
+    ap.add_argument("--kinds", default="kernel,route,path",
                     help="row groups in the order they run: kernel (with "
-                         "its library rows), split, route, path, dense, "
-                         "smooth, stft, stage2")
+                         "its library rows), route, path, dense, "
+                         "smooth, stft, stage2, cluster")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -155,16 +159,6 @@ def main() -> int:
             row(pos, "library", "torch.fft.fft(C, dim=2)", shape,
                 lambda: torch.fft.fft(cc, dim=2))
             del cr, ci, cc
-
-    def split_rows(pos):
-        if not hasattr(HK, "_col_fft_kernel"):
-            return
-        shape = (1, 2048, 2048)
-        ar, ai = planes(shape)
-        row(pos, "split", "col_fft one launch", shape,
-            lambda: HK._col_fft_kernel(ar, ai, False, None))
-        row(pos, "split", "col_fft four-step (32, 64)", shape,
-            lambda: HK._col_fft_kernel(ar, ai, False, (32, 64)))
 
     def route_rows(pos):
         for shape, axes in [((1024, 1024), (-2, -1)),
@@ -285,10 +279,28 @@ def main() -> int:
                     lambda: HK.row_fft(cr, ci))
             del cr, ci
 
-    groups = {"kernel": kernel_rows, "split": split_rows,
+    def cluster_rows(pos):
+        from chip_smoke import ptxas_summary
+        from kofft_tpu_torch.ops import _cuda_build as B
+        B.lib()
+        emit({"label": args.label, "pos": pos, "kind": "ptxas",
+              "name": "col_cluster_kernel",
+              "ptxas": ptxas_summary(B.build_info["log"],
+                                     "col_cluster_kernel"),
+              "built": B.build_info["seconds"] != 0.0})
+        for shape in [(1, 4096, 4096), (1, 8192, 8192)]:
+            ar, ai = planes(shape)
+            row(pos, "cluster", "col_fft", shape, lambda: HK.col_fft(ar, ai))
+            row(pos, "cluster", "row_fft", shape, lambda: HK.row_fft(ar, ai))
+            ac = torch.complex(ar, ai)
+            row(pos, "library", "torch.fft.fft(dim=1)", shape,
+                lambda: torch.fft.fft(ac, dim=1))
+            del ar, ai, ac
+
+    groups = {"kernel": kernel_rows,
               "route": route_rows, "path": path_rows, "dense": dense_rows,
               "smooth": smooth_rows, "stft": stft_rows,
-              "stage2": stage2_rows}
+              "stage2": stage2_rows, "cluster": cluster_rows}
     for pos, kind in enumerate(args.kinds.split(",")):
         emit({"label": args.label, "pos": pos, "kind": "state", "name": kind,
               "state": smi("clocks.sm,clocks.mem,temperature.gpu,"
