@@ -941,16 +941,27 @@ def _stage2_kernel(cr, ci, yr, yi, conj: bool, half: bool) -> None:
         launches["stage2_cluster8"] += 1
 
 
+def _plain_span(plain, *args):
+    """A kernel's plain version on CPU tensors, a plain PyTorch engine, as
+    a ``tree`` span."""
+    sp = (_obs.begin("tree")
+          if _prof._is_profiler_enabled or _obs.switch else None)
+    out = plain(*args)
+    if sp:
+        _obs.end(sp)
+    return out
+
+
 def stage1(ar, ai, conj: bool = False, c_dtype=_F32):
     """Stage 1: (b, n1, n2) float32 or bfloat16 planes -> C (b, n1, n2) of
     ``c_dtype`` (the forms of ``_IO_FORMS``). CUDA tensors launch the
     kernel (one count in ``launches`` under the form's name, also for the
     column four-step's two launches above 2048 points); CPU tensors run
-    ``stage1_plain``."""
+    ``stage1_plain`` (a ``tree`` span)."""
     _check_planes(ar, ai, "stage1", _IO_DTYPES)
     name = _form("stage1", ar.dtype, c_dtype)
     if ar.device.type == "cpu":
-        return stage1_plain(ar, ai, conj, c_dtype)
+        return _plain_span(stage1_plain, ar, ai, conj, c_dtype)
     cr, ci = _stage1_kernel(ar, ai, conj, c_dtype)
     launches[name] += 1
     return cr, ci
@@ -961,7 +972,8 @@ def stage2(cr, ci, conj: bool = False, out=None, dtype=_F32):
     of ``dtype`` (the forms of ``_IO_FORMS``). ``out`` is an optional pair
     of contiguous tensors of b*n1*n2 elements of ``dtype`` that receive
     the result (the donated input planes; another type raises). CUDA
-    tensors launch the kernel; CPU tensors run ``stage2_plain``."""
+    tensors launch the kernel; CPU tensors run ``stage2_plain`` (a
+    ``tree`` span)."""
     _check_planes(cr, ci, "stage2", _IO_DTYPES)
     name = _form("stage2", cr.dtype, dtype)
     b, n1, n2 = cr.shape
@@ -969,7 +981,7 @@ def stage2(cr, ci, conj: bool = False, out=None, dtype=_F32):
         yr, yi = out[0].view(b, n2, n1), out[1].view(b, n2, n1)
         _check_planes(yr, yi, "stage2 out", (dtype,))
     if cr.device.type == "cpu":
-        pr, pi = stage2_plain(cr, ci, conj, dtype)
+        pr, pi = _plain_span(stage2_plain, cr, ci, conj, dtype)
         if out is None:
             return pr, pi
         yr.copy_(pr)
@@ -992,11 +1004,11 @@ def stage1_real(ar, c_dtype=_F32):
     """Real-input stage 1: one real float32 or bfloat16 (b, n1, n2) plane
     -> C (b, n1, n2) of ``c_dtype``. CUDA tensors launch the kernel (one
     count in ``launches`` under the form's name); CPU tensors run
-    ``stage1_real_plain``."""
+    ``stage1_real_plain`` (a ``tree`` span)."""
     _check_planes(ar, ar, "stage1_real", _IO_DTYPES)
     name = _form("stage1_real", ar.dtype, c_dtype)
     if ar.device.type == "cpu":
-        return stage1_real_plain(ar, c_dtype)
+        return _plain_span(stage1_real_plain, ar, c_dtype)
     cr, ci = _stage1_kernel(ar, None, False, c_dtype)
     launches[name] += 1
     return cr, ci
@@ -1006,11 +1018,11 @@ def stage2_half(cr, ci, dtype=_F32):
     """One-sided stage 2: a float32 or bfloat16 C (b, n1, n2) -> (b, n/2 +
     1) planes of ``dtype``, the flat spectrum's bins k <= n/2 (the Nyquist
     bin written by the kernel). CUDA tensors launch the kernel; CPU
-    tensors run ``stage2_half_plain``."""
+    tensors run ``stage2_half_plain`` (a ``tree`` span)."""
     _check_planes(cr, ci, "stage2_half", _IO_DTYPES)
     name = _form("stage2_half", cr.dtype, dtype)
     if cr.device.type == "cpu":
-        return stage2_half_plain(cr, ci, dtype)
+        return _plain_span(stage2_half_plain, cr, ci, dtype)
     b, n1, n2 = cr.shape
     h = n1 * n2 // 2 + 1
     sp = (_obs.begin("alloc")
@@ -1066,17 +1078,6 @@ def _alloc_like(ar, ai):
         _obs.end(sp)
     _COUNTS["alloc_bytes"] += yr.nbytes + yi.nbytes
     return yr, yi
-
-
-def _plain_span(plain, xr, xi, conj: bool):
-    """An axis kernel's plain version on CPU planes, a plain PyTorch
-    engine, as a ``tree`` span."""
-    sp = (_obs.begin("tree")
-          if _prof._is_profiler_enabled or _obs.switch else None)
-    out = plain(xr, xi, conj)
-    if sp:
-        _obs.end(sp)
-    return out
 
 
 def col_fft(ar, ai, conj: bool = False):

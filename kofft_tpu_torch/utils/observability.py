@@ -17,8 +17,8 @@ before the launches), ``frame`` (the STFT's window, framing and
 overlap-add), ``args`` (a launch's cached arguments), ``table`` (a cache
 miss that builds a host table, a device copy or launch arguments),
 ``alloc`` (the port's own device buffers), ``launch`` (a native launch
-and its check), ``tree`` (the plain PyTorch engines, the axis kernels'
-plain versions on CPU tensors among them) and ``cufft`` (the
+and its check), ``tree`` (the plain PyTorch engines, the axis and stage
+kernels' plain versions on CPU tensors among them) and ``cufft`` (the
 ``torch.fft`` branches). A span records its name, its start and end on
 ``time.perf_counter_ns``, the id of its parent and the id of its call:
 every span under one root shares the root's call id, and a span opened

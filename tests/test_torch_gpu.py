@@ -29,8 +29,9 @@ same float32 operations in the same order: equal but for the plain
 version's own rounding of its three tensor ops, which it does not fuse).
 The frame kernel at the benchmark's STFT shape: rms_err <= 1e-6 against
 float64, the cell's measure (the program reads ~1.2e-7 there). The 2-D
-route at the benchmark's 4096² shape: the cell's limits (rms_err <= 1e-5,
-max_err <= 5e-5) against the benchmark's NumPy float64 reference.
+route at the benchmark's 4096² shape and the real route at its 2^24
+points: the cells' limits (rms_err <= 1e-5, max_err <= 5e-5) against the
+benchmark's NumPy float64 references.
 """
 
 import numpy as np
@@ -1157,4 +1158,43 @@ def test_fftn_split_inverse_at_the_benchmark_shape(cuda):
     torch.cuda.synchronize()
     assert HK.launches["col_cluster"] == HK.launches["row_fft"] == 1
     e = check.errors(check.planes((yr, yi)), np.fft.ifft2(_np(xr, xi)))
+    assert e["rms_err"] <= 1e-5 and e["max_err"] <= 5e-5, e
+
+
+def test_rfft_split_at_the_benchmark_shape(cuda):
+    """rfft_split at the real cell's shape (one signal of 2^24 points,
+    `auto`): route ``stages_real`` once, ``stage1_real`` counted once (its
+    column four-step's two launches), ``stage2_half`` once on the cluster
+    of eight (``stage2_cluster8``); against the plain float64 reference
+    (``portbench/reference/rfft1d.py``, NumPy) within the cell's limits,
+    rms_err <= 1e-5 and max_err <= 5e-5 of the reference's RMS; after a
+    warm call the ``alloc`` spans hold C and the four-step's mid planes
+    (128 + 128 MiB) and the one-sided output (2 (2^23 + 1) floats), the
+    three launches are three ``launch`` spans, no table is built, and the
+    self times add up to the root's inclusive time."""
+    import kofft_tpu_torch as kt
+    from kofft_tpu_torch.utils import observability as obs
+    from portbench import check
+    from portbench.reference import rfft1d
+    n = 1 << 24
+    x, _ = _planes((n,), cuda, seed=45)
+    kt.rfft_split(x)
+    torch.cuda.synchronize()
+    HK.reset_counts()
+    with obs.record_spans():
+        yr, yi = kt.rfft_split(x)
+    torch.cuda.synchronize()
+    snap = obs.snapshot()
+    assert HK.classes["stages_real"] == 1 and sum(HK.classes.values()) == 1
+    assert HK.launches["stage1_real"] == HK.launches["stage2_half"] == 1
+    assert HK.launches["stage2_cluster8"] == 1
+    assert sum(HK.launches.values()) == 3
+    assert yr.shape == yi.shape == (n // 2 + 1,)
+    assert snap["counters"]["alloc_bytes"] == (256 << 20) + 8 * (n // 2 + 1)
+    assert snap["counters"]["table_builds"] == 0
+    assert snap["spans"]["alloc"]["count"] == 2
+    assert snap["spans"]["launch"]["count"] == 3
+    assert sum(s["self_ns"] for s in snap["spans"].values()) == \
+        snap["roots"]["incl_ns"]
+    e = check.errors(check.planes((yr, yi)), rfft1d.rfft(x.cpu().numpy()))
     assert e["rms_err"] <= 1e-5 and e["max_err"] <= 5e-5, e
