@@ -24,7 +24,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (conj), and the pair against a float64 numpy FFT / inverse FFT, at
    (8, 2^14), 2^20, the smooth 3*2^18, 9*2^14 and 23*2^14 (stage 1 on
    the odd plan), (8, 2^20), 2^22, 2^23 (stage 2's cluster), 2^24,
-   2^25 and 2^26 (stage 1's column four-step), and phase 7's 2^21 (the
+   2^25 and 2^26 (stage 1's cluster), and phase 7's 2^21 (the
    DCT/DST fast paths) and (1024, 2^14) (the kernel-path STFT's 1024
    frames); then stage1_real and
    stage2_half the same way, the pair against the float64 numpy rfft, at
@@ -253,7 +253,11 @@ instances under ``ptxas``; and ``col_cluster``, col_fft's cluster path
 on lines of 4096 and 8192, whose launches are the col_fft launches that took it,
 with the graph times of col_fft, row_fft and torch.fft.fft along the
 same axis at (1, 4096, 4096) and (1, 8192, 8192) under ``graph_ms`` and
-the registers and spill bytes of its instances under ``ptxas``); the
+the registers and spill bytes of its instances under ``ptxas``; and
+``stage1_cluster``, stage 1's cluster path at n1 = 4096 and 8192, whose
+launches are the stage-1 launches that took it, with the graph times of
+stage1, stage1_real and col_fft at those two shapes under ``graph_ms``
+and its instances' registers and spill bytes under ``ptxas``); the
 last line
 is {"ok": true, "device": {...}}. Without a CUDA device the script exits non-zero before it prints
 any result.
@@ -2165,7 +2169,7 @@ def main() -> int:
                    for g, w in zip(got, want))
 
     # the stage kernels at every route shape class: one-launch stage 1 up
-    # to 2^22 (2048-point columns), the column four-step from 2^24, the
+    # to 2^22 (2048-point columns), the stage-1 cluster from 2^24, the
     # stage-2 cluster from 2^23 (4096-point lines), smooth n1 (the odd
     # plan) at 3*2^18, 9*2^14 and 23*2^14; forward and inverse (conj on
     # stage 1's load and stage 2's store); phase 7's shapes last: the
@@ -2241,7 +2245,7 @@ def main() -> int:
         return yr, yi, snr_db_card((pr, pi), (yr, yi)), e
 
     # lines of 2 ... 8192 along both axes: col_fft runs one block per
-    # tile up to HK._COL_SPLIT_ABOVE (2048) and its cluster path at
+    # tile up to lines of 2048 and its cluster path at
     # HK._COL_CLUSTER's lines (4096, 8192), so (1, 2048, 4096) and
     # (1, 4096, 2048) hold both sides of the threshold;
     # every shape forward, then inverse (conj on col_fft's load and
@@ -2349,8 +2353,8 @@ def main() -> int:
     # the bf16 I/O forms of the stage kernels against their plain versions
     # on the same input: float32 outputs above AXIS_DB, bf16 outputs
     # (compared in bf16) above BF16_PLAIN_DB; at one-launch columns and
-    # whole-block rows, at 2048 x 4096 (a stage-2 cluster), and on both
-    # sides of the column four-step at 4096 x 8192 and 8192 x 8192 (the
+    # whole-block rows, at 2048 x 4096 (a stage-2 cluster), and on the
+    # stage-1 cluster at 4096 x 8192 and 8192 x 8192 (the latter the
     # shape the `default` tier's 2^26 route gives them)
     def form_fns(base, xr, xi, stores):
         """(kernel call, plain call) of stage kernel ``base``'s form that
@@ -2508,7 +2512,8 @@ def main() -> int:
          lambda: np.fft.fft(zx, axis=-1))
     torch.cuda.synchronize()
     launches = {k: HK.launches[k] for k in ("stage1", "stage2",
-                                            "stage2_cluster8")}
+                                            "stage2_cluster8",
+                                            "stage1_cluster")}
     classes = {"stages": HK.classes["stages"]}
     log(f"complex path counts: launches {launches}, classes {classes}")
     del xr, xi, xc, zr, zi
@@ -2559,6 +2564,7 @@ def main() -> int:
     launches.update({k: HK.launches[k] for k in ("stage1_real",
                                                  "stage2_half")})
     launches["stage2_cluster8"] += HK.launches["stage2_cluster8"]
+    launches["stage1_cluster"] += HK.launches["stage1_cluster"]
     classes["stages_real"] = HK.classes["stages_real"]
     log(f"real path counts: launches {HK.launches}, classes {HK.classes}")
     del x, xh, xn
@@ -3059,12 +3065,12 @@ def main() -> int:
     # the axis kernels at the 2-D routes' long lines (col_fft's cluster
     # path at 4096 and 8192), and the 1-D stage pair
     # at lines of 2048 (one-launch stage 1, whole-block stage 2), 4096 and
-    # 8192 (stage 1's column four-step, stage 2's cluster of eight
+    # 8192 (stage 1's cluster of 16 CTAs, stage 2's cluster of eight
     # one-line CTAs, also stage2_half), each beside its library call along
     # the same axis; the graph times of the cluster paths and of row_fft,
     # which does the same line FFTs and stores them in natural order, go to
-    # the kernels' record (stage2_cluster8, col_cluster)
-    long_lines, col_lines = {}, {}
+    # the kernels' record (stage2_cluster8, col_cluster, stage1_cluster)
+    long_lines, col_lines, s1_lines = {}, {}, {}
     for view in [(1, 2048, 2048), (1, 4096, 4096), (1, 8192, 8192)]:
         vr, vi = planes(view)
         if view[1] > 2048:
@@ -3079,8 +3085,14 @@ def main() -> int:
                 "torch.fft.fft(dim=2)", lambda: torch.fft.fft(vc, dim=2))
             col_lines[f"row_fft {view}"] = long_lines[f"row_fft {view}"]
             del vc
-        axis_row(view, "stage1", HK.stage1, HK.stage1_plain, vr, vi,
-                 None, None)
+        g1 = axis_row(view, "stage1", HK.stage1, HK.stage1_plain, vr, vi,
+                      None, None)
+        if view[1] > 2048:
+            s1_lines[f"stage1 {view}"] = g1
+            s1_lines[f"stage1_real {view}"] = axis_row(
+                view, "stage1_real", lambda a, _: HK.stage1_real(a),
+                lambda a, _: HK.stage1_real_plain(a), vr, vi, None, None)
+            s1_lines[f"col_fft {view}"] = col_lines[f"col_fft {view}"]
         cr, ci = HK.stage1(vr, vi)
         del vr, vi
         cc = torch.complex(cr, ci)
@@ -3207,6 +3219,16 @@ def main() -> int:
         "launches": launches["col_cluster"], "graph_ms": col_lines,
         "ptxas": {name: list(v) for name, v in ptxas_summary(
             B.build_info["log"], "col_cluster_kernel").items()}})
+    # stage 1's cluster path (n1 = 4096 and 8192, stage1 and stage1_real
+    # in every form): a count of the stage-1 launches that took it, its
+    # graph times beside col_fft's cluster, which runs the same line FFTs
+    # without W, and the registers and spills of its instances
+    record["kernels"].append({
+        "name": "stage1_cluster", "route": "cuda", "source": stages,
+        "replaces": f"{tpu}:547", "also_replaces": [f"{tpu}:558"],
+        "launches": launches["stage1_cluster"], "graph_ms": s1_lines,
+        "ptxas": {name: list(v) for name, v in ptxas_summary(
+            B.build_info["log"], "stage1_cluster_kernel").items()}})
     # nor this: the JAX package frames and windows the STFT's frames and
     # transforms them on XLA's engines
     record["kernels"].append({
@@ -3226,7 +3248,8 @@ def main() -> int:
     names = {k["name"] for k in record["kernels"]}
     counted = set(HK.launches) | set(GZ.launches)
     assert set(replaces) | {"goertzel_scan", "stft_frames", "stage2_cluster8",
-                            "col_cluster"} == names == counted, \
+                            "col_cluster", "stage1_cluster"} == names \
+        == counted, \
         counted ^ names
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -37,7 +37,9 @@ _F = ctypes.c_float
 # C signatures of the exported functions
 SIGNATURES = {
     "kofft_stage1": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I,
-                     _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+                     _P, _P, _I, _I, _I, _I, _I, _P],
+    "kofft_stage1_cluster": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
+                             _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "kofft_stage2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,
                      _I, _I, _I, _I, _I, _P],
     "kofft_col_fft": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P,

@@ -21,10 +21,10 @@
 //   of the fused kernel over axes 0 ... d-2. A block holds an (m, T) tile
 //   of T >= 8 consecutive columns, the column fastest across the threads,
 //   so every row access covers >= 32 bytes. The inverse conjugates on load.
-//   Lines up to _COL_SPLIT_ABOVE (2048). Its fused twiddle and
-//   digit-swapped store (tw, tw_div, swap) serve a column four-step over
-//   this kernel; col_fft passes none (longer lines take
-//   col_cluster_kernel, and stage 1 runs its four-step in fft_stages.cu).
+//   Lines up to 2048. Its fused twiddle and digit-swapped store (tw,
+//   tw_div, swap) are those of a column four-step over this kernel, which
+//   nothing launches: col_fft passes none, and longer lines take
+//   col_cluster_kernel.
 // - col_cluster_kernel: col_fft on lines of 4096 and 8192 in one launch.
 //   An (m, 8) tile of such lines needs 256 KB or more, over a block's
 //   227 KB, so a thread-block cluster of C = 16 CTAs holds an (m, T = 16)
@@ -82,9 +82,11 @@ namespace cg = cooperative_groups;
 using kofft::kMaxDevices;
 using kofft::prepare;
 using kofft::radix::ArriveAfterLastExchange;
+using kofft::radix::cluster_addr;
 using kofft::radix::cmul;
 using kofft::radix::fill_plan;
 using kofft::radix::RadixPlan;
+using kofft::radix::st_cluster;
 
 namespace {
 
@@ -171,21 +173,6 @@ col_fft_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
     yr[o + s * ostep] = y.x;
     yi[o + s * ostep] = y.y;
   }
-}
-
-// Address `addr` of this CTA's shared memory mapped into CTA `rank` of
-// the cluster, and a 4-byte store there (32-bit shared::cluster
-// addresses: a generic pointer per store took two registers more)
-__device__ __forceinline__ unsigned cluster_addr(unsigned addr, int rank) {
-  unsigned r;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;"
-      : "=r"(r)
-      : "r"(addr), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void st_cluster(unsigned addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
-               : "memory");
 }
 
 // col_fft on lines of m = C * M points, one (m, T) column tile per cluster

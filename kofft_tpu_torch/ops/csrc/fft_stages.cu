@@ -17,13 +17,32 @@
 // row access covers >= 32 bytes ((1024, 8): 512 threads, 64 KB; (2048, 8):
 // 1024 threads, 128 KB). The inverse conjugates on load; the real form
 // (stage1_real) reads one real plane and sets the imaginary part to zero
-// in registers. Above 2048 an (n1, 8) tile does not fit a block, and
-// stage 1 is a column four-step of two launches of this kernel, n1 =
-// m1 * m2 (hopper_kernels._col_split): lines of m1 over the (b, m1,
-// m2 * n2) view with the split twiddle w_n1^(k1a * j1b) fused into the
-// store (tw, tw_div), then lines of m2 over the (b * m1, m2, n2) view,
-// stored digit-swapped to row k1 = k1b * m1 + k1a (swap = m1) with W
-// fused into the same store; the wrapper counts the two as one launch.
+// in registers.
+//
+// stage1_cluster_kernel is stage 1 at n1 = 4096 and 8192, where an (n1, 8)
+// tile needs 256 KB or more, over a block's 227 KB: one launch in which a
+// thread-block cluster of C = 16 CTAs holds an (n1, T = 16) column tile,
+// by the decimation in time across the cluster of axis_fft.cu's
+// col_cluster_kernel (hopper_kernels._COL_CLUSTER: the same n1, C and T).
+// CTA r loads rows r + 16 j (64-byte runs; 32 for bf16), runs their line
+// FFT of M = n1 / 16 points (256 or 512), multiplies point k by
+// w_n1^(r k), sends it to CTA k mod 16 through distributed shared memory
+// and, after the cluster barrier, runs one radix-16 DFT a thread and
+// stores the rows it loaded: row k1 = k + M s of output s, k = q + 16 ti
+// on CTA q. W rides on that store, factored at M: W[k1, j2] = w_n^(k j2)
+// * w_n^(M s j2) (hopper_kernels._stage1_cluster_twiddle), one 8-byte
+// load a thread from the (M, n2) table and one a point from the (16, n2)
+// table, whose 16 rows a column's threads share in L1. It replaces a
+// column four-step of two launches of stage1_kernel (lines of 64 with a
+// split twiddle, then lines of 64 or 128 stored digit-swapped with W),
+// which read and wrote the planes twice through an intermediate pair: in
+// CUDA graphs on one H100, (1, 4096, 4096) 151-153 us against the
+// four-step's 247 (stage1_real 130 against 225; col_cluster_kernel, the
+// same line FFTs without W, 145-147), (1, 8192, 8192) 724-731 against
+// 950-954. Measured and not kept (PERF.md section 6): W from the
+// four-step's factor tables on the same store, wc[k1, j2 / 128] *
+// wb[k1, j2 mod 128], two loads a point from 5 MiB of tables (155 us at
+// 4096, 767 at 8192; as accurate).
 //
 // stage2_kernel replaces s2_kernel and s2h_kernel (:569, :579, called at
 // :649, :668), phases 2-3 of the phased kernel and its real form's Nyquist
@@ -90,7 +109,8 @@
 //    bf16 planes move 16-byte runs at T = 8.
 // 3. The twiddle epilogue: two 8-byte loads of float2 factors per point
 //    (the dense chain made four 4-byte loads from four planes); the base
-//    factors of a warp are T-float2 runs, the column factor one broadcast.
+//    factors of a warp are T-float2 runs, the column factor one broadcast;
+//    on the cluster one load per point and one per thread (above).
 //
 // A smooth n1 = o * 2^a (odd o = 3 ... 23: 3*2^18 splits as 768 x 1024,
 // 9*2^14 as 1152 x 128, 23*2^14 as 2944 x 128) is one more radix plan of
@@ -103,8 +123,7 @@
 // forms of hopper_kernels._IO_FORMS, the counterparts of _build_ml's
 // cdt='bfloat16' C (:490, :555) and of _build_phased's io='bfloat16'
 // output and sdt C (:750, :1078)); only the element type of the global
-// loads and stores changes (elem_io.cuh). The split's intermediate is
-// float32, so its second launch also runs as float32 -> bfloat16.
+// loads and stores changes (elem_io.cuh).
 //
 // Shared memory above 48 KB needs cudaFuncAttributeMaxDynamicSharedMemorySize,
 // raised once per device and instance; a cluster launch first checks that
@@ -134,9 +153,11 @@ using kofft::ld;
 using kofft::prepare;
 using kofft::st;
 using kofft::radix::ArriveAfterLastExchange;
+using kofft::radix::cluster_addr;
 using kofft::radix::cmul;
 using kofft::radix::fill_plan;
 using kofft::radix::RadixPlan;
+using kofft::radix::st_cluster;
 using kofft::radix::Swizzle;
 using kofft::radix::swizzle;
 
@@ -154,13 +175,20 @@ constexpr int kMaxCluster = 8;
 // CTA of 512 threads per SM, with the ~80 registers ptxas takes
 // otherwise, and three of 256 per SM were each measured slower)
 constexpr int kClusterThreads = 512;
+// stage1_cluster_kernel: CTAs per cluster and columns per tile
+// (hopper_kernels._COL_CLUSTER); C = kE, so each thread runs one radix-C
+// DFT after the exchange
+constexpr int kS1Cluster = 16;
+constexpr int kS1Tile = 16;
 
-// tw != nullptr: multiply point k of column col by tw[k * (inner / tw_div)
-// + col / tw_div] (the split's first launch). swap: row `row` of the
-// (rows, m, inner) view stores point k to row k * swap + row % swap of
-// block row / swap (1: the input layout). wb != nullptr: multiply the
-// point stored at row k1 (of its batch row) and column col by
-// W[k1, col] = wc[k1, col / tw_t] * wb[k1, col mod tw_t].
+// wb != nullptr: multiply the point stored at row k1 (of its batch row)
+// and column col by W[k1, col] = wc[k1, col / tw_t] * wb[k1, col mod tw_t].
+// The launcher passes tw = nullptr, tw_div = 1 and swap = 1: the split
+// twiddle (point k of column col times tw[k * (inner / tw_div) + col /
+// tw_div]) and digit swap (row `row` of the (rows, m, inner) view storing
+// point k to row k * swap + row % swap of block row / swap) of a column
+// four-step, which no launch takes since lines of 4096 and 8192 run on
+// stage1_cluster_kernel; they stay so that the instances keep their code.
 template <bool kReal, typename TIn, typename TOut>
 __global__ void __launch_bounds__(kMaxThreads)
 stage1_kernel(const TIn* __restrict__ ar, const TIn* __restrict__ ai,
@@ -216,6 +244,94 @@ stage1_kernel(const TIn* __restrict__ ar, const TIn* __restrict__ ai,
     }
     st(yr, o + s * ostep, y.x);
     st(yi, o + s * ostep, y.y);
+  }
+}
+
+// Stage 1 on lines of m = C * M points (4096 and 8192), one (m, T) column
+// tile per cluster of C CTAs (1-D, so blockIdx.x % C is the CTA's rank r
+// in it), as col_cluster_kernel (axis_fft.cu) runs the line FFTs: CTA r
+// loads rows r + C * (ti + i * tpl) of the tile and runs their M-point
+// line FFT Y_r (the plan of lines of M), multiplies Y_r[k] by
+// w_m^(r * k) (ctw, the (C, M) table) and sends it to CTA k mod C = ti
+// mod C (tpl = M / kE is a multiple of C), word (r * tpl + k / C) * T + c;
+// then thread ti of CTA q runs the radix-C DFT X[k + M * s] = sum_r
+// Z_r[k] w_C^(r * s), k = q + C * ti, and stores output s, times
+// W[k + M * s, col] = wk[k, col] * ws[s, col], to row k + M * s = q +
+// C * (ti + s * tpl): the row of its load i = s. The inverse conjugates on
+// load; the real form reads one plane.
+template <bool kReal, typename TIn, typename TOut>
+__global__ void __launch_bounds__(kClusterThreads, 2)
+stage1_cluster_kernel(const TIn* __restrict__ ar, const TIn* __restrict__ ai,
+                      TOut* __restrict__ yr, TOut* __restrict__ yi, int m,
+                      int inner, RadixPlan plan,
+                      const float2* __restrict__ tab, float sgn,
+                      const float2* __restrict__ ctw,
+                      const float2* __restrict__ wk,
+                      const float2* __restrict__ ws) {
+  constexpr int C = kS1Cluster;
+  constexpr int T = kS1Tile;
+  static_assert(C == kE, "one radix-C DFT a thread after the exchange");
+  extern __shared__ float smem[];
+  const int M = m / C;
+  const int tpl = M / kE;
+  float* sre = smem;
+  float* sim = smem + T * M;
+  const int rank = static_cast<int>(blockIdx.x % C);
+  const int tile = static_cast<int>(blockIdx.x / C);
+  const int tiles = inner / T;
+  const int row = tile / tiles;
+  const int c = threadIdx.x % T;
+  const int ti = threadIdx.x / T;
+  const int col = (tile - row * tiles) * T + c;
+  // load i and store s of the thread: row rank + C * ti + M * i
+  const long long g = static_cast<long long>(row) * m * inner + col +
+                      static_cast<long long>(rank + C * ti) * inner;
+  const long long step = static_cast<long long>(M) * inner;
+  float2 v[kE];
+#pragma unroll
+  for (int i = 0; i < kE; ++i) {
+    if constexpr (kReal) {
+      v[i] = make_float2(ld(ar, g + i * step), 0.f);
+    } else {
+      v[i] = make_float2(ld(ar, g + i * step), sgn * ld(ai, g + i * step));
+    }
+  }
+  // every line of M >= 256 points has >= 2 passes, so one exchange at
+  // least before the arrival
+  kofft::radix::line_fft<kE>(v, ti, tpl, plan, tab, sre, sim, c, T,
+                             ArriveAfterLastExchange{2 * plan.npass - 2});
+  const float2* w = ctw + static_cast<long long>(rank) * M + ti;
+  const unsigned a0 = cluster_addr(
+      static_cast<unsigned>(__cvta_generic_to_shared(sre)) +
+          4u * ((rank * tpl + ti / C) * T + c),
+      ti % C);
+  const unsigned im = 4u * T * M;  // from a word of sre to sim's
+  const unsigned kstep = 4u * (tpl / C) * T;
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < kE; ++i) {
+    float2 y = v[i];
+    if (rank > 0) y = cmul(y, __ldg(w + i * tpl));
+    st_cluster(a0 + i * kstep, y.x);
+    st_cluster(a0 + i * kstep + im, y.y);
+  }
+  // no CTA touches another's buffer after this, so each may exit
+  cg::this_cluster().sync();
+#pragma unroll
+  for (int r = 0; r < C; ++r) {
+    const int a = (r * tpl + ti) * T + c;
+    v[r] = make_float2(sre[a], sim[a]);
+  }
+  kofft::radix::dft<C>(v);
+  const float2 f =
+      __ldg(wk + static_cast<long long>(rank + C * ti) * inner + col);
+#pragma unroll
+  for (int s = 0; s < kE; ++s) {
+    const float2 b = __ldg(ws + s * inner + col);
+    const float2 y =
+        cmul(v[s], make_float2(f.x * b.x - f.y * b.y, f.x * b.y + f.y * b.x));
+    st(yr, g + s * step, y.x);
+    st(yi, g + s * step, y.y);
   }
 }
 
@@ -340,15 +456,13 @@ stage2_kernel(const TIn* __restrict__ cr, const TIn* __restrict__ ci,
 template <bool kReal, typename TIn, typename TOut>
 int launch_stage1(const void* ar, const void* ai, void* yr, void* yi,
                   int rows, int m, int inner, int T, const RadixPlan& p,
-                  const void* tab, int conj, const void* tw, int tw_div,
-                  int swap, const void* wb, const void* wc, int tw_t,
-                  int device, void* stream) {
+                  const void* tab, int conj, const void* wb, const void* wc,
+                  int tw_t, int device, void* stream) {
   const long long threads = static_cast<long long>(T) * (m / kE);
   const long long grid =
       static_cast<long long>(rows) * (inner / (T > 0 ? T : 1));
   if (T < 1 || m % kE != 0 || inner % T != 0 || threads > kMaxThreads ||
-      rows < 1 || swap < 1 || rows % swap != 0 ||
-      (tw != nullptr && (tw_div < 1 || inner % tw_div != 0)) ||
+      rows < 1 ||
       (wb != nullptr && (wc == nullptr || tw_t < 1 || inner % tw_t != 0)) ||
       grid > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
@@ -363,11 +477,46 @@ int launch_stage1(const void* ar, const void* ai, void* yr, void* yi,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const TIn*>(ar), static_cast<const TIn*>(ai),
       static_cast<TOut*>(yr), static_cast<TOut*>(yi), m, inner, T, p,
-      static_cast<const float2*>(tab), conj ? -1.f : 1.f,
-      static_cast<const float2*>(tw), tw == nullptr ? 1 : tw_div, swap,
+      static_cast<const float2*>(tab), conj ? -1.f : 1.f, nullptr, 1, 1,
       static_cast<const float2*>(wb), static_cast<const float2*>(wc),
       wb == nullptr ? 1 : tw_t);
   return cudaGetLastError();
+}
+
+template <bool kReal, typename TIn, typename TOut>
+int launch_stage1_cluster(const void* ar, const void* ai, void* yr, void* yi,
+                          int b, int m, int inner, const RadixPlan& p,
+                          const void* tab, int conj, const void* ctw,
+                          const void* wk, const void* ws, int device,
+                          void* stream) {
+  constexpr int C = kS1Cluster;
+  constexpr int T = kS1Tile;
+  const int mc = m / C;
+  const int threads = T * (mc / kE);
+  // every point of a thread goes to one CTA: tpl = mc / 16 is a multiple
+  // of C
+  if (b < 1 || m % C != 0 || mc % kE != 0 || (mc / kE) % C != 0 ||
+      threads > kClusterThreads || inner < T || inner % T != 0 ||
+      p.npass < 2 || ctw == nullptr || wk == nullptr || ws == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  const long long grid = static_cast<long long>(b) * (inner / T) * C;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(2 * sizeof(float) * mc * T);
+  static int allowed[kMaxDevices];
+  // bit C: a cluster of C CTAs was checked to fit, per device
+  static int fits[kMaxDevices];
+  const auto kernel = stage1_cluster_kernel<kReal, TIn, TOut>;
+  const int r =
+      prepare(reinterpret_cast<const void*>(kernel), allowed, device, smem);
+  if (r != cudaSuccess) return r;
+  return kofft::launch_cluster(
+      kernel, fits, device, grid, threads, smem, stream, C,
+      static_cast<const TIn*>(ar), static_cast<const TIn*>(ai),
+      static_cast<TOut*>(yr), static_cast<TOut*>(yi), m, inner, p,
+      static_cast<const float2*>(tab), conj ? -1.f : 1.f,
+      static_cast<const float2*>(ctw), static_cast<const float2*>(wk),
+      static_cast<const float2*>(ws));
 }
 
 template <int kStore, bool kCluster, typename TIn, typename TOut>
@@ -425,18 +574,28 @@ int launch_stage2(const void* cr, const void* ci, void* yr, void* yi, int b,
 }
 
 // The instances by I/O form: in_bf16 / out_bf16 select bf16 loaded planes
-// and bf16 stored planes (stage 1 from a real plane has no f32 -> bf16
-// form)
+// and bf16 stored planes; stage 1 has no f32 -> bf16 form (the `default`
+// tier casts its input planes whenever it keeps C in bf16)
 template <bool kReal, typename... Args>
 int stage1_forms(int in_bf16, int out_bf16, Args... a) {
   if (!in_bf16 && !out_bf16) return launch_stage1<kReal, float, float>(a...);
   if (in_bf16 && !out_bf16) return launch_stage1<kReal, bf16, float>(a...);
   if (in_bf16 && out_bf16) return launch_stage1<kReal, bf16, bf16>(a...);
-  if constexpr (kReal) {
-    return cudaErrorInvalidValue;
-  } else {
-    return launch_stage1<false, float, bf16>(a...);
+  return cudaErrorInvalidValue;
+}
+
+template <bool kReal, typename... Args>
+int stage1_cluster_forms(int in_bf16, int out_bf16, Args... a) {
+  if (!in_bf16 && !out_bf16) {
+    return launch_stage1_cluster<kReal, float, float>(a...);
   }
+  if (in_bf16 && !out_bf16) {
+    return launch_stage1_cluster<kReal, bf16, float>(a...);
+  }
+  if (in_bf16 && out_bf16) {
+    return launch_stage1_cluster<kReal, bf16, bf16>(a...);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <int kStore, typename... Args>
@@ -451,29 +610,23 @@ int stage2_forms(int in_bf16, int out_bf16, Args... a) {
 
 // One launch of stage1_kernel over the (rows, m, inner) view: line FFTs of
 // length m along axis 1 (real = 1: one real plane ar, ai is not read; conj
-// negates the imaginary part on load), stored with the optional split
-// twiddle (tw, tw_div), digit swap (swap) and four-step twiddle (wb, wc,
-// tw_t; hopper_kernels._stage1_twiddle). T columns per block, steps /
-// npass / tab from hopper_kernels._stage1_plan. The I/O forms: f32 -> f32,
-// bf16 -> f32 and bf16 -> bf16, and complex f32 -> bf16 for the split's
-// second launch. A plan whose last radix is odd (m = o * q) launches
-// stage1_odd.cu's kernel in ``groups`` sub-line groups (0 for a
-// power-of-two plan), with W and without a split or swap.
+// negates the imaginary part on load), stored times the four-step twiddle
+// (wb, wc, tw_t; hopper_kernels._stage1_twiddle). T columns per block,
+// steps / npass / tab from hopper_kernels._axis_plan. The I/O forms:
+// f32 -> f32, bf16 -> f32 and bf16 -> bf16. A plan whose last radix is
+// odd (m = o * q) launches stage1_odd.cu's kernel in ``groups`` sub-line
+// groups (0 for a power-of-two plan).
 extern "C" int kofft_stage1(const void* ar, const void* ai, void* yr,
                             void* yi, int rows, int m, int inner, int T,
                             int groups, const int* steps, int npass,
-                            const void* tab, int conj, const void* tw,
-                            int tw_div, int swap, const void* wb,
+                            const void* tab, int conj, const void* wb,
                             const void* wc, int tw_t, int real, int in_bf16,
                             int out_bf16, int device, void* stream) {
   RadixPlan p;
   if (npass >= 2 && steps[7 * (npass - 1)] % 2 == 1) {
     const int* odd = steps + 7 * (npass - 1);
     const int o = odd[0];
-    if (o < 3 || m % o != 0 || odd[1] != m / o || tw != nullptr ||
-        swap != 1) {
-      return cudaErrorInvalidValue;
-    }
+    if (o < 3 || m % o != 0 || odd[1] != m / o) return cudaErrorInvalidValue;
     const int r = fill_plan(&p, steps, npass - 1, m / o, kE);
     if (r != cudaSuccess) return r;
     return kofft::launch_stage1_odd(o, real, in_bf16, out_bf16, ar, ai, yr,
@@ -485,12 +638,42 @@ extern "C" int kofft_stage1(const void* ar, const void* ai, void* yr,
   if (r != cudaSuccess || groups != 0) return cudaErrorInvalidValue;
   if (real) {
     return stage1_forms<true>(in_bf16, out_bf16, ar, ai, yr, yi, rows, m,
-                              inner, T, p, tab, 0, tw, tw_div, swap, wb, wc,
-                              tw_t, device, stream);
+                              inner, T, p, tab, 0, wb, wc, tw_t, device,
+                              stream);
   }
   return stage1_forms<false>(in_bf16, out_bf16, ar, ai, yr, yi, rows, m,
-                             inner, T, p, tab, conj, tw, tw_div, swap, wb,
-                             wc, tw_t, device, stream);
+                             inner, T, p, tab, conj, wb, wc, tw_t, device,
+                             stream);
+}
+
+// Stage 1 of (b, m, inner) planes at m = 4096 or 8192 in one launch of
+// stage1_cluster_kernel (csize = 16 CTAs per cluster, T = 16 columns per
+// tile, the one shape built): real and conj as kofft_stage1, the same
+// I/O forms. steps / npass / tab: the plan of lines of m / 16, ctw the
+// (16, m / 16) twiddle w_m^(r * k), and wk (m / 16, inner) and ws (16,
+// inner) the factors of W (hopper_kernels._static_args("stage1_cluster")).
+extern "C" int kofft_stage1_cluster(const void* ar, const void* ai,
+                                    void* yr, void* yi, int b, int m,
+                                    int inner, int T, int csize,
+                                    const int* steps, int npass,
+                                    const void* tab, int conj,
+                                    const void* ctw, const void* wk,
+                                    const void* ws, int real, int in_bf16,
+                                    int out_bf16, int device, void* stream) {
+  if (csize != kS1Cluster || T != kS1Tile || m % csize != 0) {
+    return cudaErrorInvalidValue;
+  }
+  RadixPlan p;
+  const int r = fill_plan(&p, steps, npass, m / csize, kE);
+  if (r != cudaSuccess) return r;
+  if (real) {
+    return stage1_cluster_forms<true>(in_bf16, out_bf16, ar, ai, yr, yi, b,
+                                      m, inner, p, tab, 0, ctw, wk, ws,
+                                      device, stream);
+  }
+  return stage1_cluster_forms<false>(in_bf16, out_bf16, ar, ai, yr, yi, b, m,
+                                     inner, p, tab, conj, ctw, wk, ws, device,
+                                     stream);
 }
 
 // C (b, n1, n2) -> (b, n2, n1), or (half = 1) the one-sided (b, n/2 + 1)

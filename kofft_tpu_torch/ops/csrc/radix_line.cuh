@@ -362,6 +362,23 @@ struct ArriveAfterLastExchange {
   }
 };
 
+// Address `addr` of this CTA's shared memory mapped into CTA `rank` of
+// the cluster, and a 4-byte store there (32-bit shared::cluster
+// addresses: a generic pointer per store took two registers more); the
+// exchanges of the column clusters (axis_fft.cu's col_cluster_kernel,
+// fft_stages.cu's stage1_cluster_kernel)
+__device__ __forceinline__ unsigned cluster_addr(unsigned addr, int rank) {
+  unsigned r;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(r)
+      : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
 // Physical word of logical word a in the exchange buffer (see the note)
 __device__ __forceinline__ int swizzle(int a, Swizzle sw) {
   const int h = a >> 5;

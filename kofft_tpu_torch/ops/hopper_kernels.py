@@ -11,7 +11,9 @@ inter-stage matrix C and in layouts Mosaic forced on them. On Hopper every
 shape runs the same two CUDA kernels (``csrc/fft_stages.cu``) on the
 register radix line FFT (``csrc/radix_line.cuh``): ``stage1`` (column
 FFTs of length n1 in tiles of >= 8 columns, the twiddle fused into the
-store; above 2048 points a column four-step of two launches) and
+store; columns of 4096 and 8192 in one launch of a thread-block cluster
+that holds the column tile, as ``col_fft``'s, also counted as
+``stage1_cluster``) and
 ``stage2`` (row FFTs of length n2, stored transposed through the
 exchange buffer; lines of 4096 and 8192 through a thread-block cluster
 of eight CTAs, one line each, also counted as ``stage2_cluster8``).
@@ -119,7 +121,7 @@ _FORM_NAMES = {(base, _LETTER_DTYPE[f[0]], _LETTER_DTYPE[f[1]]):
 # registry (utils/observability.py)
 launches = _obs.counter_group("launches")
 launches.update({"stage1": 0, "stage2": 0, "stage1_real": 0,
-                 "stage2_half": 0, "stage2_cluster8": 0,
+                 "stage2_half": 0, "stage2_cluster8": 0, "stage1_cluster": 0,
                  "col_fft": 0, "col_cluster": 0, "row_fft": 0,
                  "dense_stage_a": 0, "dense_stage_b": 0,
                  "dense_stage_a_bf16x1": 0, "dense_stage_b_bf16x1": 0,
@@ -473,14 +475,13 @@ _AXIS_THREADS = 256       # threads per axis block where the tile allows
 _AXIS_MAX_THREADS = 1024  # a block's most (col_fft's (2048, 8) tile)
 _COL_MIN_TILE = 8         # columns per col_fft tile: >= 32-byte row runs
 _SMEM_MAX = 227 * 1024    # shared memory one Hopper block may have
-# one (m, 8) tile of lines longer than this would need 256 KB, more than a
-# block has: col_fft runs them on a thread-block cluster (_COL_CLUSTER),
-# stage 1 as a column four-step of two launches (_col_split)
-_COL_SPLIT_ABOVE = 2048
-# col_fft's cluster path by line length (csrc/axis_fft.cu
-# col_cluster_kernel): (C, T), C CTAs per cluster, each running lines of
-# m / C points, and T columns per tile; (16, 16) measured fastest at both
-# lengths, of C = 2 ... 16 and T = 8 ... 32 (PERF.md section 6)
+# The cluster paths by line length, where one (m, 8) tile would need 256 KB
+# or more, over a block's 227 KB: col_fft's (csrc/axis_fft.cu
+# col_cluster_kernel) and stage 1's (csrc/fft_stages.cu
+# stage1_cluster_kernel, built for (16, 16) alone). (C, T): C CTAs per
+# cluster, each running lines of m / C points, and T columns per tile;
+# (16, 16) measured fastest at both lengths for col_fft, of C = 2 ... 16
+# and T = 8 ... 32 (PERF.md section 6)
 _COL_CLUSTER = {4096: (16, 16), 8192: (16, 16)}
 
 
@@ -629,27 +630,17 @@ def _axis_plan(kind: str, m: int, t: int, e: int):
 
 
 def _cluster_tile(m: int, count: int) -> tuple:
-    """(C, T) of col_fft's cluster path on lines of m (``_COL_CLUSTER``):
-    T columns per tile, capped at the next power of two of ``count``
+    """(C, T) of a cluster path on lines of m (``_COL_CLUSTER``): T
+    columns per tile, capped at the next power of two of ``count``
     columns."""
     csize, t = _COL_CLUSTER[m]
     return csize, min(t, 1 << max(0, count - 1).bit_length())
 
 
-def _col_split(m: int):
-    """(m1, m2) of stage 1's column four-step above _COL_SPLIT_ABOVE,
-    else None: m = m1*m2, m1 = 2^floor(log2(m)/2) (4096 = 64*64, 8192 =
-    64*128)."""
-    if m <= _COL_SPLIT_ABOVE:
-        return None
-    m1 = 1 << ((m.bit_length() - 1) // 2)
-    return m1, m // m1
-
-
 def _split_twiddle(m1: int, m2: int):
     """The twiddle w_m^(k1*j2), m = m1*m2, (m1, m2) float2-interleaved
-    float32 (the ``tables.twiddle`` pair): stage 1's column four-step's,
-    and with (m1, m2) = (C, m / C) col_fft's cluster path's w_m^(r*k)."""
+    float32 (the ``tables.twiddle`` pair): with (m1, m2) = (C, m / C) the
+    cluster paths' w_m^(r*k)."""
     def build():
         re, im = tables.twiddle(m1, m2)
         return np.stack([re.ravel(), im.ravel()], axis=1).ravel()
@@ -659,8 +650,8 @@ def _split_twiddle(m1: int, m2: int):
 
 # ---------------------------------------------------------------------------
 # the stage kernels' host plan (csrc/fft_stages.cu): stage 1 on col_fft's
-# tiles and column four-step, stage 2 on whole-line tiles with the
-# transposed store through the exchange buffer or a cluster of 8 CTAs
+# tiles and cluster, stage 2 on whole-line tiles with the transposed store
+# through the exchange buffer or a cluster of 8 CTAs
 # ---------------------------------------------------------------------------
 
 _STAGE_E = 16             # points per thread: stage lines have >= 128 points
@@ -753,19 +744,28 @@ def _stage1_twiddle(n1: int, n2: int):
     return tables.custom(("stage1tw", n1, n2), build)
 
 
-def _stage1_views(n1: int, n2: int) -> list:
-    """The column launches of stage 1, each (rows per batch row, m, inner,
-    split twiddle or None, tw_div, swap): one over (b, n1, n2) for a
-    smooth n1 and up to _COL_SPLIT_ABOVE, else the column four-step of
-    ``_col_split``: lines of m1 over (b, m1, m2*n2) with w_n1^(k1a*j1b),
-    then lines of m2 over (b*m1, m2, n2) stored to row k1b*m1 + k1a. The
-    four-step twiddle W rides on the last launch's store."""
-    split = None if n1 & (n1 - 1) else _col_split(n1)
-    if split is None:
-        return [(1, n1, n2, None, 1, 1)]
-    m1, m2 = split
-    return [(1, m1, m2 * n2, _split_twiddle(m1, m2), n2, 1),
-            (m1, m2, n2, None, 1, m1)]
+def _stage1_cluster_twiddle(n1: int, n2: int):
+    """The four-step twiddle W[k1, j2] = w_n^(k1*j2), n = n1*n2, of stage
+    1's cluster path (``_COL_CLUSTER``), factored at M = n1 / C for its
+    store of row k1 = k + M*s: wk[k, j2] = w_n^(k*j2) (M, n2) and ws[s, j2]
+    = w_n^(M*s*j2) (C, n2), each built in float64 from the exact integer
+    phase mod n, rounded once to float32 and float2-interleaved."""
+    def build():
+        csize = _COL_CLUSTER[n1][0]
+        m = n1 // csize
+        n = n1 * n2
+        j2 = np.arange(n2, dtype=np.int64)
+
+        def table(k):
+            ang = (-2.0 * np.pi / n) * np.mod(np.outer(k, j2), n).astype(
+                np.float64)
+            return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(
+                np.float32).ravel()
+
+        return (table(np.arange(m, dtype=np.int64)),
+                table(np.arange(csize, dtype=np.int64) * m))
+
+    return tables.custom(("stage1cltw", n1, n2), build)
 
 
 def _check_planes(xr, xi, what: str, dtypes: tuple = (_F32,)) -> None:
@@ -801,9 +801,9 @@ tables.on_clear(_ARGS.clear)
 
 
 def _static_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
-    """The launch arguments that depend only on the kernel kind ("stage1",
-    "stage2", "col" or "row"), the (b, n1, n2) shape and the device, built
-    once; the cached host and device tables keep every pointer alive.
+    """The launch arguments that depend only on the kernel kind (below),
+    the (b, n1, n2) shape and the device, built once; the cached host and
+    device tables keep every pointer alive.
     - "col" (lines of n1 along axis 1, tiles of n2 columns) and "row"
       (lines of n2, b*n1 of them): (T, E, plan pointer, pass count, table
       pointer) of ``_axis_tile`` and ``_axis_plan``.
@@ -811,14 +811,14 @@ def _static_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
       columns): (T, C, plan pointer, pass count, table pointer, twiddle
       pointer) of ``_cluster_tile``, the plan of lines of n1 / C and the
       (C, n1 / C) ``_split_twiddle``.
+    - "stage1_cluster" (stage 1's cluster path): the same and the
+      pointers of W's factors wk, ws (``_stage1_cluster_twiddle``).
     - "stage2": (T, Tc, plan pointer, pass count, table pointer) of
       ``_stage2_tile`` and ``_stage2_plan``.
-    - "stage1": (base twiddle pointer, col twiddle pointer, launches),
-      one or two column launches (``_stage1_views``), each (rows per
-      batch row, m, inner, T, P, plan pointer, pass count, table pointer,
-      split twiddle pointer or None, tw_div, swap): T of ``_axis_tile``
-      and P = 0 for a power-of-two m, (T, P) of ``_odd_tile`` for a
-      smooth one, and ``_axis_plan``.
+    - "stage1": (base twiddle pointer, col twiddle pointer, T, P, plan
+      pointer, pass count, table pointer): T of ``_axis_tile`` and P = 0
+      for a power-of-two n1, (T, P) of ``_odd_tile`` for a smooth one,
+      and ``_axis_plan``.
     The host side of a launch is on the 2^20 critical path (the transform
     was host-bound there), so nothing is rebuilt per call. Timed as an
     ``args`` span; a build is a ``table`` span in it."""
@@ -842,13 +842,16 @@ def _build_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
         steps, tab = _axis_plan(kind, m, t, e)
         hit = (t, e, steps.ctypes.data, len(steps) // 7,
                const(tab, dev).data_ptr())
-    elif kind == "cluster":
+    elif kind in ("cluster", "stage1_cluster"):
         csize, t = _cluster_tile(n1, n2)
         m = n1 // csize
         steps, tab = _axis_plan("col", m, t, _STAGE_E)
         hit = (t, csize, steps.ctypes.data, len(steps) // 7,
                const(tab, dev).data_ptr(),
                const(_split_twiddle(csize, m), dev).data_ptr())
+        if kind == "stage1_cluster":
+            hit += tuple(const(a, dev).data_ptr()
+                         for a in _stage1_cluster_twiddle(n1, n2))
     elif kind == "stage2":
         t, tc = _stage2_tile(n2)
         steps, tab = _stage2_plan(n2, t, tc)
@@ -856,16 +859,11 @@ def _build_args(kind: str, b: int, n1: int, n2: int, dev) -> tuple:
                const(tab, dev).data_ptr())
     else:
         wb, wc = (const(a, dev).data_ptr() for a in _stage1_twiddle(n1, n2))
-        views = []
-        for rows, m, inner, tw, tw_div, swap in _stage1_views(n1, n2):
-            t, groups = (_odd_tile(m) if m & (m - 1)
-                         else (_axis_tile("col", m, inner)[0], 0))
-            steps, tab = _axis_plan("col", m, t, _STAGE_E)
-            views.append((rows, m, inner, t, groups, steps.ctypes.data,
-                          len(steps) // 7, const(tab, dev).data_ptr(),
-                          None if tw is None else const(tw, dev).data_ptr(),
-                          tw_div, swap))
-        hit = (wb, wc, tuple(views))
+        t, groups = (_odd_tile(n1) if n1 & (n1 - 1)
+                     else (_axis_tile("col", n1, n2)[0], 0))
+        steps, tab = _axis_plan("col", n1, t, _STAGE_E)
+        hit = (wb, wc, t, groups, steps.ctypes.data, len(steps) // 7,
+               const(tab, dev).data_ptr())
     return hit
 
 
@@ -877,45 +875,41 @@ def _stream(dev) -> int:
 
 def _stage1_kernel(ar, ai, conj: bool, c_dtype):
     """Stage 1 on CUDA planes (``ai=None``: one real plane) into a new C of
-    ``c_dtype``: one column launch (a smooth n1's odd plan among them) or
-    the column four-step's two (``_static_args``)."""
+    ``c_dtype``: one launch of the one-block kernel (a smooth n1's odd plan
+    among them) or, at the lines of ``_COL_CLUSTER``, of the cluster
+    kernel, also counted as ``stage1_cluster`` (``_static_args``)."""
     from ._cuda_build import check, lib
     b, n1, n2 = ar.shape
     dev = ar.device
-    real = ai is None
-    in_bf = int(ar.dtype == _BF16)
-    wb, wc, views = _static_args("stage1", b, n1, n2, dev)
+    cluster = n1 in _COL_CLUSTER
+    args = _static_args("stage1_cluster" if cluster else "stage1", b, n1, n2,
+                        dev)
     # the flags read once for the alloc and launch spans: the 2^20 path's
     # host time counts every bytecode
     on = _prof._is_profiler_enabled or _obs.switch
     sp = _obs.begin("alloc") if on else None
     cr = torch.empty(ar.shape, dtype=c_dtype, device=dev)
     ci = torch.empty(ar.shape, dtype=c_dtype, device=dev)
-    nbytes = 2 * cr.nbytes
-    if len(views) == 2:
-        mid = (torch.empty(ar.shape, dtype=_F32, device=dev),
-               torch.empty(ar.shape, dtype=_F32, device=dev))
-        nbytes += 2 * mid[0].nbytes
-        outs = [mid, (cr, ci)]
-    else:
-        outs = [(cr, ci)]
     if sp:
         _obs.end(sp)
-    _COUNTS["alloc_bytes"] += nbytes
-    src = (ar.data_ptr(), None if real else ai.data_ptr())
-    for i, (view, (yr, yi)) in enumerate(zip(views, outs)):
-        rows, m, inner, t, groups, steps, npass, tab, tw, tw_div, swap = view
-        last = i == len(views) - 1
-        sp = _obs.begin("launch") if on else None
-        check(lib().kofft_stage1(
-            *src, yr.data_ptr(), yi.data_ptr(), b * rows, m, inner, t,
-            groups, steps, npass, tab, int(conj and i == 0), tw, tw_div, swap,
-            wb if last else None, wc if last else None, min(_ML_TILE, n1),
-            int(real and i == 0), in_bf if i == 0 else 0,
-            int(yr.dtype == _BF16), dev.index, _stream(dev)), "stage1 launch")
-        if sp:
-            _obs.end(sp)
-        src = (yr.data_ptr(), yi.data_ptr())
+    _COUNTS["alloc_bytes"] += 2 * cr.nbytes
+    planes = (ar.data_ptr(), None if ai is None else ai.data_ptr(),
+              cr.data_ptr(), ci.data_ptr(), b, n1, n2)
+    forms = (int(ai is None), int(ar.dtype == _BF16), int(c_dtype == _BF16),
+             dev.index, _stream(dev))
+    sp = _obs.begin("launch") if on else None
+    if cluster:
+        t, csize, steps, npass, tab, ctw, wk, ws = args
+        err = lib().kofft_stage1_cluster(*planes, t, csize, steps, npass, tab,
+                                         int(conj), ctw, wk, ws, *forms)
+        launches["stage1_cluster"] += 1
+    else:
+        wb, wc, t, groups, steps, npass, tab = args
+        err = lib().kofft_stage1(*planes, t, groups, steps, npass, tab,
+                                 int(conj), wb, wc, min(_ML_TILE, n1), *forms)
+    check(err, "stage1 launch")
+    if sp:
+        _obs.end(sp)
     return cr, ci
 
 
@@ -955,9 +949,9 @@ def _plain_span(plain, *args):
 def stage1(ar, ai, conj: bool = False, c_dtype=_F32):
     """Stage 1: (b, n1, n2) float32 or bfloat16 planes -> C (b, n1, n2) of
     ``c_dtype`` (the forms of ``_IO_FORMS``). CUDA tensors launch the
-    kernel (one count in ``launches`` under the form's name, also for the
-    column four-step's two launches above 2048 points); CPU tensors run
-    ``stage1_plain`` (a ``tree`` span)."""
+    kernel once (one count in ``launches`` under the form's name; at n1 =
+    4096 and 8192 the cluster kernel, also counted as ``stage1_cluster``);
+    CPU tensors run ``stage1_plain`` (a ``tree`` span)."""
     _check_planes(ar, ai, "stage1", _IO_DTYPES)
     name = _form("stage1", ar.dtype, c_dtype)
     if ar.device.type == "cpu":
@@ -1002,9 +996,10 @@ def stage2(cr, ci, conj: bool = False, out=None, dtype=_F32):
 
 def stage1_real(ar, c_dtype=_F32):
     """Real-input stage 1: one real float32 or bfloat16 (b, n1, n2) plane
-    -> C (b, n1, n2) of ``c_dtype``. CUDA tensors launch the kernel (one
-    count in ``launches`` under the form's name); CPU tensors run
-    ``stage1_real_plain`` (a ``tree`` span)."""
+    -> C (b, n1, n2) of ``c_dtype``. CUDA tensors launch the kernel once
+    (one count in ``launches`` under the form's name; at n1 = 4096 and
+    8192 the cluster kernel, also counted as ``stage1_cluster``); CPU
+    tensors run ``stage1_real_plain`` (a ``tree`` span)."""
     _check_planes(ar, ar, "stage1_real", _IO_DTYPES)
     name = _form("stage1_real", ar.dtype, c_dtype)
     if ar.device.type == "cpu":
@@ -1084,8 +1079,8 @@ def col_fft(ar, ai, conj: bool = False):
     """Line FFTs of length m along axis 1 of (b, m, inner) planes, written
     in the input layout (the column pass of the N-D routes); ``conj``
     negates the imaginary part on load. CUDA tensors launch the kernel
-    once: one block per column tile up to ``_COL_SPLIT_ABOVE``, a
-    thread-block cluster per tile at the longer lines of ``_COL_CLUSTER``
+    once: one block per column tile up to lines of 2048, a thread-block
+    cluster per tile at the longer lines of ``_COL_CLUSTER``
     (4096 and 8192; also counted as ``col_cluster``); each call counts
     once in ``launches["col_fft"]``. CPU tensors run ``col_fft_plain`` (a
     ``tree`` span)."""

@@ -4,10 +4,10 @@ index it: the radix list, the twiddle tables and their offsets, the
 Stockham index maps of every pass with the swizzled shared-memory
 exchange, each thread's loads and stores in device memory, col_fft's
 cluster path at lines of 4096 and 8192 (each CTA's line FFT, the twiddle,
-the exchange between the cluster's CTAs and the radix-C pass) and the
-column four-step with its fused twiddle and digit-swapped store (stage
-1's, whose kernel indexes its tiles as col_fft_kernel does). The kernels
-themselves run only on the card (tests/test_torch_gpu.py).
+the exchange between the cluster's CTAs and the radix-C pass), which
+stage 1 takes at the same line lengths (tests/test_torch_stage.py
+emulates its kernel). The kernels themselves run only on the card
+(tests/test_torch_gpu.py).
 
 Tolerance: the emulation runs in float64 on the float32 tables, so it
 differs from the float64 FFT only by the tables' rounding: > 140 dB.
@@ -19,7 +19,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from kofft_tpu_torch.ops import hopper_kernels as HK  # noqa: E402
 from kofft_tpu_torch.ops import ndfft as ND  # noqa: E402
@@ -87,10 +87,9 @@ def _emu_row(x):
     return y
 
 
-def _emu_col_launch(a, out, tw=None, tw_div=1, swap=1):
+def _emu_col_launch(a, out):
     """One col_fft_kernel launch over the (rows, m, inner) view ``a``,
-    storing into the flat ``out`` as the kernel does (optional fused
-    twiddle, digit-swapped rows)."""
+    storing into the flat ``out`` as the kernel does."""
     rows, m, inner = a.shape
     t, e = HK._axis_tile("col", m, inner)
     c, ti = HK._axis_lanes("col", m, t, e)
@@ -104,30 +103,15 @@ def _emu_col_launch(a, out, tw=None, tw_div=1, swap=1):
         v = np.stack([np.where(live, flat[g + s * tpl * inner], 0)
                       for s in range(e)], 1)
         v = _run_block("col", m, t, e, v)
-        o = ((row // swap) * swap * m * inner + (row % swap) * inner
-             + ti * swap * inner + col)
         for s in range(e):
-            val = v[:, s]
-            if tw is not None:
-                val = val * tw[(ti + s * tpl) * (inner // tw_div)
-                               + col // tw_div]
-            out[(o + s * tpl * swap * inner)[live]] = val[live]
+            out[(g + s * tpl * inner)[live]] = v[live, s]
 
 
-def _emu_col(a, split):
-    """col_fft on (b, m, inner): one launch, or the column four-step of
-    ``split = (m1, m2)``."""
-    b, m, inner = a.shape
+def _emu_col(a):
+    """col_fft on (b, m, inner) in one launch of the one-block kernel."""
     out = np.full(a.size, np.nan, complex)
-    if split is None:
-        _emu_col_launch(a, out)
-        return out.reshape(a.shape)
-    m1, m2 = split
-    tw = _c64(HK._split_twiddle(m1, m2))
-    _emu_col_launch(a.reshape(b, m1, m2 * inner), out, tw, inner)
-    z = np.full(a.size, np.nan, complex)
-    _emu_col_launch(out.reshape(b * m1, m2, inner), z, swap=m1)
-    return z.reshape(a.shape)
+    _emu_col_launch(a, out)
+    return out.reshape(a.shape)
 
 
 def _cluster_addrs(m, csize, t):
@@ -264,8 +248,7 @@ def test_col_emulation_is_the_line_fft(m, b, inner):
     a = _data((b, m, inner), m + inner)
     cluster = HK._COL_CLUSTER.get(m)
     assert cluster == ((16, 16) if m > 2048 else None)
-    got = (_emu_col(a, None) if cluster is None
-           else _emu_col_cluster(a, *cluster))
+    got = _emu_col(a) if cluster is None else _emu_col_cluster(a, *cluster)
     assert snr_db(np.fft.fft(a, axis=1), got) > EMU_DB
 
 
@@ -313,17 +296,29 @@ def test_cluster_exchange_has_no_bank_conflicts(m, csize, tile, inner):
     assert np.array_equal(np.sort(read.ravel()), np.arange(m // csize * t))
 
 
-@pytest.mark.parametrize("m,split", [(2048, (32, 64)), (4096, (64, 64)),
-                                     (8192, (64, 128)), (1024, (32, 32))])
-def test_column_four_step(m, split):
-    """Stage 1's column four-step: the split with its fused twiddle
-    w_m^(k1*j2) and the store of (k1, k2) to row k2*m1 + k1, also at two
-    splits below its threshold."""
-    if HK._col_split(m) is not None:
-        assert HK._col_split(m) == split
-    a = _data((2, m, 8), m)
-    got = _emu_col(a, split)
-    assert snr_db(np.fft.fft(a, axis=1), got) > EMU_DB
+@pytest.mark.parametrize("m", [2048, 4096, 8192, 1024])
+def test_column_four_step(m):
+    """col_fft and stage 1 take the cluster path, the column FFT as a
+    four-step across a cluster of 16 CTAs in one launch, at the same line
+    lengths (4096 and 8192), with one tile, plan, table and twiddle
+    w_m^(r*k) (the same cached pointers), where one block's (m, 8) tile
+    does not fit; up to 2048 both run one block per tile of the same
+    width, and no cluster."""
+    cpu = torch.device("cpu")
+    inner = 256
+    if m in HK._COL_CLUSTER:
+        assert m > 2048
+        col = HK._build_args("cluster", 1, m, inner, cpu)
+        s1 = HK._build_args("stage1_cluster", 1, m, inner, cpu)
+        assert s1[:len(col)] == col and len(s1) == len(col) + 2
+        with pytest.raises(ValueError):
+            HK._axis_tile("col", m, inner)
+    else:
+        assert m <= 2048
+        with pytest.raises(KeyError):
+            HK._cluster_tile(m, inner)
+        t, e = HK._axis_tile("col", m, inner)
+        assert HK._build_args("stage1", 1, m, inner, cpu)[2] == t
 
 
 def _route_axis_launches():
@@ -392,9 +387,7 @@ def _wavefronts(addr) -> int:
 @pytest.mark.parametrize("kind,m,count", _route_axis_launches()[::3]
                          + [("col", 2048, 1 << 20), ("row", 32, 1 << 10),
                             ("row", 64, 1 << 10)]
-                         # stage 1's column four-step at n1 = 4096 (same
-                         # tiles and plans): lines of 64 over 64*n2 and
-                         # over n2 columns, n2 = 128, 1024, 8192
+                         # lines of 64 over wide column counts
                          + [("col", 64, n) for n in (128, 1024, 8192,
                                                      1 << 16, 1 << 19)])
 def test_exchange_has_no_bank_conflicts(kind, m, count):

@@ -87,9 +87,9 @@ def _planes(shape, dev, seed=0):
     (2, 1 << 16, True), (1, 3 << 18, True), (1, 23 << 14, True),
     (1, 1 << 23, True), (1, 1 << 26, True)])
 def test_stages_match_plain(cuda, b, n, conj):
-    """Both stages against their plain versions at one-launch columns,
+    """Both stages against their plain versions at one-block columns,
     smooth n1 (the odd plan, one n per odd o = 3 ... 23, and 3072 x 8192),
-    a stage-2 cluster (2^23) and the column four-step (2^26), forward and
+    a stage-2 cluster (2^23) and the stage-1 cluster (2^26), forward and
     inverse; one count per wrapper call."""
     n1, n2 = HK._pow2_split(n)
     ar, ai = _planes((b, n1, n2), cuda)
@@ -160,10 +160,11 @@ def test_stage2_long_lines_match_plain(cuda, shape, base, form, conj):
 @pytest.mark.parametrize("n", [1 << 23, 1 << 24, 1 << 25])
 def test_fft_split_long_lines_at_the_cell_limits(cuda, n):
     """fft_split at 2^23, 2^24 (the benchmark's 1-D stream cell) and 2^25,
-    whose stage 2 runs the cluster path, against the float64 NumPy FFT
-    within the 2^24 cell's limits: rms_err <= 1e-5 and max_err <= 5e-5 of
-    the reference's RMS (the program reads about 1.9e-7 there); stage1,
-    stage2 and stage2_cluster8 count one launch each."""
+    whose stage 2 runs the cluster path (and from 2^24 stage 1 too),
+    against the float64 NumPy FFT within the 2^24 cell's limits: rms_err
+    <= 1e-5 and max_err <= 5e-5 of the reference's RMS (the program reads
+    about 1.9e-7 there); stage1, stage2 and stage2_cluster8 count one
+    launch each, stage1_cluster one from 2^24 (n1 = 4096)."""
     import kofft_tpu_torch as kt
     from portbench import check
     xr, xi = _planes((n,), cuda, seed=n.bit_length())
@@ -172,8 +173,72 @@ def test_fft_split_long_lines_at_the_cell_limits(cuda, n):
     torch.cuda.synchronize()
     assert HK.launches["stage1"] == HK.launches["stage2"] == 1
     assert HK.launches["stage2_cluster8"] == 1
+    assert HK.launches["stage1_cluster"] == int(n >= 1 << 24)
     e = check.errors(check.planes((yr, yi)), np.fft.fft(_np(xr, xi)))
     assert e["rms_err"] <= 1e-5 and e["max_err"] <= 5e-5, e
+
+
+# stage 1's cluster path (n1 = 4096 and 8192): the splits of 2^24, 2^25
+# and 2^26, and a batch of 2 at a narrower n2
+STAGE1_LONG = [(1, 4096, 4096), (1, 4096, 8192), (1, 8192, 8192),
+               (2, 4096, 512)]
+
+
+def _stage1_long_cases():
+    return ([("stage1", f, conj) for f in HK._IO_FORMS["stage1"]
+             for conj in (False, True)]
+            + [("stage1_real", f, False)
+               for f in HK._IO_FORMS["stage1_real"]])
+
+
+@pytest.mark.parametrize("shape", STAGE1_LONG)
+@pytest.mark.parametrize("base,form,conj", _stage1_long_cases())
+def test_stage1_long_columns_match_plain(cuda, shape, base, form, conj):
+    """stage1 (forward and conj) and stage1_real on the cluster of 16 CTAs
+    per 16-column tile, every I/O form, against their plain versions on
+    the same card tensors: float32 C >= 110 dB, bf16 C >= 70 dB in bf16
+    (the floor of test_bf16_forms_match_plain); one launch, counted under
+    the form's name and once in ``stage1_cluster``."""
+    loads, stores = (HK._LETTER_DTYPE[c] for c in form)
+    ar, ai = _planes(shape, cuda, seed=sum(shape) + 1)
+    ar, ai = ar.to(loads), ai.to(loads)
+    before = dict(HK.launches)
+    if base == "stage1":
+        got = HK.stage1(ar, ai, conj, c_dtype=stores)
+        want = HK.stage1_plain(ar, ai, conj, c_dtype=stores)
+    else:
+        got = HK.stage1_real(ar, c_dtype=stores)
+        want = HK.stage1_real_plain(ar, c_dtype=stores)
+    torch.cuda.synchronize()
+    assert got[0].dtype == stores and got[0].shape == shape
+    floor = PORT_DB if stores == torch.float32 else BF16_PLAIN_DB
+    assert _snr_on_card(want, got) >= floor
+    assert HK.launches["stage1_cluster"] == before["stage1_cluster"] + 1
+    name = HK._form(base, loads, stores)
+    assert HK.launches[name] == before[name] + 1
+    assert sum(HK.launches.values()) == sum(before.values()) + 2
+
+
+def test_stage1_cluster_counts_only_long_columns(cuda):
+    """``stage1_cluster`` counts one launch a call where n1 is 4096 or
+    8192 (2^24, 2^25, 2^26, complex and real) and none at n1 <= 2048
+    (2^20, 2^23) or a smooth n1 (3 * 2^18)."""
+    import kofft_tpu_torch as kt
+    HK.reset_counts()
+    for n in (1 << 20, 1 << 23, 3 << 18):
+        xr, xi = _planes((n,), cuda, seed=8)
+        kt.fft_split(xr, xi)
+        kt.rfft_split(xr)
+    torch.cuda.synchronize()
+    assert HK.launches["stage1"] == HK.launches["stage1_real"] == 3
+    assert HK.launches["stage1_cluster"] == 0
+    for n in (1 << 24, 1 << 25, 1 << 26):
+        xr, xi = _planes((n,), cuda, seed=9)
+        kt.fft_split(xr, xi)
+        kt.rfft_split(xr)
+        del xr, xi
+    torch.cuda.synchronize()
+    assert HK.launches["stage1_cluster"] == 6
 
 
 def test_cluster8_counts_only_long_lines(cuda):
@@ -331,7 +396,7 @@ def test_col_fft_cluster_matches_plain(cuda, shape, conj):
 def test_col_cluster_counts_only_long_columns(cuda):
     """``col_cluster`` counts col_fft's launches on lines of 4096 and 8192
     and nothing for col_fft at 2048 (one block per tile) nor for fft_split
-    at 2^24, whose stage 1 keeps the column four-step."""
+    at 2^24, whose stage 1 counts its own cluster (``stage1_cluster``)."""
     import kofft_tpu_torch as kt
     HK.reset_counts()
     HK.col_fft(*_planes((1, 2048, 64), cuda, seed=5))
@@ -340,6 +405,7 @@ def test_col_cluster_counts_only_long_columns(cuda):
     torch.cuda.synchronize()
     assert HK.launches["col_fft"] == 1 and HK.launches["stage1"] == 1
     assert HK.launches["col_cluster"] == 0
+    assert HK.launches["stage1_cluster"] == 1
     for shape in [(1, 4096, 64), (1, 8192, 64)]:
         HK.col_fft(*_planes(shape, cuda, seed=7))
     torch.cuda.synchronize()
@@ -962,13 +1028,13 @@ def test_timeit_chained_raises_on_an_op_it_cannot_capture(cuda):
 
 
 @pytest.mark.parametrize("n, mib, launch_spans",
-                         [(1 << 20, 16, 2), (1 << 24, 384, 3)])
+                         [(1 << 20, 16, 2), (1 << 24, 256, 2)])
 def test_fft_split_alloc_bytes_and_launch_spans(cuda, n, mib,
                                                 launch_spans):
     """One fft_split after a warm call allocates exactly C and the output
-    (2^20: 8 + 8 MiB), and at 2^24 the column four-step's mid planes too
-    (128 + 128 + 128 MiB), builds no table, and opens one ``launch`` span
-    per native launch (2^24: stage 1's two and stage 2's), in one call."""
+    (2^20: 8 + 8 MiB; 2^24, stage 1 on its cluster: 128 + 128 MiB), builds
+    no table, and opens one ``launch`` span per native launch (stage 1's
+    and stage 2's), in one call."""
     import kofft_tpu_torch as kt
     from kofft_tpu_torch.utils import observability as obs
     xr, xi = _planes((n,), cuda, seed=19)
@@ -1163,15 +1229,15 @@ def test_fftn_split_inverse_at_the_benchmark_shape(cuda):
 
 def test_rfft_split_at_the_benchmark_shape(cuda):
     """rfft_split at the real cell's shape (one signal of 2^24 points,
-    `auto`): route ``stages_real`` once, ``stage1_real`` counted once (its
-    column four-step's two launches), ``stage2_half`` once on the cluster
-    of eight (``stage2_cluster8``); against the plain float64 reference
-    (``portbench/reference/rfft1d.py``, NumPy) within the cell's limits,
-    rms_err <= 1e-5 and max_err <= 5e-5 of the reference's RMS; after a
-    warm call the ``alloc`` spans hold C and the four-step's mid planes
-    (128 + 128 MiB) and the one-sided output (2 (2^23 + 1) floats), the
-    three launches are three ``launch`` spans, no table is built, and the
-    self times add up to the root's inclusive time."""
+    `auto`): route ``stages_real`` once, ``stage1_real`` once on the
+    cluster of 16 CTAs (``stage1_cluster``), ``stage2_half`` once on the
+    cluster of eight (``stage2_cluster8``); against the plain float64
+    reference (``portbench/reference/rfft1d.py``, NumPy) within the cell's
+    limits, rms_err <= 1e-5 and max_err <= 5e-5 of the reference's RMS;
+    after a warm call the ``alloc`` spans hold C (128 MiB) and the
+    one-sided output (2 (2^23 + 1) floats), the two launches are two
+    ``launch`` spans, no table is built, and the self times add up to the
+    root's inclusive time."""
     import kofft_tpu_torch as kt
     from kofft_tpu_torch.utils import observability as obs
     from portbench import check
@@ -1187,13 +1253,13 @@ def test_rfft_split_at_the_benchmark_shape(cuda):
     snap = obs.snapshot()
     assert HK.classes["stages_real"] == 1 and sum(HK.classes.values()) == 1
     assert HK.launches["stage1_real"] == HK.launches["stage2_half"] == 1
-    assert HK.launches["stage2_cluster8"] == 1
-    assert sum(HK.launches.values()) == 3
+    assert HK.launches["stage2_cluster8"] == HK.launches["stage1_cluster"] == 1
+    assert sum(HK.launches.values()) == 4
     assert yr.shape == yi.shape == (n // 2 + 1,)
-    assert snap["counters"]["alloc_bytes"] == (256 << 20) + 8 * (n // 2 + 1)
+    assert snap["counters"]["alloc_bytes"] == (128 << 20) + 8 * (n // 2 + 1)
     assert snap["counters"]["table_builds"] == 0
     assert snap["spans"]["alloc"]["count"] == 2
-    assert snap["spans"]["launch"]["count"] == 3
+    assert snap["spans"]["launch"]["count"] == 2
     assert sum(s["self_ns"] for s in snap["spans"].values()) == \
         snap["roots"]["incl_ns"]
     e = check.errors(check.planes((yr, yi)), rfft1d.rfft(x.cpu().numpy()))

@@ -1,8 +1,10 @@
 """The stage kernels of the 1-D four-step FFT (csrc/fft_stages.cu on the
 register radix line of csrc/radix_line.cuh), emulated in numpy as the
 kernels index memory: stage 1's column tiles with the four-step twiddle
-fused into the store (float2 factor tables), its column four-step above
-2048 points with the split twiddle and the digit-swapped store, stage 2's
+fused into the store (float2 factor tables), its cluster of 16 CTAs per
+16-column tile at n1 = 4096 and 8192 (each CTA's line FFT of n1 / 16, the
+twiddle w_n1^(r k), the exchange between the CTAs, the radix-16 DFTs and
+W, factored at n1 / 16, on the store to the rows each CTA loaded), stage 2's
 whole-line tiles with the transposed store through the swizzled exchange
 buffer, its cluster of eight one-line CTAs at lines of 4096 and 8192
 (each point sent to the CTA that stores its output row, the cluster's
@@ -32,7 +34,9 @@ import pytest
 pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
 from test_torch_axis import CSRC, _c64, _wavefronts  # noqa: E402
+from test_torch_axis import _cluster_addrs  # noqa: E402
 from test_torch_axis import _data as _data32  # noqa: E402
 
 from kofft_tpu.ops import pallas_kernels as PK  # noqa: E402
@@ -92,14 +96,14 @@ def _radix_blocks(kind, m, t, v, plan):
 
 
 # ---------------------------------------------------------------------------
-# stage 1: column tiles (one launch, or the column four-step's two)
+# stage 1: column tiles of one block, or a cluster of 16 CTAs per tile
 # ---------------------------------------------------------------------------
 
-def _s1_index(rows, m, inner, swap, blocks):
+def _s1_index(rows, m, inner, blocks):
     """stage1_kernel's indexing over the (rows, m, inner) view for the
     given blocks: (T, block row (blocks, 1), column (blocks, threads),
-    line point k (threads, E), load offsets and store offsets (blocks,
-    threads, E))."""
+    line point k (threads, E), and the load offsets (blocks, threads, E),
+    which are also the store offsets)."""
     t, e = HK._axis_tile("col", m, inner)
     assert e == E
     c, ti = HK._axis_lanes("col", m, t, E)
@@ -109,30 +113,94 @@ def _s1_index(rows, m, inner, swap, blocks):
     col = (blocks % tiles)[:, None] * t + c
     s = np.arange(E) * tpl
     g = (row * m * inner + ti * inner + col)[..., None] + s * inner
-    o = ((row // swap) * swap * m * inner + (row % swap) * inner
-         + ti * swap * inner + col)[..., None] + s * swap * inner
-    return t, row, col, ti[:, None] + s, g, o
+    return t, row, col, ti[:, None] + s, g
 
 
-def _emu_s1_launch(a, out, conj=False, tw=None, tw_div=1, swap=1, w=None):
+def _emu_s1_launch(a, out, conj, w):
     """One stage1_kernel launch over the (rows, m, inner) view ``a``, into
-    the flat ``out``: conj on load, the split twiddle ``tw`` (flat
-    float2 table), the digit swap and the four-step twiddle ``w = (base,
-    col)`` (float2 factor tables) as the kernel indexes them."""
+    the flat ``out``: conj on load and the four-step twiddle ``w = (base,
+    col)`` (float2 factor tables) on the store, as the kernel indexes
+    them."""
     rows, m, inner = a.shape
     t, _ = HK._axis_tile("col", m, inner)
     blocks = np.arange(rows * (inner // t))
-    t, row, col, k, g, o = _s1_index(rows, m, inner, swap, blocks)
+    t, row, col, k, g = _s1_index(rows, m, inner, blocks)
     v = a.reshape(-1)[g]
     if conj:
         v = v.conj()
     v = _radix_blocks("col", m, t, v, HK._axis_plan("col", m, t, E))
-    if tw is not None:
-        v = v * tw[k[None] * (inner // tw_div) + (col // tw_div)[..., None]]
-    if w is not None:
-        k1 = k[None] * swap + (row % swap)[..., None]
-        v = v * _w_factor(w, m * swap, inner, k1, col[..., None])
-    out[o] = v
+    out[g] = v * _w_factor(w, m, inner, k[None], col[..., None])
+
+
+def _s1_cluster_index(b, m, inner, ctas):
+    """stage1_cluster_kernel's indexing over (b, m, inner) for the given
+    CTAs (blockIdx.x): (C, T, M = m / C, each CTA's rank (ctas,), column
+    (ctas, threads), the load offsets (ctas, threads, E), which are also
+    the store offsets (load i and store s of a thread: row rank + C*ti +
+    M*i), the exchange's destination CTA (ctas, threads, E) and word of
+    each point there, and the words each thread reads back (threads,
+    C))."""
+    csize, t = HK._cluster_tile(m, inner)
+    mc = m // csize
+    c, ti = HK._axis_lanes("col", mc, t, E)
+    tpl = mc // E
+    rank = ctas % csize
+    tiles = inner // t
+    row = (ctas // csize) // tiles
+    col = ((ctas // csize) % tiles)[:, None] * t + c
+    g = ((row[:, None] * m * inner + col + (rank[:, None] + csize * ti)
+          * inner)[..., None] + np.arange(E) * mc * inner)
+    k = ti[:, None] + np.arange(E) * tpl
+    # a0 + i * kstep of the kernel: word (rank*tpl + ti/C + i*tpl/C)*T + c
+    # of CTA ti mod C, the point's k / C in its slice
+    word = ((rank[:, None, None] * tpl + k[None] // csize) * t
+            + c[None, :, None])
+    dest = (ctas - rank)[:, None, None] + (ti % csize)[None, :, None]
+    dest = np.broadcast_to(dest, word.shape)
+    read = (np.arange(csize)[None, :] * tpl + ti[:, None]) * t + c[:, None]
+    return csize, t, mc, rank, col, g, dest, word, read
+
+
+def _emu_s1_cluster(a, conj=False):
+    """stage1_cluster_kernel over (b, n1, n2) as it indexes: per CTA r of
+    each cluster, rows r + C*(ti + i*tpl) loaded (conj on load), the line
+    FFT of n1 / C (``_radix_blocks``), the twiddle w_n1^(r*k), the push
+    into the C CTAs' buffers (every word written exactly once, all before
+    any read: the cluster barrier), then per CTA q one radix-C DFT a
+    thread over the words it reads back, and output s stored times
+    wk[k, col] * ws[s, col] (k = q + C*ti) to row k + M*s. Asserts that
+    every element of C is stored exactly once."""
+    b, m, inner = a.shape
+    csize, t = HK._cluster_tile(m, inner)
+    ctas = np.arange(b * (inner // t) * csize)
+    csize, t, mc, rank, col, g, dest, word, read = _s1_cluster_index(
+        b, m, inner, ctas)
+    c, ti = HK._axis_lanes("col", mc, t, E)
+    v = a.reshape(-1)[g]
+    if conj:
+        v = v.conj()
+    v = _radix_blocks("col", mc, t, v, HK._axis_plan("col", mc, t, E))
+    ctw = _c64(HK._split_twiddle(csize, mc)).reshape(csize, mc)
+    k = ti[:, None] + np.arange(E) * (mc // E)
+    v = v * ctw[rank[:, None, None], k[None]]
+    buf = np.full((ctas.size, mc * t), np.nan, complex)
+    hits = np.zeros(buf.shape, np.int64)
+    np.add.at(hits, (dest, word), 1)
+    assert (hits == 1).all()
+    buf[dest, word] = v
+    u = buf[ctas[:, None, None], read[None]]
+    assert not np.isnan(u).any()
+    x = np.fft.fft(u, axis=-1)
+    wk, ws = (_c64(f).reshape(-1, inner)
+              for f in HK._stage1_cluster_twiddle(m, inner))
+    kq = (rank[:, None] + csize * ti)[..., None]
+    x = x * wk[kq, col[..., None]] * ws[np.arange(E), col[..., None]]
+    out = np.full(a.size, np.nan, complex)
+    stores = np.zeros(a.size, np.int64)
+    np.add.at(stores, g, 1)
+    assert (stores == 1).all()
+    out[g] = x
+    return out.reshape(a.shape)
 
 
 def _w_factor(w, m, inner, k1, col):
@@ -278,23 +346,19 @@ def _emu_s1_odd_launch(a, out, conj, w):
 
 
 def _emu_stage1(a, conj=False):
-    """stage1 on (b, n1, n2): the launches of ``HK._stage1_views`` (the
-    odd kernel's for a smooth n1), into C."""
+    """stage1 on (b, n1, n2) as it launches: the cluster kernel at the n1
+    of ``HK._COL_CLUSTER``, the odd kernel for a smooth n1, else the
+    one-block kernel, into C."""
     b, n1, n2 = a.shape
+    if n1 in HK._COL_CLUSTER:
+        return _emu_s1_cluster(a, conj)
     w = HK._stage1_twiddle(n1, n2)
-    views = HK._stage1_views(n1, n2)
-    src = a
-    for i, (rows, m, inner, tw, tw_div, swap) in enumerate(views):
-        out = np.full(a.size, np.nan, complex)
-        last = i == len(views) - 1
-        if m & (m - 1):
-            _emu_s1_odd_launch(src.reshape(b * rows, m, inner), out, conj, w)
-        else:
-            _emu_s1_launch(src.reshape(b * rows, m, inner), out,
-                           conj and i == 0, None if tw is None else _c64(tw),
-                           tw_div, swap, w if last else None)
-        src = out
-    return src.reshape(a.shape)
+    out = np.full(a.size, np.nan, complex)
+    if n1 & (n1 - 1):
+        _emu_s1_odd_launch(a, out, conj, w)
+    else:
+        _emu_s1_launch(a, out, conj, w)
+    return out.reshape(a.shape)
 
 
 def _ref_stage1(a, conj=False):
@@ -435,14 +499,93 @@ def test_pair_emulation_vs_jax(n, real):
 @pytest.mark.parametrize("b,n1,n2", [(1, 4096, 128), (2, 4096, 256),
                                      (1, 8192, 128)])
 def test_stage1_column_four_step(b, n1, n2, real, conj):
-    """Stage 1 above 2048 points: lines of m1 with w_n1^(k1a*j1b) fused into
-    the first store, lines of m2 stored to row k1b*m1 + k1a with W fused
-    into the same store; complex forward and inverse, and real input."""
-    assert len(HK._stage1_views(n1, n2)) == 2
+    """Stage 1 above 2048 points: the column FFT as a four-step across a
+    cluster of 16 CTAs in one launch (lines of n1 / 16 per CTA, w_n1^(r*k),
+    the exchange, radix-16 DFTs), W on the store to the rows each CTA
+    loaded; complex forward and inverse, and real input."""
+    assert HK._COL_CLUSTER[n1] == HK._cluster_tile(n1, n2) == (16, 16)
     a = _data((b, n1, n2), n1 + n2)
     if real:
         a = a.real.astype(complex)
     assert snr_db(_ref_stage1(a, conj), _emu_stage1(a, conj)) > EMU_DB
+
+
+@pytest.mark.parametrize("n1", [4096, 8192])
+def test_stage1_cluster_exchange_words_written_once_before_read(n1):
+    """The push of one cluster of stage 1 writes every word of every CTA's
+    exchange buffer exactly once, all before the cluster barrier, and the
+    read-back after it reads every word of its CTA once: no word is read
+    unwritten or overwritten before it is read. The words are those of
+    col_fft's cluster (test_torch_axis._cluster_addrs)."""
+    csize, t, mc, rank, _, _, dest, word, read = _s1_cluster_index(
+        1, n1, 16, np.arange(16))
+    writes = np.zeros((csize, mc * t), np.int64)
+    np.add.at(writes, (dest, word), 1)
+    assert np.all(writes == 1)
+    reads = np.zeros(mc * t, np.int64)
+    np.add.at(reads, read.ravel(), 1)
+    assert np.all(reads == 1)
+    aw, ad, ar = _cluster_addrs(n1, csize, t)
+    assert np.array_equal(ar, read)
+    for r in range(csize):
+        assert np.array_equal(aw(r), word[r])
+        assert np.array_equal(np.broadcast_to(ad[:, None], word[r].shape),
+                              dest[r])
+
+
+@pytest.mark.parametrize("n1", [4096, 8192])
+def test_stage1_cluster_exchange_has_no_bank_conflicts(n1):
+    """Every warp store of the push puts its words for each destination
+    CTA in distinct banks, and every warp read-back is one wavefront (the
+    exchanges of each CTA's own line FFT: test_stage_exchanges_have_no_
+    bank_conflicts)."""
+    csize, t, mc, rank, _, _, dest, word, read = _s1_cluster_index(
+        1, n1, 16, np.arange(16))
+    warps = read.shape[0] // 32
+    assert _wavefronts(read) == warps * csize
+    lane_warp = np.arange(read.shape[0]) // 32
+    for r in range(csize):
+        for i in range(E):
+            key = lane_warp * csize + dest[r, :, i] % csize
+            for kk in np.unique(key):
+                banks = word[r, key == kk, i] & 31
+                assert np.unique(banks).size == banks.size
+
+
+@pytest.mark.parametrize("b,n1,n2", [(2, 4096, 32), (1, 8192, 48)])
+def test_stage1_cluster_stores_every_row_once(b, n1, n2):
+    """Over every CTA of a launch, each element of C (b, n1, n2) is loaded
+    once and stored once: every row of each column tile, by the CTA that
+    loaded it."""
+    csize, t = HK._cluster_tile(n1, n2)
+    ctas = np.arange(b * (n2 // t) * csize)
+    *_, g, _, _, _ = _s1_cluster_index(b, n1, n2, ctas)
+    assert np.array_equal(np.bincount(g.ravel(), minlength=b * n1 * n2),
+                          np.ones(b * n1 * n2, np.int64))
+
+
+@pytest.mark.parametrize("n1,n2", [(4096, 128), (4096, 4096),
+                                   (4096, 8192), (8192, 8192)])
+def test_stage1_cluster_twiddle_factors_are_w(n1, n2):
+    """The cluster's W factors: wk[k, j2] * ws[s, j2] is w_n^((k + M*s) *
+    j2), M = n1 / 16, in float64 within the float32 rounding of its two
+    factors (each <= 2^-24 * sqrt(2) off), over every k1 = k + M*s and
+    j2 (at 8192^2 a sample of rows); each factor is its float64 value
+    rounded once to float32."""
+    wk, ws = (_c64(f).reshape(-1, n2)
+              for f in HK._stage1_cluster_twiddle(n1, n2))
+    m = n1 // 16
+    assert wk.shape == (m, n2) and ws.shape == (16, n2)
+    n = n1 * n2
+    j2 = np.arange(n2)
+    ks = np.arange(m) if n1 * n2 <= 1 << 24 else np.arange(0, m, 7)
+    exact = np.exp(-2j * np.pi * np.mod(np.outer(ks, j2), n) / n)
+    assert np.array_equal(wk[ks], exact.astype(np.complex64))
+    bound = 2 * np.sqrt(2) * 2.0 ** -24
+    for s in range(16):
+        k1 = ks + m * s
+        want = np.exp(-2j * np.pi * np.mod(np.outer(k1, j2), n) / n)
+        assert np.abs(wk[ks] * ws[s] - want).max() <= bound
 
 
 @pytest.mark.parametrize("conj", [False, True])
@@ -574,24 +717,30 @@ def test_cluster_arrival_follows_the_last_exchange(n2):
 # every split the routes use: fit, coalescing, bank conflicts
 # ---------------------------------------------------------------------------
 
-def _stage1_launches(n1, n2):
-    """(rows per batch row, m, inner, swap) of each stage-1 launch."""
-    return [(rows, m, inner, swap)
-            for rows, m, inner, _, _, swap in HK._stage1_views(n1, n2)]
-
-
 @pytest.mark.parametrize("n1,n2", POW2_SPLITS)
 def test_stage_launches_fit(n1, n2):
-    """Every stage launch fits a block: <= 1024 threads and <= 227 KB of
-    shared memory, stage 2 in a cluster of <= 8 CTAs from lines of 4096;
-    stage 1 tiles >= 8 columns, stage 2 tiles >= 8 lines; stage 1 splits
-    above 2048 points."""
-    views = _stage1_launches(n1, n2)
-    assert len(views) == (1 if n1 <= 2048 else 2)
-    for _, m, inner, _ in views:
-        t, e = HK._axis_tile("col", m, inner)
-        assert e == E and t >= 8 and inner % t == 0
-        assert t * m // E <= 1024 and HK._axis_smem(m, t) <= SMEM_MAX
+    """Every stage launch fits: stage 1 one block of <= 1024 threads and
+    <= 227 KB of shared memory tiling >= 8 columns up to 2048 points, and
+    above (4096, 8192) one launch of a cluster of 16 CTAs per 16-column
+    tile, each CTA <= 512 threads and 64 KB (four CTAs per SM at 4096 and
+    two at 8192 at 64 registers a thread, the launch bound), where one
+    block's tile would not fit; stage 2 tiles >= 8 lines, in a cluster of
+    <= 8 CTAs from lines of 4096."""
+    if n1 in HK._COL_CLUSTER:
+        csize, t = HK._cluster_tile(n1, n2)
+        assert (csize, t) == (16, 16) and n2 % t == 0 and n1 > 2048
+        threads, smem = t * n1 // csize // E, 8 * (n1 // csize) * t
+        assert threads <= 512 and smem <= SMEM_MAX
+        per_sm = min(65536 // (64 * threads), SMEM_MAX // smem,
+                     2048 // threads)
+        assert per_sm == {4096: 4, 8192: 2}[n1]
+        with pytest.raises(ValueError):
+            HK._axis_tile("col", n1, n2)
+    else:
+        assert n1 <= 2048
+        t, e = HK._axis_tile("col", n1, n2)
+        assert e == E and t >= 8 and n2 % t == 0
+        assert t * n1 // E <= 1024 and HK._axis_smem(n1, t) <= SMEM_MAX
     t, tc = HK._stage2_tile(n2)
     assert t >= 8 and n1 % t == 0 and t % tc == 0
     assert (t // tc > 1) == (n2 > 2048) and t // tc <= 8
@@ -634,15 +783,25 @@ def _edge_blocks(total):
 
 @pytest.mark.parametrize("n1,n2", POW2_SPLITS)
 def test_stage1_accesses_coalesce(n1, n2):
-    """Each warp of each stage-1 launch loads and stores float32 planes in
-    32-byte runs that fill whole sectors (T >= 8 consecutive columns)."""
-    for rows, m, inner, swap in _stage1_launches(n1, n2):
-        t, _ = HK._axis_tile("col", m, inner)
-        blocks = _edge_blocks(rows * 2 * (inner // t))
-        _, _, _, _, g, o = _s1_index(rows * 2, m, inner, swap, blocks)
-        for addr in (g, o):
-            assert _min_run_bytes(addr) >= 32
-            assert _sectors_ideal(addr)
+    """Each warp of the stage-1 launch loads and stores float32 planes in
+    runs of >= 32 bytes that fill whole sectors (T >= 8 consecutive
+    columns of a row; the cluster's 16 columns of two rows); the cluster's
+    W factor loads are runs of 16 float2 (128 bytes)."""
+    if n1 not in HK._COL_CLUSTER:
+        t, _ = HK._axis_tile("col", n1, n2)
+        blocks = _edge_blocks(2 * (n2 // t))
+        g = _s1_index(2, n1, n2, blocks)[-1]
+        assert _min_run_bytes(g) >= 32 and _sectors_ideal(g)
+        return
+    csize, t = HK._cluster_tile(n1, n2)
+    ctas = _edge_blocks(2 * (n2 // t) * csize)
+    _, _, mc, rank, col, g, _, _, _ = _s1_cluster_index(2, n1, n2, ctas)
+    assert _min_run_bytes(g) >= 64 and _sectors_ideal(g)
+    _, ti = HK._axis_lanes("col", mc, t, E)
+    wk = ((rank[:, None] + csize * ti) * n2 + col)[..., None]
+    ws = col[..., None] + np.arange(E) * n2
+    assert _min_run_bytes(wk, elt=8) >= 128
+    assert _min_run_bytes(ws, elt=8) >= 128
 
 
 @pytest.mark.parametrize("n1,n2", POW2_SPLITS)
@@ -671,19 +830,23 @@ def test_stage2_accesses_coalesce(n1, n2):
 @pytest.mark.parametrize("n1,n2", POW2_SPLITS)
 def test_stage_exchanges_have_no_bank_conflicts(n1, n2):
     """Whole blocks: every warp-wide write and read of every exchange of
-    both stages, stage 2's transposed exchange included (its writes from
-    every CTA of a cluster), is one wavefront under the plan's swizzle."""
+    both stages (stage 1's of each CTA's line FFT on the cluster path),
+    stage 2's transposed exchange included (its writes from every CTA of a
+    cluster), is one wavefront under the plan's swizzle."""
     def check(w, r, sw):
         warps = -(-w.shape[0] // 32)
         for acc in (w, r):
             phys = HK._swizzle(acc, tuple(sw))
             assert _wavefronts(phys) == warps * acc.shape[1]
 
-    for _, m, inner, _ in _stage1_launches(n1, n2):
-        t, e = HK._axis_tile("col", m, inner)
-        steps = HK._axis_plan("col", m, t, e)[0].reshape(-1, 7)
-        for radix, ns, _, *sw in steps[:-1]:
-            check(*HK._exchange_addrs("col", m, t, e, radix, ns), sw)
+    if n1 in HK._COL_CLUSTER:
+        csize, t = HK._cluster_tile(n1, n2)
+        m = n1 // csize
+    else:
+        m, t = n1, HK._axis_tile("col", n1, n2)[0]
+    steps = HK._axis_plan("col", m, t, E)[0].reshape(-1, 7)
+    for radix, ns, _, *sw in steps[:-1]:
+        check(*HK._exchange_addrs("col", m, t, E, radix, ns), sw)
     t, tc = HK._stage2_tile(n2)
     steps = HK._stage2_plan(n2, t, tc)[0].reshape(-1, 7)
     for radix, ns, _, *sw in steps[:-1]:
@@ -728,12 +891,16 @@ def test_odd_butterfly_is_the_dft(o):
 def test_smooth_n1_are_the_splits():
     """The smooth n1 of every n = o * 2^k that _pow2_split serves are the
     19 lengths o * 2^a, 2^a in [128, 1024], o * 2^a <= 3072, and stage 1
-    runs each as one launch of the odd plan."""
+    runs each as one launch of the odd plan (P > 0 sub-line groups), not
+    on the cluster path."""
     got = {HK._pow2_split(o << k)[0] for o in range(3, 24, 2)
            for k in range(7, 27) if HK._pow2_split(o << k) is not None}
     assert sorted(x for x in got if x & (x - 1)) == sorted(SMOOTH_N1)
+    cpu = torch.device("cpu")
     for n1 in SMOOTH_N1:
-        assert HK._stage1_views(n1, 128) == [(1, n1, 128, None, 1, 1)]
+        assert n1 not in HK._COL_CLUSTER
+        t, groups = HK._build_args("stage1", 1, n1, 128, cpu)[2:4]
+        assert (t, groups) == HK._odd_tile(n1) and groups > 0
     for bad in (3 * 64, 25 * 128, 3 * 2048, 5 * 1024):
         with pytest.raises(ValueError):
             HK._odd_tile(bad)

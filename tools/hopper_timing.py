@@ -5,7 +5,7 @@ can be compared in turns.
 
     python tools/hopper_timing.py [--root DIR] [--label NAME] [--out FILE]
                                   [--kinds kernel,route,path,dense,smooth,
-                                           stft,stage2,cluster]
+                                           stft,stage2,cluster,stage1]
 
 ``--root`` is the checkout whose ``kofft_tpu_torch`` is imported (default:
 this one), so a parent tree unpacked beside it can be timed by the same
@@ -59,6 +59,14 @@ cluster path since it has one, the column four-step before) beside
 4096) and (1, 8192, 8192); its first row (kind ``ptxas``) holds the
 registers and spill bytes ptxas reported for the cluster kernel's
 instances, where this process built the library.
+``stage1`` stage 1's long columns as the tree launches them (the cluster
+of 16 CTAs since it has one, the column four-step before): stage1,
+stage1 with conj and stage1_real at (1, 4096, 4096) and (1, 8192, 8192)
+beside col_fft (the same line FFTs without W) and torch.fft.fft(dim=1),
+then fft_split and rfft_split at 2^24, 2^25 and 2^26; its first row
+(kind ``ptxas``) holds the registers and spill bytes of the stage-1
+cluster kernel's instances, where this process built the library and
+the tree has them.
 ``--kinds`` lists the groups in the order they run, a group may come
 twice (``path,kernel,path`` times the paths before and after the kernel
 rows in one process); each row carries ``pos``, its group's place in that
@@ -99,7 +107,7 @@ def main() -> int:
     ap.add_argument("--kinds", default="kernel,route,path",
                     help="row groups in the order they run: kernel (with "
                          "its library rows), route, path, dense, "
-                         "smooth, stft, stage2, cluster")
+                         "smooth, stft, stage2, cluster, stage1")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -297,10 +305,40 @@ def main() -> int:
                 lambda: torch.fft.fft(ac, dim=1))
             del ar, ai, ac
 
+    def stage1_rows(pos):
+        from chip_smoke import ptxas_summary
+        from kofft_tpu_torch.ops import _cuda_build as B
+        B.lib()
+        emit({"label": args.label, "pos": pos, "kind": "ptxas",
+              "name": "stage1_cluster_kernel",
+              "ptxas": ptxas_summary(B.build_info["log"],
+                                     "stage1_cluster_kernel"),
+              "built": B.build_info["seconds"] != 0.0})
+        for shape in [(1, 4096, 4096), (1, 8192, 8192)]:
+            ar, ai = planes(shape)
+            row(pos, "stage1", "stage1", shape, lambda: HK.stage1(ar, ai))
+            row(pos, "stage1", "stage1 conj", shape,
+                lambda: HK.stage1(ar, ai, True))
+            row(pos, "stage1", "stage1_real", shape,
+                lambda: HK.stage1_real(ar))
+            row(pos, "stage1", "col_fft", shape, lambda: HK.col_fft(ar, ai))
+            ac = torch.complex(ar, ai)
+            row(pos, "library", "torch.fft.fft(dim=1)", shape,
+                lambda: torch.fft.fft(ac, dim=1))
+            del ar, ai, ac
+        for shape in [(1 << 24,), (1 << 25,), (1 << 26,)]:
+            xr, xi = planes(shape)
+            row(pos, "path", "fft_split", shape,
+                lambda: kt.fft_split(xr, xi))
+            row(pos, "path", "rfft_split", shape,
+                lambda: kt.rfft_split(xr))
+            del xr, xi
+
     groups = {"kernel": kernel_rows,
               "route": route_rows, "path": path_rows, "dense": dense_rows,
               "smooth": smooth_rows, "stft": stft_rows,
-              "stage2": stage2_rows, "cluster": cluster_rows}
+              "stage2": stage2_rows, "cluster": cluster_rows,
+              "stage1": stage1_rows}
     for pos, kind in enumerate(args.kinds.split(",")):
         emit({"label": args.label, "pos": pos, "kind": "state", "name": kind,
               "state": smi("clocks.sm,clocks.mem,temperature.gpu,"
