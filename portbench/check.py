@@ -12,6 +12,11 @@ reference's root mean square |ref|_rms:
 A run is correct when every sampled answer reads each number at or below
 the cell's limit for it. The limits come from the cell's file; how each
 was set is in PERF.md.
+
+On more than one rank each rank holds its own part of an answer and of its
+reference: ``partial`` reduces a part to sums and a largest gap, and
+``combine`` joins the parts of one answer into the numbers ``errors``
+gives on the whole array, so no rank gathers the answer.
 """
 
 from __future__ import annotations
@@ -29,14 +34,35 @@ def planes(out) -> np.ndarray:
 
 def errors(got: np.ndarray, ref: np.ndarray) -> dict:
     """The compared numbers of one answer against its reference."""
+    return combine([partial(got, ref)])
+
+
+def partial(got: np.ndarray, ref: np.ndarray) -> dict:
+    """A part of an answer against the same part of its reference (on
+    more than one rank, the rank's own): the sums and the largest gap
+    that ``combine`` joins."""
     if got.shape != ref.shape:
-        return {k: float("inf") for k in NAMES}
+        return {"same_shape": False}
     d = np.abs(got - ref)
-    scale = np.sqrt(np.mean(np.abs(ref) ** 2))
-    worst = float(np.max(d)) if d.size else 0.0
-    if not np.isfinite(worst):
+    return {"same_shape": True, "n": d.size,
+            "sq_err": float(np.sum(d ** 2)),
+            "sq_ref": float(np.sum(np.abs(ref) ** 2)),
+            "max_abs": float(np.max(d)) if d.size else 0.0}
+
+
+def combine(parts: list) -> dict:
+    """The compared numbers of a whole answer from the ``partial`` of
+    each of its parts; an answer of another shape, with a gap that is not
+    finite, or empty fails every number."""
+    n = sum(p.get("n", 0) for p in parts)
+    gaps = [p.get("max_abs", 0.0) for p in parts]
+    if not all(p["same_shape"] for p in parts) or not n \
+            or not np.all(np.isfinite(gaps)):
         return {k: float("inf") for k in NAMES}
-    return {"rms_err": float(np.sqrt(np.mean(d ** 2)) / scale),
+    worst = max(gaps)
+    scale = np.sqrt(sum(p["sq_ref"] for p in parts) / n)
+    return {"rms_err": float(np.sqrt(sum(p["sq_err"] for p in parts) / n)
+                             / scale),
             "max_err": worst / float(scale)}
 
 

@@ -11,6 +11,15 @@ an untraced one does, and the host-clock readers read it; the device is
 drained and the second half runs under ``torch.profiler``, which the
 device readers read.
 
+On more than one rank (``group``, from ``ranks``) every rank runs these
+steps on its own card, and every call is a collective. So the ranks issue
+the same calls: the window is a count of calls, rank 0's pace over a
+short run after the warm-up scaled to ``seconds`` and broadcast; each
+window starts after a control barrier and ends once every rank's card has
+finished (``sync`` waits for the card, then for the other ranks). Rank 0
+reads the metrics and builds the result; the check combines each rank's
+part of every sampled answer (``check.partial``).
+
 Nothing here is specific to a configuration or a cell: those are files
 that ``loader`` finds by name.
 """
@@ -106,11 +115,33 @@ def _device_hooks(device: str):
     return (lambda timed: _HostEvent()), (lambda: None)
 
 
+# host seconds a pace is read over, at the least
+PACE_S = 0.25
+
+
+def _window_calls(group, loop, calls: int, seconds: float) -> int:
+    """The calls of a window of ``seconds``, the same on every rank: rank
+    0's pace over ``calls`` calls, four times as many until they take
+    ``PACE_S``, scaled and broadcast."""
+    while True:
+        rec = loop(calls=calls)
+        n = None
+        took = (rec["end"] - rec["start"]) * 1e-9
+        if group.rank == 0 and took >= PACE_S:
+            n = max(1, round(seconds * calls / took))
+        n = group.broadcast(n)
+        if n is not None:
+            return n
+        calls *= 4
+
+
 def run_cell(root: Path, workload: str, seed: int, seconds: float,
              trace: bool, device: str = "cuda", t_start: float | None = None,
-             log=print) -> dict:
+             log=print, group=None) -> dict | None:
     """One run of ``workload``: the result line as a dict, its ``checks``
-    last. ``t_start`` is the process's start on ``time.perf_counter``."""
+    last. ``t_start`` is the process's start on ``time.perf_counter``.
+    With ``group`` (``ranks.Group``) this rank is one of several, and
+    only rank 0 returns the result; the others return None."""
     import torch
     t_start = time.perf_counter() if t_start is None else t_start
     cell = loader.load(root, workload)
@@ -120,6 +151,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     t_loaded = time.perf_counter()
     pool = ad.make_pool(cfg, tr, pool_seed, device)
     new_event, sync = _device_hooks(device)
+    if group is not None:
+        sync = group.synced(sync)
     inflight = tr["inflight"]
     timed = bool(tr.get("latency"))
     ring = max(inflight, STAMP_RING) if timed else inflight
@@ -128,12 +161,26 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     for e in events + (starts or []):
         e.record()
 
+    issued = [0]
+
     def loop(**kw):
-        return cell.loop.run(call, pool, inflight, events, sync,
-                             starts=starts, **kw)
+        rec = cell.loop.run(call, pool, inflight, events, sync,
+                            starts=starts, **kw)
+        issued[0] += rec["calls"]
+        return rec
+
+    span = {"seconds": seconds / 2 if trace else seconds}
+
+    def measure(**kw):
+        if group is not None:
+            group.barrier()
+        return loop(**span, **kw)
 
     t_pool = time.perf_counter()
     loop(calls=max(16, 2 * len(pool), ring + inflight))
+    if group is not None:
+        span = {"calls": _window_calls(group, loop, max(16, ring + inflight),
+                                       span["seconds"])}
     _program_counters(reset=True)
     setup_s = time.perf_counter() - t_start
     log(f"set-up: program loaded at {t_loaded - t_start:.3f} s, pool made "
@@ -141,7 +188,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         f"{t_start + setup_s - t_pool:.3f} s")
     keep = _Reservoir(tr["check"]["samples"], sample_seed)
     summary = None
-    host = loop(seconds=seconds / 2 if trace else seconds, keep=keep)
+    host = measure(keep=keep)
     rec = host
     if trace:
         offsets = tracing.clock_offsets()
@@ -151,8 +198,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
             activities=[act.CUDA if device == "cuda" else act.CPU])
         prof.start()
         n0 = host["calls"]
-        rec = loop(seconds=seconds / 2,
-                   keep=lambda i, j, out: keep(n0 + i, j, out))
+        rec = measure(keep=lambda i, j, out: keep(n0 + i, j, out))
         prof.stop()
         t0 = time.perf_counter()
         records = tracing.device_records(prof)
@@ -164,15 +210,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         del prof, records
     window_s = (host["end"] - host["start"]) * 1e-9
     attempted = host["calls"] + (rec["calls"] if trace else 0)
-    dev = {"platform": "cpu", "kind": "cpu", "count": 1,
-           "memory_peak_bytes": 0}
-    if device == "cuda":
-        dev = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-               "count": 1,
-               "memory_peak_bytes": int(torch.cuda.max_memory_allocated(0))}
-    if summary is not None:
-        dev["busy_s"] = summary.busy_s
-        dev["window_s"] = summary.window_s
+    dev = _devices(group, device, issued[0], summary, log)
     log(f"program counters over the window: {_program_counters()}")
 
     # the program's state goes; the sampled answers stay for the check
@@ -180,11 +218,17 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     work = ad.work(cfg, tr)
     t0 = time.perf_counter()
     inputs = ad.make_pool(cfg, tr, pool_seed, device)
+    compare = check.errors if group is None else check.partial
     readings = []
     for i, j, out in sorted(keep.kept, key=lambda x: x[0]):
-        readings.append(check.errors(ad.answer(out),
-                                     ad.expected(cfg, tr, inputs[j])))
+        readings.append(compare(ad.answer(out),
+                                ad.expected(cfg, tr, inputs[j])))
     del inputs, keep
+    if group is not None:
+        parts = group.gather(readings)
+        if group.rank != 0:
+            return None
+        readings = [check.combine(list(p)) for p in zip(*parts)]
     correct, failed, checks = check.judge(readings, tr["check"]["limits"])
     log(f"check: {len(readings)} sampled answers of {attempted} calls "
         f"against the reference in {time.perf_counter() - t0:.3f} s")
@@ -211,6 +255,46 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         result["breakdown"] = tracing.breakdown(summary)
     result["checks"] = checks
     return result
+
+
+def _devices(group, device: str, issued: int, summary, log) -> dict | None:
+    """The result's ``device``: the card this process ran on or, with
+    ``group``, every rank's card (on rank 0; None on the others). The
+    distinct cards, their name, the fullest card's peak and each card's,
+    and in a traced run the busy seconds averaged over the cards, rank
+    0's traced window and each card's. Every rank has to have issued the
+    same calls."""
+    import torch
+    mine = {"calls": issued, "peak": 0}
+    if device == "cuda":
+        mine["peak"] = int(torch.cuda.max_memory_allocated(
+            torch.cuda.current_device()))
+    if summary is not None:
+        mine.update(busy_s=summary.busy_s, window_s=summary.window_s)
+    if group is None:
+        got, count = [mine], 1
+        kind = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+    else:
+        got = group.gather(mine)
+        if group.rank != 0:
+            return None
+        calls = [g["calls"] for g in got]
+        log(f"calls issued by rank 0 ... {group.size - 1}: {calls}")
+        if len(set(calls)) != 1:
+            raise RuntimeError(f"the ranks issued different numbers of "
+                               f"calls: {calls}")
+        kind, count = group.kind, group.count
+    peaks = [g["peak"] for g in got]
+    dev = {"platform": "gpu" if device == "cuda" else "cpu", "kind": kind,
+           "count": count, "memory_peak_bytes": max(peaks)}
+    if summary is not None:
+        dev["busy_s"] = sum(g["busy_s"] for g in got) / len(got)
+        dev["window_s"] = summary.window_s
+    dev["memory_peak_bytes_per_device"] = peaks
+    if summary is not None:
+        dev["busy_s_per_device"] = [g["busy_s"] for g in got]
+        dev["window_s_per_device"] = [g["window_s"] for g in got]
+    return dev
 
 
 def _program_counters(reset: bool = False) -> dict:

@@ -9,8 +9,10 @@ with ``--trace 1`` its per-layer metrics, read from ``torch.profiler``
 over the window. The last line of standard output is the result (JSON);
 the numbers that decided ``correct`` are the last lines of standard error
 and the result's last key. Exit codes: 0 a result was printed, 1 the run
-failed, 2 no CUDA device or fewer than the cell asks for, 3 a forbidden
-module was loaded, 4 the program is not the checkout's own.
+failed, 2 no CUDA device or fewer than the cell asks for, or two ranks
+on one card, 3 a forbidden module was loaded, 4 the program is not the
+checkout's own. A cell on d > 1 cards runs as d ranks, one process per
+card (``ranks``), and only rank 0's result is printed.
 """
 
 import time
@@ -71,15 +73,30 @@ def main(argv=None) -> int:
     _say(f"cell {args.workload}, seed {args.seed}, {args.seconds} s, "
          f"trace {args.trace}; torch {torch.__version__}, CUDA "
          f"{torch.version.cuda}")
-    result = harness.run_cell(ROOT, args.workload, args.seed, args.seconds,
-                              bool(args.trace), "cuda", T_START, _say)
-    from kofft_tpu_torch.ops import _cuda_build
-    _say(f"kernel library: built in {_cuda_build.build_info['seconds']} s "
-         f"(0.0: found built; None: not loaded), "
-         f"{_cuda_build.build_info['path']}")
+    found = []
+    if chips == 1:
+        result = harness.run_cell(ROOT, args.workload, args.seed,
+                                  args.seconds, bool(args.trace), "cuda",
+                                  T_START, _say)
+        from kofft_tpu_torch.ops import _cuda_build
+        _say(f"kernel library: built in {_cuda_build.build_info['seconds']}"
+             f" s (0.0: found built; None: not loaded), "
+             f"{_cuda_build.build_info['path']}")
+    else:
+        from portbench import ranks
+        try:
+            result, found = ranks.launch(ROOT, args.workload, args.seed,
+                                         args.seconds, bool(args.trace),
+                                         "cuda", chips, T_START, _say)
+        except ranks.Refused as e:
+            _say(f"refused: {e}")
+            return 2
+        except ranks.RankFailed as e:
+            _say(f"failed: {e}")
+            return 1
     _say(f"card: {_power_limit()}; peaks {roofline.PEAK_BYTES!r} B/s, "
          f"{roofline.PEAK_FLOPS!r} flop/s (H100 SXM at 700 W)")
-    found = harness.forbidden_modules()
+    found = sorted(set(found) | set(harness.forbidden_modules()))
     if found:
         _say(f"forbidden modules loaded: {', '.join(found)}")
         return 3

@@ -465,7 +465,7 @@ def test_the_harness_names_no_configuration_or_cell():
     names = {w for w in CELLS} | {w.split(".")[0] for w in CELLS} | \
         {w.split(".")[1] for w in CELLS}
     for f in ("run.py", "harness.py", "loader.py", "trace.py", "check.py",
-              "readers.py", "traffic/closed.py"):
+              "readers.py", "ranks.py", "traffic/closed.py"):
         text = (BENCH / f).read_text()
         assert not [n for n in names if n in text], f
 

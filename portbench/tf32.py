@@ -45,8 +45,11 @@ def dft(xr: torch.Tensor, xi: torch.Tensor, bins: int | None = None):
     n = xr.shape[-1]
     bins = n if bins is None else bins
     if n <= _DIRECT:
-        fr, fi = _dft_matrix(n, bins, xr.device)
-        return _cmm(xr, xi, fr, fi)
+        # all n bins, then the first: the same numbers whatever ``bins``
+        # is, as a product of fewer columns need not round alike
+        fr, fi = _dft_matrix(n, n, xr.device)
+        yr, yi = _cmm(xr, xi, fr, fi)
+        return yr[..., :bins], yi[..., :bins]
     n1 = 1 << (n.bit_length() - 1) // 2
     n2 = n // n1
     # x[j1 n2 + j2] -> X[k1 + n1 k2]: columns of n1, twiddle, rows of n2
